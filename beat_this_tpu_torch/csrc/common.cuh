@@ -8,11 +8,17 @@
 // registers (rows rg and rg + 16, columns 2*cp + 32*j + {0, 1}, with
 // cp = tid % 16 and rg = tid / 16). Activation tiles use a row stride of C + 1
 // floats so that the two row groups of a warp hit different banks.
+//
+// The training kernels add `mm_acc_t` (the same product against a weight
+// read transposed) and `outer_acc` (weight gradients: a product over the
+// rows of a tile), and pass a `Dropout` to `ff_tail`.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace bt {
 
@@ -40,6 +46,12 @@ __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
+// d/dv of gelu_exact
+__device__ __forceinline__ float gelu_grad(float v) {
+  const float phi = expf(-0.5f * v * v) * 0.39894228040143268f;
+  return 0.5f * (1.0f + erff(v * 0.70710678118654752f)) + v * phi;
+}
+
 __host__ __device__ constexpr int tile_ld(int c) { return c + 1; }
 
 // Floats of the weight staging buffer `mm_acc` needs for NCOL columns.
@@ -49,15 +61,22 @@ __host__ __device__ constexpr int stage_floats(int ncol) { return ncol * (kKC + 
 // for k in [0, K). A: kRows x K float tile in shared memory. W: global, torch
 // Linear layout (row n holds the K inputs of output n). K % kKC == 0,
 // NCOL % 32 == 0. Ws: stage_floats(NCOL) floats of shared memory.
-template <int NCOL, typename T>
-__device__ __forceinline__ void mm_acc(float (&acc)[2][NCOL / 16], const float* A, int lda,
-                                       const T* __restrict__ W, int ldw, int n0, int K,
-                                       float* Ws) {
+// TRANS: W holds output n's input k at W[k * ldw + n] (a torch Linear weight
+// read transposed); staging then walks n fastest, which keeps it coalesced.
+template <int NCOL, bool TRANS, typename T>
+__device__ __forceinline__ void mm_acc_impl(float (&acc)[2][NCOL / 16], const float* A, int lda,
+                                            const T* __restrict__ W, int ldw, int n0, int K,
+                                            float* Ws) {
   const int tid = threadIdx.x, cp = tid & 15, rg = tid >> 4;
   for (int k0 = 0; k0 < K; k0 += kKC) {
     for (int e = tid; e < NCOL * kKC; e += kThreads) {
-      const int n = e / kKC, k = e % kKC;
-      Ws[n * (kKC + 1) + k] = to_f(W[(size_t)(n0 + n) * ldw + k0 + k]);
+      if (TRANS) {
+        const int k = e / NCOL, n = e % NCOL;
+        Ws[n * (kKC + 1) + k] = to_f(W[(size_t)(k0 + k) * ldw + n0 + n]);
+      } else {
+        const int n = e / kKC, k = e % kKC;
+        Ws[n * (kKC + 1) + k] = to_f(W[(size_t)(n0 + n) * ldw + k0 + k]);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -75,6 +94,51 @@ __device__ __forceinline__ void mm_acc(float (&acc)[2][NCOL / 16], const float* 
       }
     }
     __syncthreads();
+  }
+}
+
+template <int NCOL, typename T>
+__device__ __forceinline__ void mm_acc(float (&acc)[2][NCOL / 16], const float* A, int lda,
+                                       const T* __restrict__ W, int ldw, int n0, int K,
+                                       float* Ws) {
+  mm_acc_impl<NCOL, false, T>(acc, A, lda, W, ldw, n0, K, Ws);
+}
+
+// acc[i][2j+e] += sum_k A[(rg + 16 i) * lda + k] * W[k * ldw + n0 + 2cp + 32j + e]:
+// the product with the transpose of a torch-layout weight (e.g. d_y W2 for
+// W2 of shape (C, M): ldw = M, n indexes M).
+template <int NCOL, typename T>
+__device__ __forceinline__ void mm_acc_t(float (&acc)[2][NCOL / 16], const float* A, int lda,
+                                         const T* __restrict__ W, int ldw, int n0, int K,
+                                         float* Ws) {
+  mm_acc_impl<NCOL, true, T>(acc, A, lda, W, ldw, n0, K, Ws);
+}
+
+template <int N> __device__ __forceinline__ void zero(float (&a)[2][N]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) a[i][j] = 0.f;
+}
+
+// Weight-gradient product over the rows of a tile:
+//   acc[a][i] += sum_{r < kRows} L[r * ldl + 4 * warp + a] * R[r * ldr + lane + 32 i]
+// for a < 4, i < NI: the block covers 32 L columns by 32 * NI R columns.
+// Rows past the tensor's end must hold zeros in L or R.
+template <int NI>
+__device__ __forceinline__ void outer_acc(float (&acc)[4][NI], const float* L, int ldl,
+                                          const float* R, int ldr) {
+  const int lane = threadIdx.x & 31, l0 = 4 * (threadIdx.x >> 5);
+  for (int r = 0; r < kRows; ++r) {
+    float l[4], rv[NI];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) l[a] = L[r * ldl + l0 + a];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) rv[i] = R[r * ldr + lane + 32 * i];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int i = 0; i < NI; ++i) acc[a][i] += l[a] * rv[i];
   }
 }
 
@@ -128,16 +192,19 @@ template <int C> __host__ __device__ constexpr int ff_tail_floats() {
 }
 
 // The feed-forward residual over a row tile:
-//   out = y + W2 gelu(W1 round_T(rmsnorm(y) * gamma) + b1) + b2,
+//   out = y + drop(W2 drop(gelu(W1 round_T(rmsnorm(y) * gamma) + b1)) + b2),
 // with the hidden layer streamed kHid units at a time so it never leaves the
 // block. y: kRows x C float tile (stride tile_ld(C)), unchanged. scratch:
 // ff_tail_floats<C>() floats. Weights in torch layout: w1 (M, C), w2 (C, M).
+// `drop` (off at eval) masks the FF hidden and output sites by the row's
+// index in the flattened (rows, C) tensor.
 template <int C, typename T>
 __device__ __forceinline__ void ff_tail(const float* y, float* scratch,
                                         const float* __restrict__ gamma,
                                         const T* __restrict__ w1, const float* __restrict__ b1,
                                         const T* __restrict__ w2, const float* __restrict__ b2,
-                                        int M, T* __restrict__ out, int64_t row0, int nrows) {
+                                        int M, T* __restrict__ out, int64_t row0, int nrows,
+                                        const Dropout& drop = Dropout{}) {
   constexpr int ld = tile_ld(C);
   float* g = scratch;
   float* h = g + kRows * ld;
@@ -161,13 +228,17 @@ __device__ __forceinline__ void ff_tail(const float* y, float* scratch,
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < kHid / 32; ++j)
+      for (int j = 0; j < kHid / 32; ++j) {
+        const int c0 = j0 + 2 * cp + 32 * j;  // even: both columns in one Philox group
+        float f[4];
+        keep4(drop, kSiteFFHidden, 0, 0, (uint32_t)(row0 + rg + 16 * i), c0 >> 2, f);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 2 * cp + 32 * j + e;
           h[(rg + 16 * i) * (kHid + 1) + col] =
-              round_to<T>(gelu_exact(hacc[i][2 * j + e] + b1[j0 + col]));
+              round_to<T>(gelu_exact(hacc[i][2 * j + e] + b1[j0 + col]) * f[(c0 & 3) + e]);
         }
+      }
     __syncthreads();
     mm_acc<C, T>(acc, h, kHid + 1, w2 + j0, M, 0, kHid, ws);
   }
@@ -176,14 +247,24 @@ __device__ __forceinline__ void ff_tail(const float* y, float* scratch,
     const int r = rg + 16 * i;
     if (r >= nrows) continue;
 #pragma unroll
-    for (int j = 0; j < C / 32; ++j)
+    for (int j = 0; j < C / 32; ++j) {
+      float f[4];
+      keep4(drop, kSiteFFOut, 0, 0, (uint32_t)(row0 + r), (2 * cp + 32 * j) >> 2, f);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 2 * cp + 32 * j + e;
-        out[(row0 + r) * C + col] = from_f<T>(y[r * ld + col] + acc[i][2 * j + e] + b2[col]);
+        out[(row0 + r) * C + col] =
+            from_f<T>(y[r * ld + col] + (acc[i][2 * j + e] + b2[col]) * f[((2 * cp) & 3) + e]);
       }
+    }
   }
 }
+
+// out[i] = sum over p < parts, in order, of part[p * n + i]: the deterministic
+// second pass of a reduction whose first pass wrote one partial per block.
+// Defined in fused_ff_train.cu.
+cudaError_t sum_partials(const float* part, float* out, int parts, int64_t n,
+                         cudaStream_t stream);
 
 // Raise the dynamic shared-memory limit of `kernel` when it needs more than
 // the default 48 KB; returns the first error.

@@ -14,7 +14,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from beat_this_tpu.io.torch_ckpt import _strip_keys, pytree_to_torch_state_dict
+from beat_this_tpu.io.torch_ckpt import (
+    _strip_keys,
+    pytree_to_torch_state_dict,
+    torch_state_dict_to_pytree,
+)
 from beat_this_tpu_torch.model.beat_this import BeatThisConfig
 
 
@@ -44,6 +48,18 @@ def from_jax(params: dict, state: dict) -> dict[str, torch.Tensor]:
     """State dict of the PyTorch model from the JAX package's (params, state)
     pytrees (JAX or numpy arrays)."""
     return _to_torch(_strip_keys(pytree_to_torch_state_dict(params, state)))
+
+
+def to_jax(state_dict: dict) -> tuple[dict, dict]:
+    """The JAX package's (params, state) numpy pytrees from a state dict of
+    the PyTorch model (tensors; a `model.` prefix is stripped), inverse to
+    `from_jax`. Also maps a dict of gradients keyed like the parameters,
+    given the batch-norm running statistics beside them."""
+    sd = {k: v.detach().cpu().float().numpy() if torch.is_tensor(v) else np.asarray(v)
+          for k, v in _strip_keys(state_dict).items()}
+    n_layers = sum(1 for k in sd if k.startswith("transformer_blocks.layers.")
+                   and k.endswith(".0.norm.gamma"))
+    return torch_state_dict_to_pytree(sd, BeatThisConfig(n_layers=n_layers))
 
 
 def init_beat_this(seed: int, config: BeatThisConfig = BeatThisConfig()) -> dict[str, torch.Tensor]:

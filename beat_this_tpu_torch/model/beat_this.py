@@ -1,4 +1,4 @@
-"""The BeatThis model (eval) as a PyTorch module, counterpart of
+"""The BeatThis model as a PyTorch module, counterpart of
 beat_this_tpu/model/beat_this.py.
 
 The module tree and parameter names are the reference's
@@ -7,7 +7,11 @@ checkpoint's after its `model.` prefix is stripped. The forward keeps the
 JAX package's (batch, time, freq, channels) activation layout and its
 routing: frequency blocks through `freq_roformer`, unmasked time blocks and
 main layers through `time_roformer`, and with `valid_lengths` the masked
-composable attention plus `ff_residual`.
+composable attention plus `ff_residual`. In training (`train=True`) batch
+norm uses batch statistics and updates its running statistics, and every
+time-axis attention branch goes through `time_attention_train` and every
+feed-forward through `ff_residual(train=True)` (the training kernels),
+with dropout from one int seed per call drawn from `seed`.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from beat_this_tpu_torch.model.layers import (
     ff_residual,
     freq_roformer,
     rms_norm,
+    time_attention_train,
     time_roformer,
 )
 from beat_this_tpu_torch.ops.rotary import rope_tables
@@ -130,6 +135,24 @@ class _TaskHeads(nn.Module):
         self.beat_downbeat_lin = nn.Linear(c.transformer_dim, 2)
 
 
+def _on_cuda(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
+class _Seeds:
+    """The int32 dropout seeds of one training forward, one per kernel call
+    in a fixed order (beat_this_tpu/model/layers.py:51-59 draws one per
+    call); every call gets None when `seed` is None (no dropout)."""
+
+    def __init__(self, seed: Optional[int]):
+        self.gen = None if seed is None else torch.Generator().manual_seed(int(seed))
+
+    def __call__(self) -> Optional[int]:
+        if self.gen is None:
+            return None
+        return int(torch.randint(0, 2**31 - 1, (1,), generator=self.gen))
+
+
 class BeatThis(nn.Module):
     """Frontend (stem, three partial-transformer blocks, projection), main
     transformer and SumHead, under the reference's parameter names."""
@@ -147,6 +170,8 @@ class BeatThis(nn.Module):
         valid_lengths: Optional[torch.Tensor] = None,
         compute_dtype: torch.dtype = torch.float32,
         kernels: bool = True,
+        train: bool = False,
+        seed: Optional[int] = None,
     ) -> dict[str, torch.Tensor]:
         """x: (batch, time, spect_dim) log-mel -> {"beat", "downbeat"} float32
         logits of shape (batch, time).
@@ -157,8 +182,12 @@ class BeatThis(nn.Module):
         `compute_dtype`: torch.float32 or torch.bfloat16 for the heavy
         compute; norms, softmax and the head stay float32. `kernels=False`
         takes the composable path everywhere (the kernels' plain versions).
+        `train`: batch statistics (running statistics updated in place) and
+        dropout from `seed` (none when None). Training on a CUDA tensor with
+        `partial_transformers` raises NotImplementedError: its frequency
+        blocks need the unported fused_freq training kernels (ROADMAP B6/B7).
         """
-        h = self.features(x, valid_lengths, compute_dtype, kernels)
+        h = self.features(x, valid_lengths, compute_dtype, kernels, train, seed)
         head = self.task_heads.beat_downbeat_lin
         y = F.linear(h, head.weight.float(), head.bias.float())
         beat, downbeat = y[..., 0], y[..., 1]
@@ -172,6 +201,8 @@ class BeatThis(nn.Module):
         valid_lengths: Optional[torch.Tensor] = None,
         compute_dtype: torch.dtype = torch.float32,
         kernels: bool = True,
+        train: bool = False,
+        seed: Optional[int] = None,
     ) -> torch.Tensor:
         """The final RMS-normed embedding (batch, time, transformer_dim) that
         the head reads, as float32; arguments as `forward`."""
@@ -179,6 +210,16 @@ class BeatThis(nn.Module):
         b, t, f = x.shape
         if f != c.spect_dim:
             raise ValueError(f"expected {c.spect_dim} mel bins, got {f}")
+        if train and valid_lengths is not None:
+            raise ValueError("valid_lengths is an inference-only mechanism")
+        if train and c.partial_transformers and _on_cuda(x):
+            raise NotImplementedError(
+                "training with partial_transformers on CUDA needs the fused_freq training "
+                "kernels, not ported yet (ROADMAP B6/B7); use --no-partial-transformers"
+            )
+        seeds = _Seeds(seed if train else None)
+        drop_f = c.dropout_frontend if train else 0.0
+        drop_t = c.dropout_transformer if train else 0.0
         tmask = None
         if valid_lengths is not None:
             tmask = (
@@ -193,10 +234,10 @@ class BeatThis(nn.Module):
             return torch.where(mask, h, torch.zeros((), dtype=h.dtype, device=h.device))
 
         stem = self.frontend.stem
-        h = batch_norm_apply(stem.bn1d, x)
+        h = batch_norm_apply(stem.bn1d, x, train=train)
         h = zero_tail(h.to(compute_dtype))[..., None]  # (B, T, F, 1)
         h = conv2d_tf(stem.conv2d.weight, h, stride_freq=4, pad_time=1)
-        h = F.gelu(batch_norm_apply(stem.bn2d, h))  # (B, T, 32, 32)
+        h = F.gelu(batch_norm_apply(stem.bn2d, h, train=train))  # (B, T, 32, 32)
 
         rope_time = rope_tables(t, c.head_dim, x.device)
         for block in self.frontend.blocks:
@@ -207,9 +248,21 @@ class BeatThis(nn.Module):
                 p = block.partial
                 rope_freq = rope_tables(n_freq, c.head_dim, x.device)
                 hf = h.reshape(b * t, n_freq, dim)
-                hf = freq_roformer(p.attnF, p.ffF, hf, rope_freq, heads, kernels=kernels)
+                if train:  # the composable path (CPU only, see above)
+                    hf = hf + attention_block(p.attnF, hf, rope_freq, heads,
+                                              dropout_rate=drop_f, seed=seeds())
+                    hf = ff_residual(p.ffF, hf, kernels=kernels, train=True,
+                                     dropout_rate=drop_f, seed=seeds())
+                else:
+                    hf = freq_roformer(p.attnF, p.ffF, hf, rope_freq, heads, kernels=kernels)
                 ht = hf.reshape(b, t, n_freq, dim).transpose(1, 2).reshape(b * n_freq, t, dim)
-                if tmask is None:
+                if train:
+                    ht = ht + time_attention_train(p.attnT, ht, rope_time, heads,
+                                                   dropout_rate=drop_f, seed=seeds(),
+                                                   kernels=kernels)
+                    ht = ff_residual(p.ffT, ht, kernels=kernels, train=True,
+                                     dropout_rate=drop_f, seed=seeds())
+                elif tmask is None:
                     ht = time_roformer(p.attnT, p.ffT, ht, rope_time, heads, kernels=kernels)
                 else:
                     ht = ht + attention_block(
@@ -220,7 +273,7 @@ class BeatThis(nn.Module):
                 h = ht.reshape(b, n_freq, t, dim).transpose(1, 2)
             h = zero_tail(h)
             h = conv2d_tf(block.conv2d.weight, h, stride_freq=2, pad_time=1)
-            h = F.gelu(batch_norm_apply(block.norm, h))
+            h = F.gelu(batch_norm_apply(block.norm, h, train=train))
 
         # (B, T, F=4, C=256) -> (B, T, (C, F)): the reference concatenates in
         # (channel, freq) order
@@ -230,7 +283,12 @@ class BeatThis(nn.Module):
 
         heads = c.transformer_dim // c.head_dim
         for attn, ff in self.transformer_blocks.layers:
-            if tmask is None:
+            if train:
+                h = h + time_attention_train(attn, h, rope_time, heads, dropout_rate=drop_t,
+                                             seed=seeds(), kernels=kernels)
+                h = ff_residual(ff, h, kernels=kernels, train=True, dropout_rate=drop_t,
+                                seed=seeds())
+            elif tmask is None:
                 h = time_roformer(attn, ff, h, rope_time, heads, kernels=kernels)
             else:
                 h = h + attention_block(attn, h, rope_time, heads, key_mask=tmask)

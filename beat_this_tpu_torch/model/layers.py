@@ -1,4 +1,4 @@
-"""Building blocks of the BeatThis model (eval), PyTorch counterpart of
+"""Building blocks of the BeatThis model, PyTorch counterpart of
 beat_this_tpu/model/layers.py.
 
 Modules hold the parameters under the reference's names
@@ -12,7 +12,16 @@ The functions keep the JAX package's activation layout: sequences are
 routers `ff_residual`, `freq_roformer` and `time_roformer` take the fused
 kernels under the same conditions as the JAX routers, and otherwise (or
 with `kernels=False`) the composable path, which is also what the kernels'
-plain versions compute.
+plain versions compute. In training (`time_attention_train`,
+`ff_residual(train=True)`) the same holds for the training kernels.
+
+Dropout draws its masks from `ops/dropout.py` (Philox keyed by an int
+`seed` per call): the composable path and the kernels drop the same
+elements for the same seed. Float64 inputs are computed in float64 (for
+gradchecks); other dtypes accumulate norms and softmax in float32. The
+training kernels' plain versions (ops/fused_ff.py, ops/fused_time.py)
+compute in float32 and round to bfloat16, forward and backward, where the
+kernels round (`round_value`, `round_grad`).
 """
 
 from __future__ import annotations
@@ -23,12 +32,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from beat_this_tpu_torch.ops import dropout as drop
 from beat_this_tpu_torch.ops.rotary import apply_rope
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 # time-axis sequences at least this long take the fused time kernel
 FLASH_MIN_SEQ = 512
 HEAD_DIM = 32
+# the JAX router's cap on heads for the fused attention training kernel
+FUSED_TIME_TRAIN_MAX_HEADS = 16
 
 
 class RMSNorm(nn.Module):
@@ -67,7 +80,7 @@ class FeedForward(nn.Module):
 
 class BatchNorm(nn.Module):
     """Batch-norm parameters and running statistics under torch's names
-    (weight, bias, running_mean, running_var), applied in eval mode only."""
+    (weight, bias, running_mean, running_var); see `batch_norm_apply`."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -77,26 +90,79 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(dim))
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """`t` in its accumulation dtype: float64 stays, the rest is float32."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+class _RoundValue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dtype):
+        return t.to(dtype).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _RoundGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dtype):
+        ctx.dtype = dtype
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
+
+
+def _narrower(t: torch.Tensor, dtype: torch.dtype) -> bool:
+    return dtype in (torch.bfloat16, torch.float16) and t.dtype != dtype
+
+
+def round_value(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`t` rounded to `dtype` and kept in its own dtype; the gradient passes
+    unrounded. The training plain versions round where the kernels round."""
+    return _RoundValue.apply(t, dtype) if _narrower(t, dtype) else t
+
+
+def round_grad(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`t` unchanged; its gradient is rounded to `dtype` on the way back
+    (where a kernel's backward rounds a cotangent before its products)."""
+    return _RoundGrad.apply(t, dtype) if _narrower(t, dtype) else t
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
-    """`F.normalize(x, dim=-1) * sqrt(dim) * gamma`, computed in float32 and
-    returned in the dtype of `x`."""
+    """`F.normalize(x, dim=-1) * sqrt(dim) * gamma`, computed in float32 (or
+    float64) and returned in the dtype of `x`."""
     dim = x.shape[-1]
-    x32 = x.float()
+    x32 = wide(x)
     norm = torch.sqrt(torch.sum(x32 * x32, dim=-1, keepdim=True))
-    out = x32 / torch.clamp_min(norm, 1e-12) * (dim**0.5) * gamma.float()
+    out = x32 / torch.clamp_min(norm, 1e-12) * (dim**0.5) * gamma.to(x32.dtype)
     return out.to(x.dtype)
 
 
-def sdpa(q, k, v, *, key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+def sdpa(q, k, v, *, key_mask: Optional[torch.Tensor] = None,
+         dropmask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Softmax attention over (..., heads, seq, head_dim): scale
     head_dim^-0.5, float32 scores and softmax. `key_mask` (batch, seq) bool:
-    False keys get probability zero."""
+    False keys get probability zero. `dropmask` (..., heads, seq, seq): the
+    dropout keep factors applied to the probabilities."""
     scale = q.shape[-1] ** -0.5
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.matmul(wide(q), wide(k).transpose(-1, -2)) * scale
     if key_mask is not None:
         logits = logits.masked_fill(~key_mask[:, None, None, :], float("-inf"))
     probs = torch.softmax(logits, dim=-1)
-    return torch.matmul(probs.to(q.dtype).float(), v.float()).to(q.dtype)
+    if dropmask is not None:
+        probs = probs * dropmask.to(probs.dtype)
+    return torch.matmul(wide(probs.to(q.dtype)), wide(v)).to(q.dtype)
+
+
+def rows_mask(seed: int, salt: int, site: int, h: torch.Tensor, rate: float):
+    """Keep factors over `h` viewed as (rows, C), shaped and typed as `h`."""
+    rows = h.numel() // h.shape[-1]
+    m = drop.keep_mask(seed, salt, site, 1, 1, rows, h.shape[-1], rate, h.device)
+    return m.reshape(h.shape).to(h.dtype)
 
 
 def attention_block(
@@ -106,9 +172,14 @@ def attention_block(
     heads: int,
     *,
     key_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """The attention residual branch on (b, n, C) (the caller adds x)."""
+    """The attention residual branch on (b, n, C) (the caller adds x). With
+    `dropout_rate > 0` and a `seed`: dropout on the attention probabilities
+    and after the out projection (torch placement)."""
     b, n, _ = x.shape
+    on = dropout_rate > 0.0 and seed is not None
     g = rms_norm(x, attn.norm.gamma)
     qkv = F.linear(g, attn.to_qkv.weight.to(g.dtype))
     inner = qkv.shape[-1] // 3
@@ -117,30 +188,73 @@ def attention_block(
     cos, sin = rope
     q = apply_rope(qkv[0], cos, sin)
     k = apply_rope(qkv[1], cos, sin)
-    out = sdpa(q, k, qkv[2], key_mask=key_mask)  # (b, heads, n, head_dim)
+    dropmask = None
+    if on:
+        with torch.no_grad():
+            dropmask = drop.keep_mask(seed, drop.SALT_ATTN, drop.SITE_ATTN_PROBS, b, heads,
+                                      n, n, dropout_rate, x.device)
+    out = sdpa(q, k, qkv[2], key_mask=key_mask, dropmask=dropmask)  # (b, heads, n, head_dim)
     gates = F.linear(
         g, attn.to_gates.weight.to(g.dtype), attn.to_gates.bias.to(g.dtype)
     )
     out = out * torch.sigmoid(gates.transpose(1, 2))[..., None]
     out = out.transpose(1, 2).reshape(b, n, inner)
-    return F.linear(out, attn.to_out[0].weight.to(out.dtype))
+    out = F.linear(out, attn.to_out[0].weight.to(out.dtype))
+    if on:
+        with torch.no_grad():
+            keep = rows_mask(seed, drop.SALT_ATTN, drop.SITE_ATTN_OUT, out, dropout_rate)
+        out = out * keep
+    return out
 
 
 def feed_forward(ff: FeedForward, x: torch.Tensor) -> torch.Tensor:
-    """The feed-forward residual branch (the caller adds x)."""
+    """The feed-forward residual branch at eval (the caller adds x); training
+    goes through `ff_residual(train=True)`."""
     norm, lin1, _, _, lin2, _ = ff.net
     g = rms_norm(x, norm.gamma)
     h = F.gelu(F.linear(g, lin1.weight.to(g.dtype), lin1.bias.to(g.dtype)))
     return F.linear(h, lin2.weight.to(h.dtype), lin2.bias.to(h.dtype))
 
 
-def ff_residual(ff: FeedForward, x: torch.Tensor, *, kernels: bool = True):
-    """`x + feed_forward(x)`; the fused_ff kernel when `kernels`."""
+def ff_residual(ff: FeedForward, x: torch.Tensor, *, kernels: bool = True,
+                train: bool = False, dropout_rate: float = 0.0,
+                seed: Optional[int] = None):
+    """`x + feed_forward(x)`: at eval the fused_ff kernel when `kernels`; in
+    training (`train=True`) the fused_ff_train kernel, or its plain version
+    without `kernels`, with dropout at `dropout_rate` from `seed`."""
+    if train:
+        from beat_this_tpu_torch.ops import fused_ff
+
+        fn = fused_ff.fused_ff_train if kernels else fused_ff.fused_ff_train_ref
+        return fn(x, ff, dropout_rate, seed)
     if kernels:
         from beat_this_tpu_torch.ops.fused_ff import fused_ff
 
         return fused_ff(x, ff)
     return x + feed_forward(ff, x)
+
+
+def time_attention_train(attn: Attention, x: torch.Tensor, rope, heads: int, *,
+                         dropout_rate: float = 0.0, seed: Optional[int] = None,
+                         kernels: bool = True) -> torch.Tensor:
+    """The training attention residual branch on (items, T, C) (the caller
+    adds x): the fused attention training kernel when `kernels`,
+    T >= FLASH_MIN_SEQ, C == heads * 32, heads is 1, 2 or a multiple of 4 and
+    at most FUSED_TIME_TRAIN_MAX_HEADS (the JAX router's conditions);
+    otherwise `attention_block`. `kernels=False` takes the kernel's plain
+    version where the kernel would run."""
+    if (
+        x.shape[1] >= FLASH_MIN_SEQ
+        and x.shape[-1] == heads * HEAD_DIM
+        and (heads <= 2 or heads % 4 == 0)
+        and heads <= FUSED_TIME_TRAIN_MAX_HEADS
+    ):
+        from beat_this_tpu_torch.ops import fused_time
+
+        fn = (fused_time.fused_time_attention_train if kernels
+              else fused_time.fused_time_attention_train_ref)
+        return fn(x, attn, rope[0], rope[1], heads, dropout_rate, seed)
+    return attention_block(attn, x, rope, heads, dropout_rate=dropout_rate, seed=seed)
 
 
 def freq_roformer(attn, ff, x, rope, heads, *, kernels: bool = True):
@@ -175,12 +289,27 @@ def time_roformer(attn, ff, x, rope, heads, *, kernels: bool = True):
     return ff_residual(ff, x, kernels=kernels)
 
 
-def batch_norm_apply(bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
-    """Eval batch norm over the last axis, folded into one scale and shift
-    in float32; returns the dtype of `x`."""
-    scale = bn.weight.float() * torch.rsqrt(bn.running_var.float() + BN_EPS)
-    shift = bn.bias.float() - bn.running_mean.float() * scale
-    return (x.float() * scale + shift).to(x.dtype)
+def batch_norm_apply(bn: BatchNorm, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+    """Batch norm over the last axis in float32, returned in the dtype of
+    `x`. Eval folds the running statistics into one scale and shift. Train
+    normalizes with the batch mean and biased variance and updates the
+    running statistics in place (unbiased variance, momentum 0.1), as torch
+    BatchNorm and beat_this_tpu/model/layers.py:422-436."""
+    x32 = x.float()
+    if not train:
+        mean, var = bn.running_mean.float(), bn.running_var.float()
+    else:
+        axes = tuple(range(x.ndim - 1))
+        mean = x32.mean(axes)
+        var = x32.square().mean(axes) - mean.square()
+        count = x.numel() // x.shape[-1]
+        with torch.no_grad():
+            bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+            bn.running_var.mul_(1 - BN_MOMENTUM).add_(
+                BN_MOMENTUM * var * (count / max(count - 1, 1)))
+    scale = bn.weight.float() * torch.rsqrt(var + BN_EPS)
+    shift = bn.bias.float() - mean * scale
+    return (x32 * scale + shift).to(x.dtype)
 
 
 def conv2d_tf(w: torch.Tensor, x: torch.Tensor, *, stride_freq: int, pad_time: int):

@@ -32,11 +32,17 @@ LIB_NAME = "libbeat_this_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+# dropout arguments of the training entry points (ops/dropout.kernel_args)
+_DROP = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, _I]
 # C entry points: name -> argtypes (all return a cudaError_t as int)
 _SIGNATURES = {
     "bt_fused_ff": [_I, _I] + [_P] * 7 + [_L, _I, _P],
     "bt_fused_time": [_I, _I] + [_P] * 19 + [_I, _I, _I, _P],
     "bt_fused_freq": [_I, _I] + [_P] * 14 + [_L, _I, _I, _P],
+    "bt_ff_train_fwd": [_I, _I] + [_P] * 7 + [_L, _I] + _DROP + [_P],
+    "bt_ff_train_bwd": [_I, _I] + [_P] * 13 + [_L, _I, _I] + _DROP + [_P],
+    "bt_attn_train_fwd": [_I, _I] + [_P] * 16 + [_I, _I] + _DROP + [_P],
+    "bt_attn_train_bwd": [_I, _I] + [_P] * 26 + [_I, _I, _I] + _DROP + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,96 @@
+"""Counter-based dropout masks shared by the CUDA training kernels and their
+plain PyTorch versions.
+
+The TPU kernels draw their masks from `pltpu.prng_*`, salted by grid block
+(beat_this_tpu/ops/fused_freq.py:_dropmask), which has no CUDA counterpart.
+The port uses Philox4x32-10 (Salmon et al., "Parallel random numbers: as
+easy as 1, 2, 3", SC 2011) keyed by (seed, salt) with the counter
+(col // 4, row, item, site << 16 | head): one call gives the bits of four
+neighbouring columns. An element is kept iff its 32 bits, read as the
+uniform u = bits / 2**32, satisfy u < 1 - rate, and a kept element is
+scaled by 1 / (1 - rate). The mask depends only on an element's
+coordinates, so a forward and a backward kernel regenerate the same mask
+whatever their tiling, and the plain version below computes the same bits
+(uint32 arithmetic in int64 tensors) as `csrc/philox.cuh`: with the same
+seed, kernel and plain version drop the same elements.
+
+Sites: the attention probabilities (coordinates item, head, query row, key
+column), the attention output and the two feed-forward sites (coordinates
+row of the flattened (rows, C) activations, column).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+SITE_ATTN_PROBS, SITE_ATTN_OUT, SITE_FF_HIDDEN, SITE_FF_OUT = 0, 1, 2, 3
+# the key's second word: one salt per fused operation
+SALT_ATTN, SALT_FF = 0x7A77, 0x0FF0
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo(m: int, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """High and low 32-bit words of m * c for a uint32 constant m and uint32
+    values c held in int64, with no intermediate above 2**49."""
+    a = m * (c & 0xFFFF)
+    b = m * (c >> 16)
+    lo = (((b & 0xFFFF) << 16) + a) & _MASK32
+    hi = (b + (a >> 16)) >> 16
+    return hi, lo
+
+
+def philox4x32(ctr, key: tuple[int, int]) -> tuple[torch.Tensor, ...]:
+    """Philox4x32-10 of the counter words `ctr` (four broadcastable int64
+    tensors of uint32 values) under `key` (two uint32 ints); returns the
+    four output words as int64 tensors."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in ctr)
+    k0, k1 = key[0] & _MASK32, key[1] & _MASK32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def keep_threshold(rate: float) -> int:
+    """The integer t with bits < t  <=>  bits / 2**32 < 1 - rate."""
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout rate must lie in (0, 1), got {rate}")
+    return min(math.ceil((1.0 - rate) * 2**32), _MASK32)
+
+
+def keep_scale(rate: float) -> float:
+    """1 / (1 - rate) rounded to float32, as the kernels multiply by it."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+
+
+def keep_mask(seed: int, salt: int, site: int, items: int, heads: int, rows: int,
+              cols: int, rate: float, device=None) -> torch.Tensor:
+    """(items, heads, rows, cols) float32 mask: 0 where dropped, 1 / (1 -
+    rate) where kept, for the element (item, head, row, col) of `site`."""
+    thr, scale = keep_threshold(rate), keep_scale(rate)
+    groups = -(-cols // 4)
+    c0 = torch.arange(groups, device=device, dtype=torch.int64)
+    c1 = torch.arange(rows, device=device, dtype=torch.int64)[:, None]
+    c3 = ((site << 16) | torch.arange(heads, device=device, dtype=torch.int64))[:, None, None]
+    out = torch.empty((items, heads, rows, cols), dtype=torch.float32, device=device)
+    for item in range(items):  # bounds the int64 temporaries to one item
+        words = philox4x32((c0, c1, torch.tensor(item, device=device), c3), (seed, salt))
+        bits = torch.stack(words, -1).reshape(heads, rows, 4 * groups)[..., :cols]
+        out[item] = (bits < thr).float() * scale
+    return out
+
+
+def kernel_args(rate: float, seed, salt: int) -> tuple:
+    """The C entry points' dropout arguments (seed, salt, thr, scale, on);
+    off when `rate` is 0 or `seed` is None, as in the plain versions."""
+    if rate <= 0.0 or seed is None:
+        return (0, salt, 0, 1.0, 0)
+    return (int(seed) & _MASK32, salt, keep_threshold(rate), keep_scale(rate), 1)

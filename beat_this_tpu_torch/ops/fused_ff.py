@@ -3,14 +3,31 @@
 Counterpart of beat_this_tpu/ops/fused_ff.py:fused_ff. On a CUDA tensor
 `fused_ff` launches the hand-written kernel in `csrc/fused_ff.cu`; on a CPU
 tensor it runs the plain version `fused_ff_ref`, the composable path.
+
+`fused_ff_train` is the training twin (fused_ff.py:fused_ff_train): dropout
+after the GELU and after W2 from a Philox seed (`ops/dropout.py`), and a
+backward that recomputes the block from x (`csrc/fused_ff_train.cu`), so
+only the inputs are saved between the passes.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import Optional
 
-from beat_this_tpu_torch.model.layers import FeedForward, feed_forward
+import torch
+import torch.nn.functional as F
+
+from beat_this_tpu_torch.model.layers import (
+    FeedForward,
+    feed_forward,
+    rms_norm,
+    round_grad,
+    round_value,
+    rows_mask,
+    wide,
+)
 from beat_this_tpu_torch.ops import _build
+from beat_this_tpu_torch.ops import dropout as drop
 
 SUPPORTED_DIMS = (32, 64, 128, 512)
 
@@ -51,17 +68,23 @@ def fused_ff_ref(x: torch.Tensor, ff: FeedForward) -> torch.Tensor:
     return x + feed_forward(ff, x)
 
 
+def _check_cuda(name: str, x: torch.Tensor, c: int) -> int:
+    """Raise unless `x` is a CUDA tensor with C in SUPPORTED_DIMS; returns
+    the dtype code."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {x.device}")
+    if c not in SUPPORTED_DIMS:
+        raise ValueError(f"{name} kernel supports C in {SUPPORTED_DIMS}, got {c}")
+    return dtype_code(x.dtype)
+
+
 def fused_ff(x: torch.Tensor, ff: FeedForward) -> torch.Tensor:
     """x: (..., C) -> x + FF(x). CUDA tensors run the fused kernel (C in
     SUPPORTED_DIMS, float32 or bfloat16); CPU tensors the plain version."""
     if x.device.type == "cpu":
         return fused_ff_ref(x, ff)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_ff runs on CUDA or CPU tensors, got {x.device}")
     c = x.shape[-1]
-    if c not in SUPPORTED_DIMS:
-        raise ValueError(f"fused_ff kernel supports C in {SUPPORTED_DIMS}, got {c}")
-    code = dtype_code(x.dtype)
+    code = _check_cuda("fused_ff", x, c)
     lib = _build.load_library()
     xc = x.contiguous()
     out = torch.empty_like(xc)
@@ -79,3 +102,125 @@ def fused_ff(x: torch.Tensor, ff: FeedForward) -> torch.Tensor:
 
 
 fused_ff.launches = 0
+
+
+# row-tile groups of the backward's weight-gradient launch: with C = 512,
+# M = 2048 this gives 64 x 2 = 128 blocks, one wave on the H100's 132 SMs
+WGRAD_GROUPS = 2
+ROW_TILE = 32  # rows per block of the row-tile kernels (csrc/common.cuh kRows)
+
+
+def fused_ff_train_ref(x: torch.Tensor, ff: FeedForward, dropout_rate: float = 0.0,
+                       seed: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version: `x + feed_forward(ff, x)` with dropout, in
+    float32 with the kernel's bfloat16 rounding points: g, the weights and
+    the dropped hidden layer rounded before their products, the cotangents
+    of both products rounded before theirs, the residual sum rounded once."""
+    dtype = x.dtype
+    norm, lin1, _, _, lin2, _ = ff.net
+    x32 = wide(x)
+    acc = x32.dtype
+    g = round_value(rms_norm(x32, norm.gamma), dtype)
+    w1 = round_value(lin1.weight.to(acc), dtype)
+    w2 = round_value(lin2.weight.to(acc), dtype)
+    h = F.gelu(round_grad(F.linear(g, w1), dtype) + lin1.bias.to(acc))
+    on = dropout_rate > 0.0 and seed is not None
+    if on:
+        with torch.no_grad():
+            keep = rows_mask(seed, drop.SALT_FF, drop.SITE_FF_HIDDEN, h, dropout_rate)
+        h = h * keep
+    y = round_grad(F.linear(round_value(h, dtype), w2), dtype) + lin2.bias.to(acc)
+    if on:
+        with torch.no_grad():
+            keep = rows_mask(seed, drop.SALT_FF, drop.SITE_FF_OUT, y, dropout_rate)
+        y = y * keep
+    return (x32 + y).to(dtype)
+
+
+def ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed) -> torch.Tensor:
+    """Launch the training forward on x (rows, C): x + dropout(FF(x))."""
+    c = x.shape[-1]
+    code = _check_cuda("fused_ff_train", x, c)
+    lib = _build.load_library()
+    params = [f32(gamma), kernel_weight(w1, x.dtype), f32(b1), kernel_weight(w2, x.dtype), f32(b2)]
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _build.check(
+            lib.bt_ff_train_fwd(
+                code, c, x.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(),
+                x.shape[0], w1.shape[0], *drop.kernel_args(dropout_rate, seed, drop.SALT_FF),
+                stream_of(x),
+            ),
+            "bt_ff_train_fwd",
+        )
+    ff_train_fwd.launches += 1
+    return out
+
+
+def ff_train_bwd(x, gamma, w1, b1, w2, dout, dropout_rate, seed):
+    """Launch the training backward; returns (dx, dgamma, dw1, db1, dw2, db2),
+    the parameter gradients in float32 and torch's layouts."""
+    rows, c = x.shape
+    m = w1.shape[0]
+    code = _check_cuda("fused_ff_train", x, c)
+    lib = _build.load_library()
+    tiles = -(-rows // ROW_TILE)
+    groups = min(WGRAD_GROUPS, tiles)
+    dev = x.device
+    params = [f32(gamma), kernel_weight(w1, x.dtype), f32(b1), kernel_weight(w2, x.dtype)]
+    dout = dout.to(x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    grads = [torch.empty(shape, dtype=torch.float32, device=dev)
+             for shape in ((c,), (m, c), (m,), (c, m), (c,))]
+    scratch = torch.empty(2 * tiles * c + groups * (2 * m * c + m), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        _build.check(
+            lib.bt_ff_train_bwd(
+                code, c, x.data_ptr(), *(p.data_ptr() for p in params), dout.data_ptr(),
+                dx.data_ptr(), *(g.data_ptr() for g in grads), scratch.data_ptr(), rows, m,
+                groups, *drop.kernel_args(dropout_rate, seed, drop.SALT_FF), stream_of(x),
+            ),
+            "bt_ff_train_bwd",
+        )
+    ff_train_bwd.launches += 1
+    return (dx, *grads)
+
+
+ff_train_fwd.launches = 0
+ff_train_bwd.launches = 0
+
+
+class _FusedFFTrain(torch.autograd.Function):
+    """x (rows, C) and the FF parameters -> x + dropout(FF(x)); the backward
+    regenerates the masks from `seed`."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, w1, b1, w2, b2, dropout_rate, seed):
+        ctx.save_for_backward(x, gamma, w1, b1, w2)
+        ctx.dropout_rate, ctx.seed, ctx.b2_dtype = dropout_rate, seed, b2.dtype
+        return ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, gamma, w1, b1, w2 = ctx.saved_tensors
+        dx, dgamma, dw1, db1, dw2, db2 = ff_train_bwd(
+            x, gamma, w1, b1, w2, dout, ctx.dropout_rate, ctx.seed)
+        return (dx, dgamma.to(gamma.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+                dw2.to(w2.dtype), db2.to(ctx.b2_dtype), None, None)
+
+
+def fused_ff_train(x: torch.Tensor, ff: FeedForward, dropout_rate: float = 0.0,
+                   seed: Optional[int] = None) -> torch.Tensor:
+    """Differentiable x: (..., C) -> x + dropout(FF(x)), dropout at
+    `dropout_rate` from the int `seed` (off when None). CUDA tensors run the
+    training kernels (C in SUPPORTED_DIMS, float32 or bfloat16), with the
+    module's parameters as inputs of the autograd graph; CPU tensors the
+    plain version."""
+    if x.device.type == "cpu":
+        return fused_ff_train_ref(x, ff, dropout_rate, seed)
+    norm, lin1, _, _, lin2, _ = ff.net
+    shape = x.shape
+    out = _FusedFFTrain.apply(x.reshape(-1, shape[-1]).contiguous(), norm.gamma, lin1.weight,
+                              lin1.bias, lin2.weight, lin2.bias, float(dropout_rate), seed)
+    return out.reshape(shape)

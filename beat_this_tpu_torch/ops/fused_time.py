@@ -6,11 +6,21 @@ CUDA tensor `fused_time_roformer` launches the hand-written kernels in
 `csrc/fused_time.cu` (norm + q/k/v + RoPE + gates, flash attention + gate,
 out projection + residual + feed-forward); on a CPU tensor it runs the plain
 version `fused_time_roformer_ref`, the composable path.
+
+`fused_time_attention_train` is the training twin of the attention branch
+(fused_time.py:fused_time_attention_train): dropout on the attention
+probabilities and after the out projection from a Philox seed
+(`ops/dropout.py`), and a flash-style backward (`csrc/fused_time_train.cu`).
+It saves O(n C) tensors between the passes (q, k, v, gates, the normalized
+attention output and each row's softmax max and sum), never an (n, n) one.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from beat_this_tpu_torch.model.layers import (
     HEAD_DIM,
@@ -18,10 +28,19 @@ from beat_this_tpu_torch.model.layers import (
     FeedForward,
     attention_block,
     feed_forward,
+    rms_norm,
+    round_grad,
+    round_value,
+    rows_mask,
+    wide,
 )
 from beat_this_tpu_torch.ops import _build
+from beat_this_tpu_torch.ops import dropout as drop
+from beat_this_tpu_torch.ops.rotary import apply_rope
 from beat_this_tpu_torch.ops.fused_ff import (
+    ROW_TILE,
     SUPPORTED_DIMS,
+    WGRAD_GROUPS,
     dtype_code,
     f32,
     ff_params,
@@ -41,6 +60,20 @@ def block_params(attn: Attention, ff: FeedForward, dtype: torch.dtype) -> list[t
     ] + ff_params(ff, dtype)
 
 
+def _check_time(name: str, x: torch.Tensor, heads: int) -> int:
+    """Raise unless `x` (items, n, C) is a CUDA tensor with C == heads * 32
+    in SUPPORTED_DIMS; returns the dtype code."""
+    c = x.shape[-1]
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {x.device}")
+    if c != heads * HEAD_DIM or c not in SUPPORTED_DIMS:
+        raise ValueError(
+            f"{name} kernel needs C == heads * {HEAD_DIM} in {SUPPORTED_DIMS}, "
+            f"got C={c}, heads={heads}"
+        )
+    return dtype_code(x.dtype)
+
+
 def fused_time_roformer_ref(x, attn: Attention, ff: FeedForward, rope_cos, rope_sin,
                             heads: int) -> torch.Tensor:
     """Plain PyTorch version: `x + attention_block`, then `+ feed_forward`."""
@@ -56,16 +89,9 @@ def fused_time_roformer(x: torch.Tensor, attn: Attention, ff: FeedForward,
     SUPPORTED_DIMS, float32 or bfloat16); CPU tensors the plain version."""
     if x.device.type == "cpu":
         return fused_time_roformer_ref(x, attn, ff, rope_cos, rope_sin, heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_time_roformer runs on CUDA or CPU tensors, got {x.device}")
+    code = _check_time("fused_time_roformer", x, heads)
     items, n, c = x.shape
-    if c != heads * HEAD_DIM or c not in SUPPORTED_DIMS:
-        raise ValueError(
-            f"fused_time kernel needs C == heads * {HEAD_DIM} in {SUPPORTED_DIMS}, "
-            f"got C={c}, heads={heads}"
-        )
     dtype = x.dtype
-    code = dtype_code(dtype)
     lib = _build.load_library()
     xc = x.contiguous()
     params = block_params(attn, ff, dtype)
@@ -92,3 +118,159 @@ def fused_time_roformer(x: torch.Tensor, attn: Attention, ff: FeedForward,
 
 
 fused_time_roformer.launches = 0
+
+
+def fused_time_attention_train_ref(x, attn: Attention, rope_cos, rope_sin, heads: int,
+                                   dropout_rate: float = 0.0,
+                                   seed: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version: `attention_block` with dropout, in float32 with
+    the kernel's bfloat16 rounding points. Forward: the normed rows, the
+    weights, q/k/v after RoPE, the dropped probabilities and the gated
+    output rounded before their products (gates from the float32 rows),
+    the branch rounded once. Backward: the cotangents of the out projection,
+    of the PV product, of the scores and of q/k/v rounded before their
+    products."""
+    dtype = x.dtype
+    b, n, c = x.shape
+    x32 = wide(x)
+    acc = x32.dtype
+    gn = rms_norm(x32, attn.norm.gamma)
+    gates = torch.sigmoid(F.linear(gn, attn.to_gates.weight.to(acc),
+                                   attn.to_gates.bias.to(acc)))  # (b, n, heads)
+    w = round_value(attn.to_qkv.weight.to(acc), dtype)
+    qkv = round_grad(F.linear(round_value(gn, dtype), w), dtype)
+    qkv = qkv.reshape(b, n, 3, heads, HEAD_DIM).permute(2, 0, 3, 1, 4)
+    cos, sin = rope_cos[:n], rope_sin[:n]
+    q = round_value(apply_rope(qkv[0], cos, sin), dtype)
+    k = round_value(apply_rope(qkv[1], cos, sin), dtype)
+    v = round_value(qkv[2], dtype)
+    s = round_grad(torch.matmul(q, k.transpose(-1, -2)) * HEAD_DIM**-0.5, dtype)
+    p = torch.exp(s - s.amax(-1, keepdim=True).detach())
+    l = p.sum(-1, keepdim=True)
+    on = dropout_rate > 0.0 and seed is not None
+    if on:
+        with torch.no_grad():
+            keep = drop.keep_mask(seed, drop.SALT_ATTN, drop.SITE_ATTN_PROBS, b, heads, n, n,
+                                  dropout_rate, x.device)
+        p = p * keep.to(acc)
+    o = round_grad(torch.matmul(round_value(p, dtype), v), dtype) / l  # (b, heads, n, 32)
+    go = round_value(o * gates.transpose(1, 2)[..., None], dtype)
+    go = go.transpose(1, 2).reshape(b, n, c)
+    out = round_grad(F.linear(go, round_value(attn.to_out[0].weight.to(acc), dtype)), dtype)
+    if on:
+        with torch.no_grad():
+            keep = rows_mask(seed, drop.SALT_ATTN, drop.SITE_ATTN_OUT, out, dropout_rate)
+        out = out * keep
+    return out.to(dtype)
+
+
+def attn_train_fwd(x, gamma, wqkv, wg, gb, wout, cos, sin, heads, dropout_rate, seed):
+    """Launch the training forward on x (items, n, C); returns the branch
+    and the tensors the backward reads (q, k, v, gates, o, row max, row sum)."""
+    code = _check_time("fused_time_attention_train", x, heads)
+    items, n, c = x.shape
+    lib = _build.load_library()
+    dev, dtype = x.device, x.dtype
+    params = [f32(gamma), kernel_weight(wqkv, dtype), f32(wg), f32(gb),
+              kernel_weight(wout, dtype), cos, sin]
+    saved = [torch.empty((items, heads, n, HEAD_DIM), dtype=dtype, device=dev) for _ in range(3)]
+    saved += [torch.empty((items * n, heads), dtype=torch.float32, device=dev),
+              torch.empty((items, n, c), dtype=torch.float32, device=dev),
+              torch.empty((items * heads, n), dtype=torch.float32, device=dev),
+              torch.empty((items * heads, n), dtype=torch.float32, device=dev)]
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _build.check(
+            lib.bt_attn_train_fwd(
+                code, c, x.data_ptr(), *(p.data_ptr() for p in params),
+                *(t.data_ptr() for t in saved), out.data_ptr(), items, n,
+                *drop.kernel_args(dropout_rate, seed, drop.SALT_ATTN), stream_of(x),
+            ),
+            "bt_attn_train_fwd",
+        )
+    attn_train_fwd.launches += 1
+    return out, saved
+
+
+def attn_train_bwd(x, gamma, wqkv, wg, wout, cos, sin, saved, dout, heads, dropout_rate,
+                   seed):
+    """Launch the training backward; returns (dx, dgamma, dwqkv, dwg, dgb,
+    dwout), the parameter gradients in float32 and torch's layouts."""
+    code = _check_time("fused_time_attention_train", x, heads)
+    items, n, c = x.shape
+    lib = _build.load_library()
+    dev, dtype = x.device, x.dtype
+    rows = items * n
+    tiles = -(-rows // ROW_TILE)
+    groups = min(WGRAD_GROUPS, tiles)
+    params = [f32(gamma), kernel_weight(wqkv, dtype), f32(wg), kernel_weight(wout, dtype),
+              cos, sin]
+    dout = dout.to(dtype).contiguous()
+    work = [torch.empty((items, n, c), dtype=dtype, device=dev),  # d_branch
+            torch.empty((items, heads, n, HEAD_DIM), dtype=torch.float32, device=dev),  # dO / l
+            torch.empty((rows, heads), dtype=torch.float32, device=dev),  # d_z
+            torch.empty((items * heads, n), dtype=torch.float32, device=dev),  # delta
+            torch.empty((items, n, 3 * c), dtype=dtype, device=dev)]  # d_q | d_k | d_v
+    dx = torch.empty_like(x)
+    grads = [torch.empty(shape, dtype=torch.float32, device=dev)
+             for shape in ((c,), (4 * c, c), (heads, c), (heads,))]
+    scratch = torch.empty(tiles * (c + heads * (c + 1)) + groups * 4 * c * c,
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(
+            lib.bt_attn_train_bwd(
+                code, c, x.data_ptr(), *(p.data_ptr() for p in params),
+                *(t.data_ptr() for t in saved), dout.data_ptr(),
+                *(t.data_ptr() for t in work), dx.data_ptr(), *(g.data_ptr() for g in grads),
+                scratch.data_ptr(), items, n, groups,
+                *drop.kernel_args(dropout_rate, seed, drop.SALT_ATTN), stream_of(x),
+            ),
+            "bt_attn_train_bwd",
+        )
+    attn_train_bwd.launches += 1
+    dgamma, dw, dwg, dgb = grads
+    return dx, dgamma, dw[: 3 * c], dwg, dgb, dw[3 * c:]
+
+
+attn_train_fwd.launches = 0
+attn_train_bwd.launches = 0
+
+
+class _FusedTimeAttnTrain(torch.autograd.Function):
+    """x (items, n, C) and the attention parameters -> the dropped attention
+    branch; the backward regenerates the masks from `seed`."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, wqkv, wg, gb, wout, cos, sin, heads, dropout_rate, seed):
+        out, saved = attn_train_fwd(x, gamma, wqkv, wg, gb, wout, cos, sin, heads,
+                                    dropout_rate, seed)
+        ctx.save_for_backward(x, gamma, wqkv, wg, wout, cos, sin, *saved)
+        ctx.heads, ctx.dropout_rate, ctx.seed, ctx.gb_dtype = heads, dropout_rate, seed, gb.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, gamma, wqkv, wg, wout, cos, sin, *saved = ctx.saved_tensors
+        dx, dgamma, dwqkv, dwg, dgb, dwout = attn_train_bwd(
+            x, gamma, wqkv, wg, wout, cos, sin, saved, dout, ctx.heads, ctx.dropout_rate,
+            ctx.seed)
+        return (dx, dgamma.to(gamma.dtype), dwqkv.to(wqkv.dtype), dwg.to(wg.dtype),
+                dgb.to(ctx.gb_dtype), dwout.to(wout.dtype), None, None, None, None, None)
+
+
+def fused_time_attention_train(x: torch.Tensor, attn: Attention, rope_cos: torch.Tensor,
+                               rope_sin: torch.Tensor, heads: int, dropout_rate: float = 0.0,
+                               seed: Optional[int] = None) -> torch.Tensor:
+    """Differentiable attention residual branch over (items, n, C) (the
+    caller adds x), C == heads * 32, with dropout at `dropout_rate` from the
+    int `seed` (off when None). CUDA tensors run the training kernels (C in
+    SUPPORTED_DIMS, float32 or bfloat16), with the module's parameters as
+    inputs of the autograd graph; CPU tensors the plain version."""
+    if x.device.type == "cpu":
+        return fused_time_attention_train_ref(x, attn, rope_cos, rope_sin, heads,
+                                              dropout_rate, seed)
+    n = x.shape[1]
+    return _FusedTimeAttnTrain.apply(
+        x.contiguous(), attn.norm.gamma, attn.to_qkv.weight, attn.to_gates.weight,
+        attn.to_gates.bias, attn.to_out[0].weight, f32(rope_cos[:n]), f32(rope_sin[:n]),
+        heads, float(dropout_rate), seed)

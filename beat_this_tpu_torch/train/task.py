@@ -1,0 +1,107 @@
+"""Training task: losses, optimizer, train and eval steps, counterpart of
+beat_this_tpu/train/task.py (reference PLBeatThis,
+beat_this/model/pl_module.py:21-317):
+  * loss = shift-tolerant BCE for beats plus downbeats; the downbeat mask is
+    the padding mask times the per-piece has-downbeats flag;
+  * AdamW (betas 0.9/0.999, eps 1e-8) with weight decay only on parameters
+    of ndim >= 2, and the cosine warmup schedule stepped per optimizer step;
+  * gradient accumulation over `accum_steps` microbatches run one after the
+    other: batch-norm statistics advance after each, and the gradients are
+    averaged (each microbatch's loss is divided by `accum_steps` before its
+    backward).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from beat_this_tpu_torch.model.beat_this import BeatThis
+from beat_this_tpu_torch.train.loss import make_losses
+from beat_this_tpu_torch.train.schedule import cosine_warmup_scheduler
+
+
+@dataclass
+class TrainConfig:
+    """Optimization hyperparameters (defaults = reference train.py)."""
+
+    lr: float = 8e-4
+    weight_decay: float = 0.01
+    warmup_steps: int = 1000
+    max_steps: int = 0  # total optimizer steps (set from epochs * steps/epoch)
+    accum_steps: int = 8
+    loss_type: str = "shift_tolerant_weighted_bce"
+    pos_weight_beat: float = 1.0
+    pos_weight_downbeat: float = 1.0
+    compute_dtype: str = "float32"  # or "bfloat16"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+
+def make_optimizer(model: BeatThis, tc: TrainConfig) -> torch.optim.AdamW:
+    """AdamW with decay on the parameters of ndim >= 2 only (reference
+    pl_module.py:281-296)."""
+    params = list(model.parameters())
+    return torch.optim.AdamW(
+        [{"params": [p for p in params if p.ndim >= 2], "weight_decay": tc.weight_decay},
+         {"params": [p for p in params if p.ndim < 2], "weight_decay": 0.0}],
+        lr=tc.lr, betas=(0.9, 0.999), eps=1e-8,
+    )
+
+
+def make_scheduler(opt, tc: TrainConfig, last_step: int = -1):
+    """The per-step cosine warmup schedule of `opt`; `last_step` as
+    `cosine_warmup_scheduler`."""
+    return cosine_warmup_scheduler(opt, tc.warmup_steps, max(tc.max_steps, 1), last_step)
+
+
+def loss_from_outputs(tc: TrainConfig, out: dict, batch: dict) -> dict:
+    """Losses given model outputs (reference _compute_loss,
+    pl_module.py:99-114)."""
+    beat_loss, downbeat_loss = make_losses(
+        tc.loss_type, {"beat": tc.pos_weight_beat, "downbeat": tc.pos_weight_downbeat})
+    beat_mask = batch["padding_mask"].float()
+    downbeat_mask = beat_mask * batch["downbeat_mask"].float()[:, None]
+    lb = beat_loss(out["beat"], batch["truth_beat"].float(), beat_mask)
+    ld = downbeat_loss(out["downbeat"], batch["truth_downbeat"].float(), downbeat_mask)
+    return {"beat": lb, "downbeat": ld, "total": lb + ld}
+
+
+def accumulate_grads(model: BeatThis, tc: TrainConfig, batch: dict, seeds: list,
+                     *, kernels: bool = True) -> dict:
+    """Forward and backward of each microbatch of `batch` (leaves shaped
+    (accum_steps, micro, ...)) in order, in train mode with dropout seed
+    `seeds[i]`, adding the averaged gradients to the parameters' `.grad`.
+    Returns the losses averaged over the microbatches (float tensors)."""
+    parts = []
+    for i in range(tc.accum_steps):
+        micro = {k: v[i] for k, v in batch.items()}
+        out = model(micro["spect"], compute_dtype=tc.dtype, kernels=kernels, train=True,
+                    seed=seeds[i])
+        p = loss_from_outputs(tc, out, micro)
+        (p["total"] / tc.accum_steps).backward()
+        parts.append({k: v.detach() for k, v in p.items()})
+    return {k: torch.stack([p[k] for p in parts]).mean() for k in parts[0]}
+
+
+def train_step(model: BeatThis, opt, sched, batch: dict, generator: torch.Generator,
+               tc: TrainConfig, *, kernels: bool = True) -> dict:
+    """One optimizer step over `tc.accum_steps` microbatches: one int32
+    dropout seed per microbatch from `generator`, gradients averaged, one
+    AdamW update, one schedule step. Returns the mean losses."""
+    seeds = torch.randint(0, 2**31 - 1, (tc.accum_steps,), generator=generator).tolist()
+    opt.zero_grad(set_to_none=True)
+    parts = accumulate_grads(model, tc, batch, seeds, kernels=kernels)
+    opt.step()
+    sched.step()
+    return parts
+
+
+@torch.no_grad()
+def eval_step(model: BeatThis, tc: TrainConfig, batch: dict, *, kernels: bool = True):
+    """Losses and logits for a batch (no dropout, batch norm in eval)."""
+    out = model(batch["spect"], compute_dtype=tc.dtype, kernels=kernels)
+    return out, loss_from_outputs(tc, out, batch)

@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its lines; any failure exits non-zero without the
-final `"ok": true` line:
+Phases, each printing its lines and its seconds; any failure exits
+non-zero without the final `"ok": true` line:
 
 1. environment: GPU name and power limit, torch / CUDA / nvcc versions;
 2. build: compiles the CUDA kernels from this checkout's sources;
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the main path's shapes, in float32 (TF32 off, relative max
-   deviation <= 1e-3) and bfloat16 (< 2.5e-2), with median times;
+   the card, at the main paths' shapes, in float32 (TF32 off, relative max
+   deviation <= 1e-3) and bfloat16 (< 2.5e-2), with median times. The four
+   training kernels (attention branch and feed-forward, forward and
+   backward) at the training shapes (8 x 1500 x 512, 16 heads; FF over
+   12000 rows, hidden 2048), at dropout 0 and 0.2 with the same seed on
+   both sides, compare the output and every gradient;
 4. end to end: the full-width BeatThisConfig() model from a numpy-seeded
    synthetic checkpoint runs the port's CLI in-process on a 75 s click
    track (three chunks) and a 12 s one (the short-piece path), in float32
@@ -22,7 +26,19 @@ final `"ok": true` line:
    went up, the logits agree with the plain path of the same dtype on the
    card within the phase-3 limits, and the beats agree with the float32
    plain path's at F >= 0.999;
-5. the kernel summary JSON, then the device JSON as the last line.
+5. training end to end: `python -m beat_this_tpu_torch.train`, in-process,
+   on a click corpus at full width with --no-partial-transformers, batch
+   8 x 1500 frames, 2 microbatches per step (reduced from 8), 3 steps, in
+   float32 and bfloat16. Checks: each training kernel launched exactly
+   6 layers x 2 microbatches x 3 steps times, finite losses, the first
+   step's losses, gradients and batch-norm statistics of the kernel path
+   against the plain path on the same batch and seeds within the phase-3
+   limits (every gradient in float32; in bfloat16 every gradient under a
+   max-pool-free loss and the transformer layers' under the driver's
+   shift-tolerant loss, see `first_step_check`), the checkpoint loads
+   through `load_model` and the port's CLI writes a .beats file with it.
+   Prints the step time and the peak device memory;
+6. the kernel summary JSON, then the device JSON as the last line.
 
 Needs a CUDA device and the repository beside this script; it never runs
 on the CPU.
@@ -55,7 +71,32 @@ KERNELS = {
         "beat_this_tpu_torch/csrc/fused_time.cu", "beat_this_tpu/ops/fused_time.py:114"),
     "fused_freq_roformer": (
         "beat_this_tpu_torch/csrc/fused_freq.cu", "beat_this_tpu/ops/fused_freq.py:275"),
+    "fused_time_attention_train_fwd": (
+        "beat_this_tpu_torch/csrc/fused_time_train.cu", "beat_this_tpu/ops/fused_time.py:328"),
+    "fused_time_attention_train_bwd": (
+        "beat_this_tpu_torch/csrc/fused_time_train.cu", "beat_this_tpu/ops/fused_time.py:382"),
+    "fused_ff_train_fwd": (
+        "beat_this_tpu_torch/csrc/fused_ff_train.cu", "beat_this_tpu/ops/fused_ff.py:150"),
+    "fused_ff_train_bwd": (
+        "beat_this_tpu_torch/csrc/fused_ff_train.cu", "beat_this_tpu/ops/fused_ff.py:177"),
 }
+TRAIN_KERNELS = ("fused_time_attention_train_fwd", "fused_time_attention_train_bwd",
+                 "fused_ff_train_fwd", "fused_ff_train_bwd")
+TRAIN_STEPS, TRAIN_ACCUM, TRAIN_LAYERS = 3, 2, 6
+# the training kernels' phase-3 shape: (items, n, C, heads), a full-width
+# microbatch of 8 crops of 1500 frames
+TRAIN_SHAPE = (8, 1500, 512, 16)
+DEVICE = "cuda"
+
+
+def train_counters() -> dict:
+    """The training kernels' wrappers, each with its `launches` count."""
+    from beat_this_tpu_torch.ops import fused_ff, fused_time
+
+    return {"fused_time_attention_train_fwd": fused_time.attn_train_fwd,
+            "fused_time_attention_train_bwd": fused_time.attn_train_bwd,
+            "fused_ff_train_fwd": fused_ff.ff_train_fwd,
+            "fused_ff_train_bwd": fused_ff.ff_train_bwd}
 
 
 class SmokeFailure(Exception):
@@ -472,6 +513,281 @@ def _end_to_end(tmp: Path, smi: str) -> dict:
     return launches
 
 
+# -- phase 3b: training kernels -------------------------------------------------
+
+
+def grads_of(fn, x, params, cot):
+    """Output, dx and the parameter gradients of sum(fn(x) * cot)."""
+    import torch
+
+    for p in params:
+        p.grad = None
+    x = x.detach().clone().requires_grad_(True)
+    out = fn(x)
+    torch.autograd.backward(out, (cot.to(out.dtype),))
+    return [out.detach(), x.grad] + [p.grad.clone() for p in params]
+
+
+def fwd_bwd_ms(fn, x, params, cot, reps: int) -> tuple[float, float]:
+    """Median forward time (autograd graph built, as in training) and median
+    backward time on a retained graph."""
+    import torch
+
+    xg = x.detach().clone().requires_grad_(True)
+    fwd = median_ms(lambda: fn(xg), reps)
+    out = fn(xg)
+    inputs = [xg] + params
+    bwd = median_ms(lambda: torch.autograd.grad(out, inputs, cot.to(out.dtype),
+                                                retain_graph=True), reps)
+    return fwd, bwd
+
+
+def phase_train_kernels(smi: str) -> dict:
+    import torch
+
+    from beat_this_tpu_torch.ops import fused_ff as ff_ops
+    from beat_this_tpu_torch.ops import fused_time as time_ops
+    from beat_this_tpu_torch.ops.rotary import rope_tables
+
+    dev = torch.device(DEVICE)
+    items, n, c, heads = TRAIN_SHAPE
+    attn, ff = random_block(c, heads, 2 * c + n, dev)
+    attn.requires_grad_(True)
+    ff.requires_grad_(True)
+    cos, sin = rope_tables(n, 32, dev)
+    grad_names = {"attn": ["out", "dx", "dgamma", "dWqkv", "dWgates", "dgate_b", "dWout"],
+                  "ff": ["out", "dx", "dgamma", "dW1", "db1", "dW2", "db2"]}
+    results = {name: [] for name in TRAIN_KERNELS}
+    for dtype, limit in ((torch.float32, F32_LIMIT), (torch.bfloat16, BF16_LIMIT)):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        for rate in (0.0, 0.2):
+            gen = torch.Generator(device=dev).manual_seed(int(rate * 10) + (dtype == torch.float32))
+            x = torch.randn((items, n, c), generator=gen, device=dev).to(dtype)
+            cot = torch.randn((items, n, c), generator=gen, device=dev)
+            cases = (
+                ("attn", "fused_time_attention_train", list(attn.parameters()),
+                 lambda t: time_ops.fused_time_attention_train(t, attn, cos, sin, heads, rate, 17),
+                 lambda t: time_ops.fused_time_attention_train_ref(t, attn, cos, sin, heads,
+                                                                   rate, 17)),
+                ("ff", "fused_ff_train", list(ff.parameters()),
+                 lambda t: ff_ops.fused_ff_train(t, ff, rate, 19),
+                 lambda t: ff_ops.fused_ff_train_ref(t, ff, rate, 19)),
+            )
+            for kind, name, params, kernel, plain in cases:
+                got = grads_of(kernel, x, params, cot)
+                want = grads_of(plain, x, params, cot)
+                torch.cuda.synchronize()
+                devs = {g: rel_dev(a, b) for g, a, b in zip(grad_names[kind], got, want)}
+                abs_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+                finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+                del got, want
+                ms = fwd_bwd_ms(kernel, x, params, cot, 10)
+                plain_ms = fwd_bwd_ms(plain, x, params, cot, 5)
+                torch.cuda.empty_cache()
+                worst = max(devs.values())
+                ok = finite and (worst <= limit if dtype == torch.float32 else worst < limit)
+                desc = (f"x ({items}, {n}, {c}) heads {heads}" if kind == "attn"
+                        else f"rows {items * n} C {c} hidden {4 * c}")
+                print(f"[train-kernels] {name} {dt} rate {rate} {desc}: rel max dev "
+                      + " ".join(f"{g} {v:.2e}" for g, v in devs.items())
+                      + f" (limit {limit:g}); fwd kernel {ms[0]:.3f} ms plain {plain_ms[0]:.3f} ms,"
+                      f" bwd kernel {ms[1]:.3f} ms plain {plain_ms[1]:.3f} ms [{smi}] "
+                      f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"{name} {dt} rate {rate}: deviation {worst:.3e} over {limit:g}"
+                          f" or non-finite ({devs})")
+                for i, part in enumerate(("fwd", "bwd")):
+                    results[f"{name}_{part}"].append({
+                        "case": f"{dt} rate {rate} {desc}", "rel_max_dev": worst,
+                        "max_abs_err": abs_err, "ms": ms[i], "plain_ms": plain_ms[i],
+                    })
+    return results
+
+
+# -- phase 5: training end to end --------------------------------------------
+
+
+def phase_train(smi: str) -> dict:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        return _train(Path(tmp), smi)
+
+
+def _train_args(root: Path, precision: str) -> list:
+    return ["--data-dir", str(root / "data"), "--checkpoint-dir", str(root / f"ckpt-{precision}"),
+            "--no-partial-transformers", "--batch-size", "8", "--train-length", "1500",
+            "--accumulate-grad-batches", str(TRAIN_ACCUM), "--warmup-steps", "1",
+            "--max-steps", str(TRAIN_STEPS), "--max-epochs", str(TRAIN_STEPS),
+            "--val-frequency", "1", "--precision", precision, "--no-tempo-augmentation",
+            "--no-pitch-augmentation", "--no-mask-augmentation", "--num-workers", "4",
+            "--log-file", str(root / f"log-{precision}.jsonl"), "--device", DEVICE]
+
+
+def step_grads(trainer, tc, batch, seeds, kernels: bool):
+    """(losses, gradients, buffers) of one accumulated step from the
+    trainer's initial weights."""
+    from beat_this_tpu_torch.train.task import accumulate_grads
+
+    model = trainer.init_state().model
+    parts = accumulate_grads(model, tc, batch, seeds, kernels=kernels)
+    return ({k: float(v) for k, v in parts.items()},
+            {k: p.grad for k, p in model.named_parameters()},
+            {k: b.clone() for k, b in model.named_buffers()})
+
+
+def first_step_check(args) -> tuple[float, float, int]:
+    """The first step's losses, gradients and batch-norm statistics on the
+    kernel path against the plain path, from the driver's first batch and
+    dropout seeds; then the kernel and plain step times (host clock around
+    a synchronized train_step) and the peak device memory of a kernel step.
+
+    In bfloat16 the shift-tolerant loss's max-pool turns near-ties of the
+    logits into different argmax frames on the two paths, and the gradients
+    of the frontend (plain PyTorch on both paths, downstream of every
+    kernel) then differ by a few percent, as either path does from the
+    float32 one. So in bfloat16 the driver's loss holds the loss, the
+    statistics and the gradient of every transformer-layer parameter (what
+    the kernels produce), and a max-pool-free loss (`weighted_bce`) holds
+    every gradient."""
+    import dataclasses
+
+    import torch
+
+    from beat_this_tpu.data import BeatDataModule
+    from beat_this_tpu_torch.model.beat_this import BeatThisConfig
+    from beat_this_tpu_torch.train.task import (
+        TrainConfig,
+        make_optimizer,
+        make_scheduler,
+        train_step,
+    )
+    from beat_this_tpu_torch.train.trainer import Trainer
+
+    dm = BeatDataModule(Path(args.data_dir), batch_size=args.batch_size,
+                        train_length=args.train_length, num_workers=args.num_workers,
+                        augmentations={}, length_based_oversampling_factor=0.65, seed=args.seed)
+    dm.setup("fit")
+    pw = dm.get_train_positive_weights(widen_target_mask=3)
+    tc = TrainConfig(warmup_steps=args.warmup_steps, accum_steps=args.accumulate_grad_batches,
+                     pos_weight_beat=pw["beat"], pos_weight_downbeat=pw["downbeat"],
+                     compute_dtype=args.precision, max_steps=args.max_steps)
+    cfg = BeatThisConfig(transformer_dim=args.transformer_dim, n_layers=args.n_layers,
+                         dropout_frontend=args.frontend_dropout,
+                         dropout_transformer=args.transformer_dropout,
+                         partial_transformers=args.partial_transformers)
+    trainer = Trainer(cfg, tc, dm, seed=args.seed, device=args.device)
+    batch = trainer._to_device(next(dm.train_batches(tc.accum_steps, seed=args.seed)))
+    gen = torch.Generator().manual_seed((args.seed & 0xFFFFFFFF) << 32)
+    seeds = torch.randint(0, 2**31 - 1, (tc.accum_steps,), generator=gen).tolist()
+    bf16 = args.precision == "bfloat16"
+    limit = BF16_LIMIT if bf16 else F32_LIMIT
+
+    def within(v: float) -> bool:
+        return v < limit if bf16 else v <= limit
+
+    losses = [tc.loss_type] + (["weighted_bce"] if bf16 else [])
+    for loss_type in losses:
+        ltc = dataclasses.replace(tc, loss_type=loss_type)
+        got, g_grads, g_bufs = step_grads(trainer, ltc, batch, seeds, True)
+        want, w_grads, w_bufs = step_grads(trainer, ltc, batch, seeds, False)
+        devs = sorted(((rel_dev(g_grads[k], w_grads[k]), k) for k in g_grads), reverse=True)
+        loss = max(abs(got[k] - want[k]) / abs(want[k]) for k in got)
+        bn = max(rel_dev(g_bufs[k], w_bufs[k]) for k in g_bufs)
+        held = devs if (not bf16 or loss_type == "weighted_bce") else [
+            d for d in devs if d[1].startswith("transformer_blocks.layers.")]
+        print(f"[train] first step {args.precision}, {loss_type}, kernel vs plain path, same "
+              f"batch and dropout seeds: losses {got['total']:.6f} / {want['total']:.6f} (rel "
+              f"{loss:.2e}), batch-norm statistics {bn:.2e}; largest gradient deviations "
+              + ", ".join(f"{k} {d:.2e}" for d, k in devs[:4])
+              + f"; held: {len(held)} of {len(devs)} gradients, worst {held[0][1]} "
+              f"{held[0][0]:.2e} (limit {limit:g})")
+        if len(held) < len(devs):
+            ref = step_grads(trainer, dataclasses.replace(ltc, compute_dtype="float32"), batch,
+                             seeds, True)[1]
+            far = [k for _, k in devs[:3]]
+            print("[train]   bfloat16 distance to the float32 kernel path of those gradients: "
+                  "kernel path " + ", ".join(f"{rel_dev(g_grads[k], ref[k]):.2e}" for k in far)
+                  + "; plain path " + ", ".join(f"{rel_dev(w_grads[k], ref[k]):.2e}" for k in far))
+            del ref
+        check(within(max(loss, bn, held[0][0])),
+              f"first step {args.precision} {loss_type}: kernel path deviates from the plain path")
+        del g_grads, w_grads
+
+    def timed(model, kernels: bool, reps: int) -> list:
+        opt = make_optimizer(model, tc)
+        sched = make_scheduler(opt, tc)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(model, opt, sched, batch, gen, tc, kernels=kernels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_times = timed(trainer.init_state().model, True, 4)
+    peak = torch.cuda.max_memory_allocated()
+    plain_times = timed(trainer.init_state().model, False, 2)
+    return statistics.median(kernel_times[1:]), plain_times[-1], peak
+
+
+def _train(root: Path, smi: str) -> dict:
+    import torch
+
+    from beat_this_tpu.data.synth import write_click_corpus
+    from beat_this_tpu_torch import cli
+    from beat_this_tpu_torch.inference import load_model
+    from beat_this_tpu_torch.train.__main__ import get_parser, main
+
+    write_click_corpus(root / "data", n_pieces=16, n_val_pieces=2, frames=3000, seed=0)
+    print("[train] click corpus: 16 training and 2 validation pieces of 3000 frames; reduced: "
+          f"{TRAIN_ACCUM} microbatches per step (reference 8), {TRAIN_STEPS} steps, "
+          "augmentations off (the corpus has no pitch- or tempo-shifted spectrograms)")
+    counters = train_counters()
+    launches = {}
+    wav = root / "piece.wav"
+    write_wav(wav, 601, 7)
+    expect = TRAIN_LAYERS * TRAIN_ACCUM * TRAIN_STEPS
+    for precision in ("float32", "bfloat16"):
+        args = get_parser().parse_args(_train_args(root, precision))
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state = main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {k: fn.launches for k, fn in counters.items()}
+        launches = {k: launches.get(k, 0) + v for k, v in run.items()}
+        print(f"[train] driver {precision}: {state.step} steps in {wall:.1f} s wall (set-up, "
+              f"validation and checkpoints included), launches {run}")
+        check(state.step == TRAIN_STEPS, f"{precision}: {state.step} steps")
+        for k, v in run.items():
+            check(v == expect, f"{precision}: {k} launched {v} times, expected {expect}")
+        records = [json.loads(line) for line in Path(args.log_file).read_text().splitlines()]
+        losses = [r[k] for r in records for k in r if k.startswith(("train_loss", "val_loss"))]
+        check(len(losses) > 0 and all(np.isfinite(losses)), f"{precision}: losses {losses}")
+        print(f"[train] {precision}: logged losses {[round(v, 4) for v in losses]}")
+        ckpt = next((root / f"ckpt-{precision}").glob("*.ckpt"))
+        model = load_model(ckpt, args.device)
+        check(not model.config.partial_transformers, "checkpoint config")
+        out = root / f"piece-{precision}.beats"
+        cli.run([str(wav)], str(ckpt), str(out), ".beats", False, False, False, False,
+                0 if DEVICE == "cuda" else -1, precision == "bfloat16", False)
+        check(out.exists(), f"{precision}: the CLI wrote no .beats file")
+        print(f"[train] {precision}: checkpoint {ckpt.name} ({ckpt.stat().st_size} bytes) loads "
+              f"through load_model; the CLI wrote {out.name} with "
+              f"{len(out.read_text().splitlines())} beats")
+        step_s, plain_s, peak = first_step_check(args)
+        print(f"[train] step time {precision}, full width, batch 8 x 1500, {TRAIN_ACCUM} "
+              f"microbatches, dropout 0.2: kernel path {step_s:.3f} s, plain path "
+              f"{plain_s:.3f} s")
+        print(f"[train] {smi}")
+        print(f"[train] torch.cuda.max_memory_allocated over kernel-path steps {precision}: "
+              f"{peak / 2**30:.2f} GiB")
+        print(f"[train] {smi}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -490,18 +806,27 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
     try:
-        smi = phase_environment()
-        phase_build()
-        results = phase_kernels(smi)
-        launches = phase_end_to_end(smi)
+        smi = timed("environment", phase_environment)
+        timed("build", phase_build)
+        results = timed("kernels", phase_kernels, smi)
+        results.update(timed("train-kernels", phase_train_kernels, smi))
+        launches = timed("end-to-end", phase_end_to_end, smi)
+        launches.update(timed("train", phase_train, smi))
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     summary = []
     for name, (source, replaces) in KERNELS.items():
-        main_case = results[name][0]  # the first float32 case
+        main_case = results[name][0]  # the first float32 case (rate 0 for training)
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],

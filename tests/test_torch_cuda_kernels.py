@@ -1,14 +1,17 @@
-"""The three CUDA kernels against their plain PyTorch versions on the card,
-at small and ragged shapes the main path does not reach: row counts that
-are not a multiple of the 32-row tile, sequence lengths that are not a
-multiple of the attention tiles, every supported width. Needs a CUDA device
-and nvcc; skips without one. Run on the GPU machine with
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+small and ragged shapes the main path does not reach: row counts that are
+not a multiple of the 32-row tile, sequence lengths that are not a multiple
+of the attention tiles, every supported width; the training kernels with
+dropout off and on (the same Philox masks on both sides), output and every
+gradient. Needs a CUDA device and nvcc; skips without one. Run on the GPU
+machine with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 (the repository's conftest.py imports JAX, which that machine lacks).
 Tolerances: float32 relative max deviation 1e-5 (TF32 off; only the order
-of float32 sums differs), bfloat16 < 2.5e-2 (the two sides round
+of float32 sums differs), 1e-4 for the training kernels' gradients (sums
+over every row, in another order), bfloat16 < 2.5e-2 (the two sides round
 intermediates to bfloat16 at different places)."""
 
 import numpy as np
@@ -16,6 +19,8 @@ import pytest
 import torch
 
 from beat_this_tpu_torch.model.layers import Attention, FeedForward
+from beat_this_tpu_torch.ops import fused_ff as ff_ops
+from beat_this_tpu_torch.ops import fused_time as time_ops
 from beat_this_tpu_torch.ops.fused_ff import fused_ff, fused_ff_ref
 from beat_this_tpu_torch.ops.fused_freq import fused_freq_roformer, fused_freq_roformer_ref
 from beat_this_tpu_torch.ops.fused_time import fused_time_roformer, fused_time_roformer_ref
@@ -96,3 +101,78 @@ def test_unsupported_width_raises(device):
     _, ff = _block(96, 3, 0, device)
     with pytest.raises(ValueError, match="supports C"):
         fused_ff(torch.zeros((4, 96), device=device), ff)
+
+
+TRAIN_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2.5e-2)]
+
+
+def _run_grads(fn, x, params, cot):
+    """Output and the gradients of sum(out * cot) w.r.t. x and `params`."""
+    for p in params:
+        p.grad = None
+    x = x.detach().clone().requires_grad_(True)
+    out = fn(x)
+    (out.float() * cot).sum().backward()
+    return [out.detach()] + [x.grad] + [p.grad.clone() for p in params]
+
+
+def _compare_train(kernel, plain, x, params, tol, seed):
+    cot = _x(x.shape, torch.float32, x.device, seed + 1)
+    got = _run_grads(kernel, x, params, cot)
+    want = _run_grads(plain, x, params, cot)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(g.float()).all()), i
+        assert _rel(g, w) < tol, (i, _rel(g, w))
+    return got
+
+
+@pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("c,rows", [(32, 45), (64, 100), (128, 77), (512, 70)])
+def test_fused_ff_train(device, dtype, tol, rate, c, rows):
+    _, ff = _block(c, c // 32, c + rows, device)
+    ff.requires_grad_(True)
+    x = _x((rows, c), dtype, device, c)
+    before = (ff_ops.ff_train_fwd.launches, ff_ops.ff_train_bwd.launches)
+    _compare_train(lambda t: ff_ops.fused_ff_train(t, ff, rate, 7),
+                   lambda t: ff_ops.fused_ff_train_ref(t, ff, rate, 7),
+                   x, list(ff.parameters()), tol, c)
+    assert (ff_ops.ff_train_fwd.launches, ff_ops.ff_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("heads,n,items", [(1, 77, 3), (2, 130, 2), (4, 64, 1), (16, 200, 1)])
+def test_fused_time_attention_train(device, dtype, tol, rate, heads, n, items):
+    c = heads * 32
+    attn, _ = _block(c, heads, n, device)
+    attn.requires_grad_(True)
+    cos, sin = rope_tables(n, 32, device)
+    x = _x((items, n, c), dtype, device, n)
+    before = (time_ops.attn_train_fwd.launches, time_ops.attn_train_bwd.launches)
+    _compare_train(
+        lambda t: time_ops.fused_time_attention_train(t, attn, cos, sin, heads, rate, 11),
+        lambda t: time_ops.fused_time_attention_train_ref(t, attn, cos, sin, heads, rate, 11),
+        x, list(attn.parameters()), tol, n)
+    assert (time_ops.attn_train_fwd.launches, time_ops.attn_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_training_backward_is_deterministic(device):
+    """Two backward runs give the same bits (no float atomics)."""
+    attn, ff = _block(128, 4, 3, device)
+    attn.requires_grad_(True)
+    ff.requires_grad_(True)
+    cos, sin = rope_tables(96, 32, device)
+    x = _x((3, 96, 128), torch.float32, device, 5)
+
+    def fn(t):
+        h = t + time_ops.fused_time_attention_train(t, attn, cos, sin, 4, 0.2, 3)
+        return ff_ops.fused_ff_train(h, ff, 0.2, 4)
+
+    params = list(attn.parameters()) + list(ff.parameters())
+    cot = _x(x.shape, torch.float32, device, 6)
+    first, second = _run_grads(fn, x, params, cot), _run_grads(fn, x, params, cot)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

@@ -23,6 +23,9 @@ def test_import_pulls_in_no_jax():
         "import beat_this_tpu_torch, beat_this_tpu_torch.inference, beat_this_tpu_torch.cli\n"
         "import beat_this_tpu_torch.ops.fused_ff, beat_this_tpu_torch.ops.fused_time\n"
         "import beat_this_tpu_torch.ops.fused_freq, beat_this_tpu_torch.io.checkpoint\n"
+        "import beat_this_tpu_torch.ops.dropout, beat_this_tpu_torch.train.loss\n"
+        "import beat_this_tpu_torch.train.schedule, beat_this_tpu_torch.train.task\n"
+        "import beat_this_tpu_torch.train.trainer, beat_this_tpu_torch.train.__main__\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
     )
@@ -44,7 +47,8 @@ def test_sources_use_no_library_kernels():
 
 def test_kernel_sources_exist():
     names = {p.name for p in (PACKAGE / "csrc").glob("*.cu")}
-    assert names == {"fused_ff.cu", "fused_time.cu", "fused_freq.cu"}
+    assert names == {"fused_ff.cu", "fused_time.cu", "fused_freq.cu", "fused_ff_train.cu",
+                     "fused_time_train.cu"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
