@@ -147,8 +147,8 @@ def run(
     activations,
     batch_files=8,
 ):
-    from beat_this_tpu.io.audio import load_audio
-    from beat_this_tpu.utils import save_beat_tsv
+    from beat_this_tpu_torch.io.audio import load_audio
+    from beat_this_tpu_torch.utils import save_beat_tsv
     from beat_this_tpu_torch.inference import File2File
 
     del batch_files  # files run one at a time

@@ -11,7 +11,8 @@
 //
 // The training kernels add `mm_acc_t` (the same product against a weight
 // read transposed) and `outer_acc` (weight gradients: a product over the
-// rows of a tile), and pass a `Dropout` to `ff_tail`.
+// rows of a tile), pass a `Dropout` to `ff_tail`, and share `load_dy` and
+// `store_rows`.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -143,11 +144,12 @@ __device__ __forceinline__ void outer_acc(float (&acc)[4][NI], const float* L, i
 }
 
 // dst = rmsnorm(src) * gamma row by row (F.normalize(x) * sqrt(C) * gamma,
-// norm clamped at 1e-12), optionally rounded to T. src may equal dst. Ends
-// with a barrier.
+// norm clamped at 1e-12), optionally rounded to T. src may equal dst. With
+// `norms`, also each row's clamped norm. Ends with a barrier.
 template <int C, bool ROUND, typename T>
 __device__ __forceinline__ void rms_rows(const float* src, float* dst, int ld,
-                                         const float* __restrict__ gamma) {
+                                         const float* __restrict__ gamma,
+                                         float* norms = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float sc = sqrtf((float)C);
   for (int r = warp; r < kRows; r += kThreads / 32) {
@@ -159,6 +161,7 @@ __device__ __forceinline__ void rms_rows(const float* src, float* dst, int ld,
 #pragma unroll
     for (int o = 16; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
     const float nrm = fmaxf(sqrtf(ss), 1e-12f);
+    if (norms != nullptr && lane == 0) norms[r] = nrm;
     for (int c = lane; c < C; c += 32) {
       const float g = src[r * ld + c] / nrm * sc * gamma[c];
       dst[r * ld + c] = ROUND ? round_to<T>(g) : g;
@@ -181,6 +184,48 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ src, float* dst,
   for (int e = threadIdx.x; e < kRows * C; e += kThreads) {
     const int r = e / C, c = e % C;
     dst[r * tile_ld(C) + c] = r < nrows ? to_f(src[(row0 + r) * C + c]) : 0.f;
+  }
+  __syncthreads();
+}
+
+// Store rows [0, nrows) of a float tile (row stride ld) as rows
+// [row0, row0 + nrows) of a (rows, ncol) tensor of T. Ends with a barrier,
+// so the tile may be overwritten next.
+template <typename T>
+__device__ __forceinline__ void store_rows(const float* src, int ld, int ncol,
+                                           T* __restrict__ dst, int64_t row0, int nrows) {
+  for (int e = threadIdx.x; e < nrows * ncol; e += kThreads) {
+    const int r = e / ncol, c = e % ncol;
+    dst[(row0 + r) * ncol + c] = from_f<T>(src[r * ld + c]);
+  }
+  __syncthreads();
+}
+
+// The float tile dy = round_T(dout * FF output mask), zero past nrows; with
+// `db2p`, also the tile's column sums of the unrounded values. Ends with a
+// barrier.
+template <int C, typename T>
+__device__ __forceinline__ void load_dy(const T* __restrict__ dout, float* dy, int64_t row0,
+                                        int nrows, const Dropout& drop, float* db2p) {
+  constexpr int ld = tile_ld(C);
+  for (int e = threadIdx.x; e < kRows * C; e += kThreads) {
+    const int r = e / C, c = e % C;
+    dy[r * ld + c] = r < nrows ? to_f(dout[(row0 + r) * C + c]) *
+                                     keep1(drop, kSiteFFOut, 0, 0, (uint32_t)(row0 + r), c)
+                               : 0.f;
+  }
+  __syncthreads();
+  if (db2p != nullptr) {
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      float s = 0.f;
+      for (int r = 0; r < kRows; ++r) s += dy[r * ld + c];
+      db2p[c] = s;
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < kRows * C; e += kThreads) {
+    const int r = e / C, c = e % C;
+    dy[r * ld + c] = round_to<T>(dy[r * ld + c]);
   }
   __syncthreads();
 }

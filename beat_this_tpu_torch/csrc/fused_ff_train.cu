@@ -76,36 +76,6 @@ __global__ void __launch_bounds__(bt::kThreads)
                     nrows, drop);
 }
 
-// The float tile dy = round_T(dout * output mask), zero past nrows; with
-// `db2p`, also the tile's column sums of the unrounded values. Ends with a
-// barrier.
-template <int C, typename T>
-__device__ __forceinline__ void load_dy(const T* __restrict__ dout, float* dy, int64_t row0,
-                                        int nrows, const bt::Dropout& drop, float* db2p) {
-  constexpr int ld = bt::tile_ld(C);
-  for (int e = threadIdx.x; e < bt::kRows * C; e += bt::kThreads) {
-    const int r = e / C, c = e % C;
-    dy[r * ld + c] = r < nrows ? bt::to_f(dout[(row0 + r) * C + c]) *
-                                     bt::keep1(drop, bt::kSiteFFOut, 0, 0,
-                                               (uint32_t)(row0 + r), c)
-                               : 0.f;
-  }
-  __syncthreads();
-  if (db2p != nullptr) {
-    for (int c = threadIdx.x; c < C; c += bt::kThreads) {
-      float s = 0.f;
-      for (int r = 0; r < bt::kRows; ++r) s += dy[r * ld + c];
-      db2p[c] = s;
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < bt::kRows * C; e += bt::kThreads) {
-    const int r = e / C, c = e % C;
-    dy[r * ld + c] = bt::round_to<T>(dy[r * ld + c]);
-  }
-  __syncthreads();
-}
-
 template <int C>
 __host__ __device__ constexpr int rows_smem_floats() {
   return 2 * bt::kRows * bt::tile_ld(C) + bt::kRows * (bt::kHid + 1) +
@@ -143,7 +113,7 @@ __global__ void __launch_bounds__(bt::kThreads)
     for (int c = lane; c < C; c += 32)
       gt[r * ld + c] = bt::round_to<T>(gt[r * ld + c] / nrm * sc * gamma[c]);
   }
-  load_dy<C, T>(dout, dy, row0, nrows, drop, db2p + blockIdx.x * (int64_t)C);
+  bt::load_dy<C, T>(dout, dy, row0, nrows, drop, db2p + blockIdx.x * (int64_t)C);
 
   float acc[2][C / 16];
   bt::zero(acc);
@@ -252,7 +222,7 @@ __global__ void __launch_bounds__(bt::kThreads)
     const int nrows = bt::tile_rows(rows, row0);
     bt::load_rows<C, T>(x, gt, row0, nrows);
     bt::rms_rows<C, true, T>(gt, gt, ld, gamma);
-    load_dy<C, T>(dout, dy, row0, nrows, drop, nullptr);
+    bt::load_dy<C, T>(dout, dy, row0, nrows, drop, nullptr);
     float hacc[2][kWChunk / 16], dacc[2][kWChunk / 16];
     bt::zero(hacc);
     bt::zero(dacc);

@@ -17,8 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from beat_this_tpu.io.audio import load_audio
-from beat_this_tpu.utils import save_beat_tsv
+from beat_this_tpu_torch.io.audio import load_audio
+from beat_this_tpu_torch.utils import save_beat_tsv
 from beat_this_tpu_torch.io.checkpoint import load_checkpoint, model_state_dict
 from beat_this_tpu_torch.model.beat_this import BeatThis, BeatThisConfig
 from beat_this_tpu_torch.ops.mel import LogMelConfig, log_mel_spectrogram, num_frames
@@ -193,7 +193,7 @@ class Audio2Frames(Spect2Frames):
         elif signal.ndim != 1:
             raise ValueError(f"Expected 1D or 2D signal, got shape {signal.shape}")
         if sr != 22050:
-            from beat_this_tpu.ops.resample import resample
+            from beat_this_tpu_torch.ops.resample import resample
 
             signal = resample(signal, in_rate=sr, out_rate=22050)
         frames = num_frames(len(signal))

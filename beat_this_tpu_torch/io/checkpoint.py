@@ -1,9 +1,9 @@
 """Checkpoints for the PyTorch model: local loading, weights carried over from
 the JAX package, and numpy-seeded initialization.
 
-The state-dict key map is the JAX package's
-(beat_this_tpu/io/torch_ckpt.py: `_strip_keys`, `pytree_to_torch_state_dict`),
-which imports no JAX.
+The state-dict key map is `io/keys.py`, the port's copy of the JAX
+package's (beat_this_tpu/io/torch_ckpt.py: `_strip_keys`,
+`pytree_to_torch_state_dict`, `torch_state_dict_to_pytree`).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from beat_this_tpu.io.torch_ckpt import (
+from beat_this_tpu_torch.io.keys import (
     _strip_keys,
     pytree_to_torch_state_dict,
     torch_state_dict_to_pytree,

@@ -8,8 +8,9 @@ JAX package's (batch, time, freq, channels) activation layout and its
 routing: frequency blocks through `freq_roformer`, unmasked time blocks and
 main layers through `time_roformer`, and with `valid_lengths` the masked
 composable attention plus `ff_residual`. In training (`train=True`) batch
-norm uses batch statistics and updates its running statistics, and every
-time-axis attention branch goes through `time_attention_train` and every
+norm uses batch statistics and updates its running statistics; every
+frequency block goes through `freq_roformer(train=True)`, every time-axis
+attention branch through `time_attention_train` and every other
 feed-forward through `ff_residual(train=True)` (the training kernels),
 with dropout from one int seed per call drawn from `seed`.
 """
@@ -135,10 +136,6 @@ class _TaskHeads(nn.Module):
         self.beat_downbeat_lin = nn.Linear(c.transformer_dim, 2)
 
 
-def _on_cuda(x: torch.Tensor) -> bool:
-    return x.device.type == "cuda"
-
-
 class _Seeds:
     """The int32 dropout seeds of one training forward, one per kernel call
     in a fixed order (beat_this_tpu/model/layers.py:51-59 draws one per
@@ -183,9 +180,7 @@ class BeatThis(nn.Module):
         compute; norms, softmax and the head stay float32. `kernels=False`
         takes the composable path everywhere (the kernels' plain versions).
         `train`: batch statistics (running statistics updated in place) and
-        dropout from `seed` (none when None). Training on a CUDA tensor with
-        `partial_transformers` raises NotImplementedError: its frequency
-        blocks need the unported fused_freq training kernels (ROADMAP B6/B7).
+        dropout from `seed` (none when None).
         """
         h = self.features(x, valid_lengths, compute_dtype, kernels, train, seed)
         head = self.task_heads.beat_downbeat_lin
@@ -212,11 +207,6 @@ class BeatThis(nn.Module):
             raise ValueError(f"expected {c.spect_dim} mel bins, got {f}")
         if train and valid_lengths is not None:
             raise ValueError("valid_lengths is an inference-only mechanism")
-        if train and c.partial_transformers and _on_cuda(x):
-            raise NotImplementedError(
-                "training with partial_transformers on CUDA needs the fused_freq training "
-                "kernels, not ported yet (ROADMAP B6/B7); use --no-partial-transformers"
-            )
         seeds = _Seeds(seed if train else None)
         drop_f = c.dropout_frontend if train else 0.0
         drop_t = c.dropout_transformer if train else 0.0
@@ -248,13 +238,10 @@ class BeatThis(nn.Module):
                 p = block.partial
                 rope_freq = rope_tables(n_freq, c.head_dim, x.device)
                 hf = h.reshape(b * t, n_freq, dim)
-                if train:  # the composable path (CPU only, see above)
-                    hf = hf + attention_block(p.attnF, hf, rope_freq, heads,
-                                              dropout_rate=drop_f, seed=seeds())
-                    hf = ff_residual(p.ffF, hf, kernels=kernels, train=True,
-                                     dropout_rate=drop_f, seed=seeds())
-                else:
-                    hf = freq_roformer(p.attnF, p.ffF, hf, rope_freq, heads, kernels=kernels)
+                # one dropout seed per frequency block on every path
+                hf = freq_roformer(p.attnF, p.ffF, hf, rope_freq, heads, kernels=kernels,
+                                   train=train, dropout_rate=drop_f,
+                                   seed=seeds() if train else None)
                 ht = hf.reshape(b, t, n_freq, dim).transpose(1, 2).reshape(b * n_freq, t, dim)
                 if train:
                     ht = ht + time_attention_train(p.attnT, ht, rope_time, heads,

@@ -21,7 +21,9 @@ elements for the same seed. Float64 inputs are computed in float64 (for
 gradchecks); other dtypes accumulate norms and softmax in float32. The
 training kernels' plain versions (ops/fused_ff.py, ops/fused_time.py)
 compute in float32 and round to bfloat16, forward and backward, where the
-kernels round (`round_value`, `round_grad`).
+kernels round (`round_value`, `round_grad`). With `kernels=False` each
+training branch is recomputed in the backward (`recomputed`), so the plain
+path keeps no (T, T) probability matrix between the passes.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from beat_this_tpu_torch.ops import dropout as drop
@@ -216,6 +219,17 @@ def feed_forward(ff: FeedForward, x: torch.Tensor) -> torch.Tensor:
     return F.linear(h, lin2.weight.to(h.dtype), lin2.bias.to(h.dtype))
 
 
+def recomputed(fn, *args):
+    """`fn(*args)` under `torch.utils.checkpoint`: the backward recomputes
+    the branch instead of keeping its activations, as the JAX package's
+    composable training path does with `jax.checkpoint`
+    (beat_this_tpu/model/beat_this.py:289-308). The plain frontend attention
+    of one microbatch would otherwise keep several (256, 1, 1500, 1500)
+    float32 tensors of 2.3 GB per block. The values are unchanged: the
+    dropout masks follow from the seed."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 def ff_residual(ff: FeedForward, x: torch.Tensor, *, kernels: bool = True,
                 train: bool = False, dropout_rate: float = 0.0,
                 seed: Optional[int] = None):
@@ -225,8 +239,9 @@ def ff_residual(ff: FeedForward, x: torch.Tensor, *, kernels: bool = True,
     if train:
         from beat_this_tpu_torch.ops import fused_ff
 
-        fn = fused_ff.fused_ff_train if kernels else fused_ff.fused_ff_train_ref
-        return fn(x, ff, dropout_rate, seed)
+        if kernels:
+            return fused_ff.fused_ff_train(x, ff, dropout_rate, seed)
+        return recomputed(fused_ff.fused_ff_train_ref, x, ff, dropout_rate, seed)
     if kernels:
         from beat_this_tpu_torch.ops.fused_ff import fused_ff
 
@@ -242,7 +257,7 @@ def time_attention_train(attn: Attention, x: torch.Tensor, rope, heads: int, *,
     T >= FLASH_MIN_SEQ, C == heads * 32, heads is 1, 2 or a multiple of 4 and
     at most FUSED_TIME_TRAIN_MAX_HEADS (the JAX router's conditions);
     otherwise `attention_block`. `kernels=False` takes the kernel's plain
-    version where the kernel would run."""
+    version where the kernel would run, recomputed in the backward."""
     if (
         x.shape[1] >= FLASH_MIN_SEQ
         and x.shape[-1] == heads * HEAD_DIM
@@ -251,22 +266,53 @@ def time_attention_train(attn: Attention, x: torch.Tensor, rope, heads: int, *,
     ):
         from beat_this_tpu_torch.ops import fused_time
 
-        fn = (fused_time.fused_time_attention_train if kernels
-              else fused_time.fused_time_attention_train_ref)
-        return fn(x, attn, rope[0], rope[1], heads, dropout_rate, seed)
+        if kernels:
+            return fused_time.fused_time_attention_train(x, attn, rope[0], rope[1], heads,
+                                                         dropout_rate, seed)
+        return recomputed(fused_time.fused_time_attention_train_ref, x, attn, rope[0], rope[1],
+                          heads, dropout_rate, seed)
     return attention_block(attn, x, rope, heads, dropout_rate=dropout_rate, seed=seed)
 
 
-def freq_roformer(attn, ff, x, rope, heads, *, kernels: bool = True):
+def split_seed(seed: Optional[int]) -> tuple[Optional[int], Optional[int]]:
+    """Two int32 seeds drawn from one (None stays None), as JAX splits an
+    rng in two."""
+    if seed is None:
+        return None, None
+    gen = torch.Generator().manual_seed(int(seed))
+    a, b = torch.randint(0, 2**31 - 1, (2,), generator=gen).tolist()
+    return a, b
+
+
+def freq_roformer(attn, ff, x, rope, heads, *, kernels: bool = True, train: bool = False,
+                  dropout_rate: float = 0.0, seed: Optional[int] = None):
     """One frequency-axis roformer block on (items, F, C):
-    `x + attention; + feed_forward`, as one fused kernel when `kernels`, F
-    divides 128 (at most 32) and C == heads * 32 (the JAX router's
-    conditions)."""
+    `x + attention; + feed_forward`. Where the JAX router fuses (F divides
+    128, at most 32, and C == heads * 32): at eval the fused kernel when
+    `kernels`; in training (`train=True`) the fused training op with
+    dropout at `dropout_rate` from the one `seed`, or its plain version
+    without `kernels` (recomputed in the backward). Otherwise
+    `attention_block` plus `ff_residual`, in training with `seed` split in
+    two."""
     f = x.shape[1]
-    if kernels and f <= 32 and 128 % f == 0 and x.shape[-1] == heads * HEAD_DIM:
+    fused = f <= 32 and 128 % f == 0 and x.shape[-1] == heads * HEAD_DIM
+    if fused and train:
+        from beat_this_tpu_torch.ops import fused_freq
+
+        if kernels:
+            return fused_freq.fused_freq_roformer_train(x, attn, ff, rope[0], rope[1],
+                                                        dropout_rate, seed)
+        return recomputed(fused_freq.fused_freq_roformer_train_ref, x, attn, ff, rope[0],
+                          rope[1], dropout_rate, seed)
+    if fused and kernels:
         from beat_this_tpu_torch.ops.fused_freq import fused_freq_roformer
 
         return fused_freq_roformer(x, attn, ff, rope[0], rope[1])
+    if train:
+        seed_a, seed_f = split_seed(seed)
+        x = x + attention_block(attn, x, rope, heads, dropout_rate=dropout_rate, seed=seed_a)
+        return ff_residual(ff, x, kernels=kernels, train=True, dropout_rate=dropout_rate,
+                           seed=seed_f)
     x = x + attention_block(attn, x, rope, heads)
     return ff_residual(ff, x, kernels=kernels)
 

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "bt_ff_train_bwd": [_I, _I] + [_P] * 13 + [_L, _I, _I] + _DROP + [_P],
     "bt_attn_train_fwd": [_I, _I] + [_P] * 16 + [_I, _I] + _DROP + [_P],
     "bt_attn_train_bwd": [_I, _I] + [_P] * 26 + [_I, _I, _I] + _DROP + [_P],
+    "bt_freq_train_fwd": [_I, _I] + [_P] * 14 + [_L, _I, _I] + _DROP + [_P],
+    "bt_freq_train_bwd": [_I, _I] + [_P] * 26 + [_L, _I, _I, _I] + _DROP + [_P],
 }
 
 _lock = threading.Lock()

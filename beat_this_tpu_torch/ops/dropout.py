@@ -16,7 +16,9 @@ seed, kernel and plain version drop the same elements.
 
 Sites: the attention probabilities (coordinates item, head, query row, key
 column), the attention output and the two feed-forward sites (coordinates
-row of the flattened (rows, C) activations, column).
+row of the flattened (rows, C) activations, column). The fused
+frequency-axis block draws all four under SALT_FREQ; the time-axis
+attention branch and the feed-forward residual under SALT_ATTN and SALT_FF.
 """
 
 from __future__ import annotations
@@ -26,8 +28,12 @@ import math
 import torch
 
 SITE_ATTN_PROBS, SITE_ATTN_OUT, SITE_FF_HIDDEN, SITE_FF_OUT = 0, 1, 2, 3
-# the key's second word: one salt per fused operation
-SALT_ATTN, SALT_FF = 0x7A77, 0x0FF0
+# the key's second word: one salt per fused operation (SALT_FREQ: the whole
+# frequency-axis block, all four of its sites)
+SALT_ATTN, SALT_FF, SALT_FREQ = 0x7A77, 0x0FF0, 0xF4E9
+# elements per chunk of `keep_mask`: bounds its int64 temporaries (~10 live
+# tensors of this many elements, a few hundred MB)
+MASK_CHUNK = 1 << 22
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -74,17 +80,23 @@ def keep_scale(rate: float) -> float:
 def keep_mask(seed: int, salt: int, site: int, items: int, heads: int, rows: int,
               cols: int, rate: float, device=None) -> torch.Tensor:
     """(items, heads, rows, cols) float32 mask: 0 where dropped, 1 / (1 -
-    rate) where kept, for the element (item, head, row, col) of `site`."""
+    rate) where kept, for the element (item, head, row, col) of `site`.
+    Items are drawn in chunks of at most MASK_CHUNK elements (at least one
+    item per chunk); the bits depend only on the coordinates, not on the
+    chunking."""
     thr, scale = keep_threshold(rate), keep_scale(rate)
     groups = -(-cols // 4)
     c0 = torch.arange(groups, device=device, dtype=torch.int64)
     c1 = torch.arange(rows, device=device, dtype=torch.int64)[:, None]
     c3 = ((site << 16) | torch.arange(heads, device=device, dtype=torch.int64))[:, None, None]
     out = torch.empty((items, heads, rows, cols), dtype=torch.float32, device=device)
-    for item in range(items):  # bounds the int64 temporaries to one item
-        words = philox4x32((c0, c1, torch.tensor(item, device=device), c3), (seed, salt))
-        bits = torch.stack(words, -1).reshape(heads, rows, 4 * groups)[..., :cols]
-        out[item] = (bits < thr).float() * scale
+    step = max(1, MASK_CHUNK // (heads * rows * 4 * groups))
+    for i0 in range(0, items, step):
+        i1 = min(i0 + step, items)
+        c2 = torch.arange(i0, i1, device=device, dtype=torch.int64)[:, None, None, None]
+        words = philox4x32((c0, c1, c2, c3), (seed, salt))
+        bits = torch.stack(words, -1).reshape(i1 - i0, heads, rows, 4 * groups)[..., :cols]
+        out[i0:i1] = (bits < thr).float() * scale
     return out
 
 

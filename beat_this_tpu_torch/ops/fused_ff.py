@@ -104,21 +104,34 @@ def fused_ff(x: torch.Tensor, ff: FeedForward) -> torch.Tensor:
 fused_ff.launches = 0
 
 
-# row-tile groups of the backward's weight-gradient launch: with C = 512,
-# M = 2048 this gives 64 x 2 = 128 blocks, one wave on the H100's 132 SMs
-WGRAD_GROUPS = 2
+WGRAD_GROUPS = 2  # the fewest row-tile groups of a weight-gradient launch
+CARD_SMS = 132  # streaming multiprocessors of the H100 SXM
 ROW_TILE = 32  # rows per block of the row-tile kernels (csrc/common.cuh kRows)
 
 
-def fused_ff_train_ref(x: torch.Tensor, ff: FeedForward, dropout_rate: float = 0.0,
-                       seed: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version: `x + feed_forward(ff, x)` with dropout, in
-    float32 with the kernel's bfloat16 rounding points: g, the weights and
-    the dropped hidden layer rounded before their products, the cotangents
-    of both products rounded before theirs, the residual sum rounded once."""
-    dtype = x.dtype
+def wgrad_groups(blocks: int, rows: int) -> int:
+    """Row-tile groups of a weight-gradient launch with `blocks` blocks per
+    group over `rows` rows, from the shape alone. WGRAD_GROUPS where that
+    grid already covers the card's SMs about once (within a tenth: C 512,
+    64 x 2 = 128 blocks); otherwise enough groups for about two blocks per
+    SM (C 32: 4 x 66 = 264). Never more than one group per row tile. Each
+    group adds one weight-sized float32 partial to the scratch, summed in a
+    fixed order, so a given shape gives the same bits on every run."""
+    tiles = -(-rows // ROW_TILE)
+    groups = WGRAD_GROUPS
+    if 10 * blocks * WGRAD_GROUPS < 9 * CARD_SMS:
+        groups = -(-2 * CARD_SMS // blocks)
+    return max(1, min(groups, tiles))
+
+
+def ff_train_branch(x32: torch.Tensor, ff: FeedForward, dtype: torch.dtype,
+                    dropout_rate: float, seed: Optional[int], salt: int) -> torch.Tensor:
+    """The dropped feed-forward branch on the float32 (or float64) rows
+    `x32`, with the rounding points of the compute dtype `dtype`: g, the
+    weights and the dropped hidden layer rounded before their products, the
+    cotangents of both products rounded before theirs. Masks from `seed`
+    under `salt` (off when `seed` is None)."""
     norm, lin1, _, _, lin2, _ = ff.net
-    x32 = wide(x)
     acc = x32.dtype
     g = round_value(rms_norm(x32, norm.gamma), dtype)
     w1 = round_value(lin1.weight.to(acc), dtype)
@@ -127,14 +140,23 @@ def fused_ff_train_ref(x: torch.Tensor, ff: FeedForward, dropout_rate: float = 0
     on = dropout_rate > 0.0 and seed is not None
     if on:
         with torch.no_grad():
-            keep = rows_mask(seed, drop.SALT_FF, drop.SITE_FF_HIDDEN, h, dropout_rate)
+            keep = rows_mask(seed, salt, drop.SITE_FF_HIDDEN, h, dropout_rate)
         h = h * keep
     y = round_grad(F.linear(round_value(h, dtype), w2), dtype) + lin2.bias.to(acc)
     if on:
         with torch.no_grad():
-            keep = rows_mask(seed, drop.SALT_FF, drop.SITE_FF_OUT, y, dropout_rate)
+            keep = rows_mask(seed, salt, drop.SITE_FF_OUT, y, dropout_rate)
         y = y * keep
-    return (x32 + y).to(dtype)
+    return y
+
+
+def fused_ff_train_ref(x: torch.Tensor, ff: FeedForward, dropout_rate: float = 0.0,
+                       seed: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version: `x + feed_forward(ff, x)` with dropout, in
+    float32 with the kernel's bfloat16 rounding points (`ff_train_branch`),
+    the residual sum rounded once."""
+    x32 = wide(x)
+    return (x32 + ff_train_branch(x32, ff, x.dtype, dropout_rate, seed, drop.SALT_FF)).to(x.dtype)
 
 
 def ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed) -> torch.Tensor:
@@ -165,7 +187,7 @@ def ff_train_bwd(x, gamma, w1, b1, w2, dout, dropout_rate, seed):
     code = _check_cuda("fused_ff_train", x, c)
     lib = _build.load_library()
     tiles = -(-rows // ROW_TILE)
-    groups = min(WGRAD_GROUPS, tiles)
+    groups = wgrad_groups(m // 32, rows)
     dev = x.device
     params = [f32(gamma), kernel_weight(w1, x.dtype), f32(b1), kernel_weight(w2, x.dtype)]
     dout = dout.to(x.dtype).contiguous()

@@ -40,12 +40,12 @@ from beat_this_tpu_torch.ops.rotary import apply_rope
 from beat_this_tpu_torch.ops.fused_ff import (
     ROW_TILE,
     SUPPORTED_DIMS,
-    WGRAD_GROUPS,
     dtype_code,
     f32,
     ff_params,
     kernel_weight,
     stream_of,
+    wgrad_groups,
 )
 
 
@@ -202,7 +202,7 @@ def attn_train_bwd(x, gamma, wqkv, wg, wout, cos, sin, saved, dout, heads, dropo
     dev, dtype = x.device, x.dtype
     rows = items * n
     tiles = -(-rows // ROW_TILE)
-    groups = min(WGRAD_GROUPS, tiles)
+    groups = wgrad_groups(4 * c // 32, rows)
     params = [f32(gamma), kernel_weight(wqkv, dtype), f32(wg), kernel_weight(wout, dtype),
               cos, sin]
     dout = dout.to(dtype).contiguous()

@@ -3,11 +3,9 @@ launch_scripts/train.py (and so with the reference's), plus `--device`:
 
     python -m beat_this_tpu_torch.train --data-dir data --no-partial-transformers
 
-On CUDA the stock configuration (`--partial-transformers`) raises
-NotImplementedError until the fused_freq training kernels are ported
-(ROADMAP B6/B7); on the CPU every configuration trains through the kernels'
-plain versions. It trains on one device: multi-device training is not
-ported yet (ROADMAP A9).
+On CUDA every configuration trains through the hand-written training
+kernels; on the CPU through their plain versions. It trains on one device:
+multi-device training is not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -22,7 +20,7 @@ def main(args) -> object:
     """Train, then test; returns the final TrainState."""
     import numpy as np
 
-    from beat_this_tpu.data import BeatDataModule
+    from beat_this_tpu_torch.data import BeatDataModule
     from beat_this_tpu_torch.model.beat_this import BeatThisConfig
     from beat_this_tpu_torch.train.task import TrainConfig
     from beat_this_tpu_torch.train.trainer import Trainer

@@ -1,0 +1,136 @@
+"""Where the time of one training step goes on the card:
+
+    python -m beat_this_tpu_torch.train.profile [--no-partial-transformers]
+        [--precision float32|bfloat16]
+
+Trains the full-width model (`init_beat_this(0)`) for two warm-up steps on
+a click corpus written by `data.synth` into a temporary directory (batch 8
+x 1500 frames, 2 microbatches, the default dropout of
+`python -m beat_this_tpu_torch.train`), then runs one more `train_step` under
+`torch.profiler` and prints, beside the card's `nvidia-smi` name and power
+limit: the step's wall time (host clock around a synchronized step), the
+device's summed kernel time and busy share (kernel time over wall), and the
+kernels by device time, grouped by the port's kernel families (B4/B5
+`fused_time_train.cu`, B6 `fused_freq.cu`, B7 `fused_freq_train.cu`, B8/B9
+`fused_ff_train.cu`, the shared partial sums) and everything else (cuBLAS,
+cuDNN, elementwise, optimizer). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import tempfile
+import time
+from collections import defaultdict
+from pathlib import Path
+
+BATCH, LENGTH, ACCUM = 8, 1500, 2  # crops per microbatch, frames per crop, microbatches
+WARMUP, TOP = 2, 12  # unprofiled steps first; kernels listed by name
+
+# kernel-name fragments -> the family they belong to, first match wins
+FAMILIES = (
+    ("freq_bwd_rows", "B7 freq_bwd_rows"),
+    ("atb_kernel", "B7 atb (weight gradients)"),
+    ("fused_freq_kernel", "B6 fused_freq (train fwd)"),
+    ("time_qkv", "B4 time_qkv"),
+    ("attn_fwd", "B4 attn_fwd"),
+    ("attn_out", "B4 attn_out"),
+    ("attn_bwd_pre", "B5 attn_bwd_pre"),
+    ("attn_bwd_dq", "B5 attn_bwd_dq"),
+    ("attn_bwd_dkv", "B5 attn_bwd_dkv"),
+    ("attn_bwd_post", "B5 attn_bwd_post"),
+    ("attn_wgrad", "B5 attn_wgrad"),
+    ("ff_train_fwd", "B8 ff_train_fwd"),
+    ("ff_bwd_rows", "B9 ff_bwd_rows"),
+    ("ff_wgrad", "B9 ff_wgrad"),
+    ("sum_partials", "B5/B7/B9 sum_partials"),
+)
+
+
+def family(name: str) -> str:
+    for frag, fam in FAMILIES:
+        if frag in name:
+            return fam
+    return "other (cuBLAS, cuDNN, elementwise, optimizer, copies)"
+
+
+def get_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m beat_this_tpu_torch.train.profile")
+    p.add_argument("--partial-transformers", default=True, action=argparse.BooleanOptionalAction)
+    p.add_argument("--precision", default="float32", choices=["float32", "bfloat16"])
+    return p
+
+
+def main(argv=None) -> dict:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from beat_this_tpu_torch.data import BeatDataModule
+    from beat_this_tpu_torch.data.synth import write_click_corpus
+    from beat_this_tpu_torch.io.checkpoint import init_beat_this
+    from beat_this_tpu_torch.model.beat_this import BeatThis, BeatThisConfig
+    from beat_this_tpu_torch.train.task import (
+        TrainConfig,
+        make_optimizer,
+        make_scheduler,
+        train_step,
+    )
+
+    args = get_parser().parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile: needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="beat_this_profile_") as tmp:
+        write_click_corpus(Path(tmp), n_pieces=16, n_val_pieces=2, frames=3000, seed=0)
+        dm = BeatDataModule(Path(tmp), batch_size=BATCH, train_length=LENGTH, num_workers=2,
+                            augmentations={}, length_based_oversampling_factor=0.65, seed=0)
+        dm.setup("fit")
+        pw = dm.get_train_positive_weights(widen_target_mask=3)
+        batch = next(dm.train_batches(ACCUM, seed=0))
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in batch.items() if isinstance(v, np.ndarray)}
+    cfg = BeatThisConfig(partial_transformers=args.partial_transformers)
+    tc = TrainConfig(warmup_steps=1, accum_steps=ACCUM,
+                     pos_weight_beat=pw["beat"], pos_weight_downbeat=pw["downbeat"],
+                     compute_dtype=args.precision, max_steps=100)
+    model = BeatThis(cfg)
+    model.load_state_dict(init_beat_this(0, cfg))
+    model = model.to(dev)
+    opt, gen = make_optimizer(model, tc), torch.Generator().manual_seed(0)
+    sched = make_scheduler(opt, tc)
+    for _ in range(WARMUP):
+        train_step(model, opt, sched, batch, gen, tc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, opt, sched, batch, gen, tc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    by_name: dict[str, float] = defaultdict(float)
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] += evt.device_time_total / 1e3  # us -> ms
+    by_family: dict[str, float] = defaultdict(float)
+    for name, ms in by_name.items():
+        by_family[family(name)] += ms
+    device_ms = sum(by_name.values())
+    config = "stock" if args.partial_transformers else "no-partial"
+    print(f"[profile] {smi}")
+    print(f"[profile] one train_step, {config} config, {args.precision}, full width, batch "
+          f"{BATCH} x {LENGTH}, {ACCUM} microbatches: wall {1e3 * wall:.1f} ms, device kernel "
+          f"time {device_ms:.1f} ms, busy share {device_ms / (1e3 * wall):.3f}")
+    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {fam}: {ms:.1f} ms ({ms / device_ms:.1%})")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
+        print(f"[profile]   kernel {name[:90]}: {ms:.2f} ms")
+    return {"wall_ms": 1e3 * wall, "device_ms": device_ms, "families": dict(by_family)}
+
+
+if __name__ == "__main__":
+    main()

@@ -2,12 +2,12 @@
 of beat_this_tpu/train/trainer.py (which replaces the reference's
 PyTorch-Lightning Trainer, launch_scripts/train.py:118-132).
 
-Batches are assembled on a prefetch thread by the JAX package's numpy-only
-`BeatDataModule`; each optimizer step runs `train_step` over
-`accum_steps` microbatches on one device. Validation runs every
-`val_frequency` epochs (middle excerpts, minimal postprocessing, F-measure
-and friends from `beat_this_tpu.metrics`, reference pl_module.py:207-222),
-and a Lightning-layout checkpoint (`state_dict` with the `model.` prefix,
+Batches are assembled on a prefetch thread by the numpy-only
+`BeatDataModule` (`data/`, the port's copy of the JAX package's); each
+optimizer step runs `train_step` over `accum_steps` microbatches on one
+device. Validation runs every `val_frequency` epochs (middle excerpts,
+minimal postprocessing, F-measure and friends from `metrics.py`, reference
+pl_module.py:207-222), and a Lightning-layout checkpoint (`state_dict` with the `model.` prefix,
 `hyper_parameters`) plus the optimizer state, step and epoch for resume is
 written after every epoch.
 
@@ -28,7 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from beat_this_tpu.metrics import Metrics
+from beat_this_tpu_torch.metrics import Metrics
 from beat_this_tpu_torch.inference import ChunkedPredictor, resolve_device
 from beat_this_tpu_torch.io.checkpoint import init_beat_this, load_checkpoint, model_state_dict
 from beat_this_tpu_torch.model.beat_this import BeatThis, BeatThisConfig

@@ -3,8 +3,9 @@ small and ragged shapes the main path does not reach: row counts that are
 not a multiple of the 32-row tile, sequence lengths that are not a multiple
 of the attention tiles, every supported width; the training kernels with
 dropout off and on (the same Philox masks on both sides), output and every
-gradient. Needs a CUDA device and nvcc; skips without one. Run on the GPU
-machine with
+gradient, also at the frontend's widths over enough rows that the
+weight-gradient launches take more than two row-tile groups. Needs a CUDA
+device and nvcc; skips without one. Run on the GPU machine with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
@@ -20,6 +21,7 @@ import torch
 
 from beat_this_tpu_torch.model.layers import Attention, FeedForward
 from beat_this_tpu_torch.ops import fused_ff as ff_ops
+from beat_this_tpu_torch.ops import fused_freq as freq_ops
 from beat_this_tpu_torch.ops import fused_time as time_ops
 from beat_this_tpu_torch.ops.fused_ff import fused_ff, fused_ff_ref
 from beat_this_tpu_torch.ops.fused_freq import fused_freq_roformer, fused_freq_roformer_ref
@@ -176,3 +178,66 @@ def test_training_backward_is_deterministic(device):
     first, second = _run_grads(fn, x, params, cot), _run_grads(fn, x, params, cot)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("f,c,items", [(32, 32, 5), (16, 64, 7), (8, 128, 37), (4, 64, 9),
+                                       (2, 32, 21), (1, 128, 45)])
+def test_fused_freq_train(device, dtype, tol, rate, f, c, items):
+    """B6 and B7 against fused_freq_roformer_train_ref: output, dx and the
+    ten parameter gradients, every F dividing 32, ragged row tiles."""
+    attn, ff = _block(c, c // 32, f * c + items, device)
+    attn.requires_grad_(True)
+    ff.requires_grad_(True)
+    cos, sin = rope_tables(f, 32, device)
+    x = _x((items, f, c), dtype, device, f + items)
+    before = (freq_ops.freq_train_fwd.launches, freq_ops.freq_train_bwd.launches)
+    _compare_train(
+        lambda t: freq_ops.fused_freq_roformer_train(t, attn, ff, cos, sin, rate, 13),
+        lambda t: freq_ops.fused_freq_roformer_train_ref(t, attn, ff, cos, sin, rate, 13),
+        x, list(attn.parameters()) + list(ff.parameters()), tol, f + c)
+    assert (freq_ops.freq_train_fwd.launches, freq_ops.freq_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_fused_freq_train_backward_is_deterministic(device):
+    """Two backward runs of B7 give the same bits (grouped partials summed
+    in a fixed order, no float atomics)."""
+    attn, ff = _block(64, 2, 8, device)
+    attn.requires_grad_(True)
+    ff.requires_grad_(True)
+    cos, sin = rope_tables(16, 32, device)
+    x = _x((300, 16, 64), torch.float32, device, 9)
+
+    def fn(t):
+        return freq_ops.fused_freq_roformer_train(t, attn, ff, cos, sin, 0.1, 21)
+
+    params = list(attn.parameters()) + list(ff.parameters())
+    cot = _x(x.shape, torch.float32, device, 10)
+    first, second = _run_grads(fn, x, params, cot), _run_grads(fn, x, params, cot)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
+@pytest.mark.parametrize("heads", [1, 2, 4])
+def test_training_kernels_at_frontend_widths(device, dtype, tol, heads):
+    """B4/B5 and B8/B9 at the frontend's widths (C 32/64/128) over enough
+    rows that the weight-gradient launches derive more than 2 row-tile
+    groups from the shape, dropout 0.1."""
+    c, n, items = heads * 32, 600, 16
+    rows = items * n
+    assert ff_ops.wgrad_groups(4 * c // 32, rows) > 2
+    attn, ff = _block(c, heads, rows + c, device)
+    attn.requires_grad_(True)
+    ff.requires_grad_(True)
+    cos, sin = rope_tables(n, 32, device)
+    x = _x((items, n, c), dtype, device, c + 1)
+    _compare_train(lambda t: time_ops.fused_time_attention_train(t, attn, cos, sin, heads, 0.1, 5),
+                   lambda t: time_ops.fused_time_attention_train_ref(t, attn, cos, sin, heads,
+                                                                     0.1, 5),
+                   x, list(attn.parameters()), tol, c + 2)
+    _compare_train(lambda t: ff_ops.fused_ff_train(t, ff, 0.1, 6),
+                   lambda t: ff_ops.fused_ff_train_ref(t, ff, 0.1, 6),
+                   x, list(ff.parameters()), tol, c + 3)

@@ -1,6 +1,7 @@
-"""The PyTorch package imports no JAX, computes no kernel product with a
-library's fused operator, and builds its kernels only when they are
-launched; a build without nvcc raises instead of falling back."""
+"""The PyTorch package (and chip_smoke.py) imports no JAX and nothing of the
+JAX package `beat_this_tpu`, computes no kernel product with a library's
+fused operator, and builds its kernels only when they are launched; a build
+without nvcc raises instead of falling back."""
 
 import re
 import subprocess
@@ -18,15 +19,17 @@ PACKAGE = Path(__file__).resolve().parent.parent / "beat_this_tpu_torch"
 
 
 def test_import_pulls_in_no_jax():
+    """Every module of the port, imported in a fresh interpreter, loads no
+    module named jax*, beat_this_tpu or beat_this_tpu.*."""
     code = (
-        "import sys\n"
-        "import beat_this_tpu_torch, beat_this_tpu_torch.inference, beat_this_tpu_torch.cli\n"
-        "import beat_this_tpu_torch.ops.fused_ff, beat_this_tpu_torch.ops.fused_time\n"
-        "import beat_this_tpu_torch.ops.fused_freq, beat_this_tpu_torch.io.checkpoint\n"
-        "import beat_this_tpu_torch.ops.dropout, beat_this_tpu_torch.train.loss\n"
-        "import beat_this_tpu_torch.train.schedule, beat_this_tpu_torch.train.task\n"
-        "import beat_this_tpu_torch.train.trainer, beat_this_tpu_torch.train.__main__\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "import importlib, pkgutil, sys\n"
+        "import beat_this_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "assert len(names) > 30, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'beat_this_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'beat_this_tpu.')))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(
@@ -34,6 +37,17 @@ def test_import_pulls_in_no_jax():
         cwd=PACKAGE.parent,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_sources_import_nothing_of_the_jax_package():
+    """No `import beat_this_tpu` or `from beat_this_tpu.` (nor of jax) in the
+    port's sources or chip_smoke.py, at any indentation."""
+    pattern = re.compile(r"^\s*(import (beat_this_tpu|jax)\b|from (beat_this_tpu|jax)"
+                         r"(\.| import))", re.MULTILINE)
+    paths = list(PACKAGE.rglob("*.py")) + [PACKAGE.parent / "chip_smoke.py"]
+    assert len(paths) > 30
+    for path in paths:
+        assert not pattern.search(path.read_text()), path
 
 
 def test_sources_use_no_library_kernels():
@@ -48,7 +62,7 @@ def test_sources_use_no_library_kernels():
 def test_kernel_sources_exist():
     names = {p.name for p in (PACKAGE / "csrc").glob("*.cu")}
     assert names == {"fused_ff.cu", "fused_time.cu", "fused_freq.cu", "fused_ff_train.cu",
-                     "fused_time_train.cu"}
+                     "fused_time_train.cu", "fused_freq_train.cu"}
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

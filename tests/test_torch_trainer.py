@@ -1,8 +1,8 @@
 """The port's training driver end to end on the CPU at a tiny size: two steps
 on a click corpus, validation, the saved checkpoint (read by the JAX
 package's torch-free loader into identical arrays), resume (equal to the
-uninterrupted run), and the refusal to train the stock configuration on
-CUDA before its fused_freq training kernels are ported.
+uninterrupted run), and the stock configuration's frequency blocks in
+training going through the fused_freq training op.
 """
 
 import numpy as np
@@ -13,7 +13,6 @@ from beat_this_tpu.data.synth import write_click_corpus
 from beat_this_tpu.io.torch_ckpt import load_torch_checkpoint, torch_state_dict_to_pytree
 from beat_this_tpu.model import BeatThisConfig as JaxConfig
 from beat_this_tpu_torch.io.checkpoint import init_beat_this, to_jax
-from beat_this_tpu_torch.model import beat_this
 from beat_this_tpu_torch.model.beat_this import BeatThis, BeatThisConfig
 from beat_this_tpu_torch.train.__main__ import get_parser, main
 from beat_this_tpu_torch.train.schedule import cosine_warmup_factor
@@ -82,15 +81,28 @@ def test_checkpoint_loads_through_the_port(corpus, tmp_path):
 
 
 def test_training_the_stock_config_on_cuda_raises(monkeypatch):
-    """Without a card: the device check is patched to report CUDA."""
+    """The stock configuration no longer raises in training: its frequency
+    blocks take the fused_freq training op (the CUDA kernels on a card, the
+    plain version on this CPU tensor), one call and one dropout seed per
+    block, and the model trains with and without partial transformers."""
+    from beat_this_tpu_torch.ops import fused_freq
+
     cfg = BeatThisConfig(transformer_dim=64, n_layers=1)
     model = BeatThis(cfg)
     model.load_state_dict(init_beat_this(0, cfg))
     x = torch.zeros((1, 32, 128))
-    monkeypatch.setattr(beat_this, "_on_cuda", lambda t: True)
-    with pytest.raises(NotImplementedError, match="B6/B7"):
-        model(x, train=True, seed=0)
-    model(x)  # eval is ported
+    calls = []
+    real = fused_freq.fused_freq_roformer_train
+
+    def spy(x, attn, ff, cos, sin, rate, seed):
+        calls.append((x.shape[1:], rate, seed))
+        return real(x, attn, ff, cos, sin, rate, seed)
+
+    monkeypatch.setattr(fused_freq, "fused_freq_roformer_train", spy)
+    assert model(x, train=True, seed=0)["beat"].shape == (1, 32)
+    assert [c[:2] for c in calls] == [((32, 32), 0.1), ((16, 64), 0.1), ((8, 128), 0.1)]
+    assert len({c[2] for c in calls}) == 3 and all(isinstance(c[2], int) for c in calls)
+    model(x)  # eval
     nopartial = BeatThisConfig(transformer_dim=64, n_layers=1, partial_transformers=False)
     small = BeatThis(nopartial)
     small.load_state_dict(init_beat_this(0, nopartial))
