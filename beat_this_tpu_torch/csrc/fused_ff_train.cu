@@ -348,16 +348,6 @@ cudaError_t dispatch_bwd(int C, const void* x, const void* gamma, const void* w1
 #undef BT_CALL
 }
 
-bt::Dropout make_drop(unsigned seed, unsigned salt, unsigned thr, float scale, int on) {
-  bt::Dropout d;
-  d.seed = seed;
-  d.salt = salt;
-  d.thr = thr;
-  d.scale = scale;
-  d.on = on;
-  return d;
-}
-
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (x, w1, w2, out); gamma, b1, b2 float32.
@@ -369,7 +359,7 @@ extern "C" int bt_ff_train_fwd(int dtype, int C, const void* x, const void* gamm
                                unsigned thr, float scale, int on, void* stream) {
   if (rows <= 0) return 0;
   if (M % bt::kHid) return (int)cudaErrorInvalidValue;
-  const bt::Dropout d = make_drop(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0 ? dispatch_fwd<float>(C, x, gamma, w1, b1, w2, b2, out, rows, M, d, s)
                : dtype == 1
@@ -388,7 +378,7 @@ extern "C" int bt_ff_train_bwd(int dtype, int C, const void* x, const void* gamm
                                unsigned salt, unsigned thr, float scale, int on, void* stream) {
   if (rows <= 0) return 0;
   if (M % bt::kHid || groups < 1) return (int)cudaErrorInvalidValue;
-  const bt::Dropout d = make_drop(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0
                    ? dispatch_bwd<float>(C, x, gamma, w1, b1, w2, dout, dx, dgamma, dw1, db1, dw2,

@@ -675,16 +675,6 @@ cudaError_t dispatch_bwd(int C, const void* x, const void* agamma, const void* w
 #undef BT_CALL
 }
 
-bt::Dropout make_drop(unsigned seed, unsigned salt, unsigned thr, float scale, int on) {
-  bt::Dropout d;
-  d.seed = seed;
-  d.salt = salt;
-  d.thr = thr;
-  d.scale = scale;
-  d.on = on;
-  return d;
-}
-
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 for x (items, n, C), wqkv (3C, C), wout (C, C),
@@ -699,7 +689,7 @@ extern "C" int bt_attn_train_fwd(int dtype, int C, const void* x, const void* ag
                                  void* out, int items, int n, unsigned seed, unsigned salt,
                                  unsigned thr, float scale, int on, void* stream) {
   if (items <= 0 || n <= 0) return 0;
-  const bt::Dropout d = make_drop(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0 ? dispatch_fwd<float>(C, x, agamma, wqkv, wg, gb, wout, cosv, sinv, q,
                                                 k, v, gates, o, mrow, lrow, out, items, n, d, s)
@@ -727,7 +717,7 @@ extern "C" int bt_attn_train_bwd(int dtype, int C, const void* x, const void* ag
                                  unsigned thr, float scale, int on, void* stream) {
   if (items <= 0 || n <= 0) return 0;
   if (groups < 1) return (int)cudaErrorInvalidValue;
-  const bt::Dropout d = make_drop(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0
                    ? dispatch_bwd<float>(C, x, agamma, wqkv, wg, wout, cosv, sinv, q, k, v, gates,

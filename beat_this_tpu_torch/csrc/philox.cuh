@@ -20,6 +20,17 @@ struct Dropout {
   int on;  // 0: rate 0, every factor is 1
 };
 
+// The C entry points' dropout arguments as a Dropout.
+inline Dropout make_dropout(uint32_t seed, uint32_t salt, uint32_t thr, float scale, int on) {
+  Dropout d;
+  d.seed = seed;
+  d.salt = salt;
+  d.thr = thr;
+  d.scale = scale;
+  d.on = on;
+  return d;
+}
+
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {

@@ -254,7 +254,7 @@ class BeatThis(nn.Module):
                 else:
                     ht = ht + attention_block(
                         p.attnT, ht, rope_time, heads,
-                        key_mask=tmask.repeat_interleave(n_freq, dim=0),
+                        key_mask=tmask.repeat_interleave(n_freq, dim=0), kernels=kernels,
                     )
                     ht = ff_residual(p.ffT, ht, kernels=kernels)
                 h = ht.reshape(b, n_freq, t, dim).transpose(1, 2)
@@ -278,6 +278,7 @@ class BeatThis(nn.Module):
             elif tmask is None:
                 h = time_roformer(attn, ff, h, rope_time, heads, kernels=kernels)
             else:
-                h = h + attention_block(attn, h, rope_time, heads, key_mask=tmask)
+                h = h + attention_block(attn, h, rope_time, heads, key_mask=tmask,
+                                        kernels=kernels)
                 h = ff_residual(ff, h, kernels=kernels)
         return rms_norm(h, self.transformer_blocks.norm.gamma).float()

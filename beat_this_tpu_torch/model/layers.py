@@ -13,7 +13,13 @@ routers `ff_residual`, `freq_roformer` and `time_roformer` take the fused
 kernels under the same conditions as the JAX routers, and otherwise (or
 with `kernels=False`) the composable path, which is also what the kernels'
 plain versions compute. In training (`time_attention_train`,
-`ff_residual(train=True)`) the same holds for the training kernels.
+`ff_residual(train=True)`) the same holds for the training kernels. Where
+the fused routers decline a shape (a head width other than 32),
+`attention_block` routes the attention itself as the JAX package does:
+unmasked sequences of at least FLASH_MIN_SEQ frames to `flash_attention`,
+unmasked sequences whose length divides 128 and is at most 32 to
+`small_attention` (both with the rotation inside), anything else (masked
+short pieces) to the rotation and `sdpa` in plain torch.
 
 Dropout draws its masks from `ops/dropout.py` (Philox keyed by an int
 `seed` per call): the composable path and the kernels drop the same
@@ -22,12 +28,14 @@ gradchecks); other dtypes accumulate norms and softmax in float32. The
 training kernels' plain versions (ops/fused_ff.py, ops/fused_time.py)
 compute in float32 and round to bfloat16, forward and backward, where the
 kernels round (`round_value`, `round_grad`). With `kernels=False` each
-training branch is recomputed in the backward (`recomputed`), so the plain
-path keeps no (T, T) probability matrix between the passes.
+training branch is recomputed in the backward (`recomputed`, or chunk by
+chunk inside `flash_attention_ref`), so the plain path keeps no (T, T)
+probability matrix between the passes.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -40,7 +48,8 @@ from beat_this_tpu_torch.ops.rotary import apply_rope
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
-# time-axis sequences at least this long take the fused time kernel
+# time-axis sequences at least this long take the fused time kernel or, in
+# `attention_block`, `flash_attention`
 FLASH_MIN_SEQ = 512
 HEAD_DIM = 32
 # the JAX router's cap on heads for the fused attention training kernel
@@ -177,26 +186,47 @@ def attention_block(
     key_mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    kernels: bool = True,
 ) -> torch.Tensor:
     """The attention residual branch on (b, n, C) (the caller adds x). With
     `dropout_rate > 0` and a `seed`: dropout on the attention probabilities
-    and after the out projection (torch placement)."""
+    and after the out projection (torch placement). The attention itself
+    follows the JAX router (beat_this_tpu/model/layers.py:155-191): unmasked
+    and n >= FLASH_MIN_SEQ: `flash_attention`; unmasked, n <= 32 and n
+    divides 128: `small_attention` (both rotate q and k inside, run their
+    CUDA kernels on CUDA tensors and their plain versions on CPU tensors or
+    with `kernels=False`); otherwise the rotation and `sdpa` in plain torch.
+    All three draw the same probability mask for the same seed."""
     b, n, _ = x.shape
     on = dropout_rate > 0.0 and seed is not None
+    rate = dropout_rate if on else 0.0
     g = rms_norm(x, attn.norm.gamma)
     qkv = F.linear(g, attn.to_qkv.weight.to(g.dtype))
     inner = qkv.shape[-1] // 3
+    head_dim = inner // heads
     # torch layout "(qkv h d)": qkv slowest, then head, then head_dim
-    qkv = qkv.reshape(b, n, 3, heads, inner // heads).permute(2, 0, 3, 1, 4)
+    qkv = qkv.reshape(b, n, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
     cos, sin = rope
-    q = apply_rope(qkv[0], cos, sin)
-    k = apply_rope(qkv[1], cos, sin)
-    dropmask = None
-    if on:
-        with torch.no_grad():
-            dropmask = drop.keep_mask(seed, drop.SALT_ATTN, drop.SITE_ATTN_PROBS, b, heads,
-                                      n, n, dropout_rate, x.device)
-    out = sdpa(q, k, qkv[2], key_mask=key_mask, dropmask=dropmask)  # (b, heads, n, head_dim)
+    fn = None
+    if key_mask is None and n >= FLASH_MIN_SEQ:
+        from beat_this_tpu_torch.ops import flash_attention as ops
+
+        fn = ops.flash_attention if kernels else ops.flash_attention_ref
+    elif key_mask is None and n <= 32 and 128 % n == 0:
+        from beat_this_tpu_torch.ops import small_attention as ops
+
+        fn = ops.small_attention if kernels else ops.small_attention_ref
+    if fn is not None:
+        q, k, v = (t.reshape(b * heads, n, head_dim) for t in qkv)
+        out = fn(q, k, v, cos, sin, rate, seed, heads).reshape(b, heads, n, head_dim)
+    else:
+        dropmask = None
+        if on:
+            with torch.no_grad():
+                dropmask = drop.keep_mask(seed, drop.SALT_ATTN, drop.SITE_ATTN_PROBS, b, heads,
+                                          n, n, dropout_rate, x.device)
+        out = sdpa(apply_rope(qkv[0], cos, sin), apply_rope(qkv[1], cos, sin), qkv[2],
+                   key_mask=key_mask, dropmask=dropmask)  # (b, heads, n, head_dim)
     gates = F.linear(
         g, attn.to_gates.weight.to(g.dtype), attn.to_gates.bias.to(g.dtype)
     )
@@ -219,15 +249,15 @@ def feed_forward(ff: FeedForward, x: torch.Tensor) -> torch.Tensor:
     return F.linear(h, lin2.weight.to(h.dtype), lin2.bias.to(h.dtype))
 
 
-def recomputed(fn, *args):
-    """`fn(*args)` under `torch.utils.checkpoint`: the backward recomputes
+def recomputed(fn, *args, **kwargs):
+    """`fn(*args, **kwargs)` under `torch.utils.checkpoint`: the backward recomputes
     the branch instead of keeping its activations, as the JAX package's
     composable training path does with `jax.checkpoint`
     (beat_this_tpu/model/beat_this.py:289-308). The plain frontend attention
     of one microbatch would otherwise keep several (256, 1, 1500, 1500)
     float32 tensors of 2.3 GB per block. The values are unchanged: the
     dropout masks follow from the seed."""
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
 def ff_residual(ff: FeedForward, x: torch.Tensor, *, kernels: bool = True,
@@ -256,8 +286,9 @@ def time_attention_train(attn: Attention, x: torch.Tensor, rope, heads: int, *,
     adds x): the fused attention training kernel when `kernels`,
     T >= FLASH_MIN_SEQ, C == heads * 32, heads is 1, 2 or a multiple of 4 and
     at most FUSED_TIME_TRAIN_MAX_HEADS (the JAX router's conditions);
-    otherwise `attention_block`. `kernels=False` takes the kernel's plain
-    version where the kernel would run, recomputed in the backward."""
+    otherwise `attention_block`, whose own kernels then run the attention.
+    `kernels=False` takes the plain version where a kernel would run,
+    recomputed in the backward."""
     if (
         x.shape[1] >= FLASH_MIN_SEQ
         and x.shape[-1] == heads * HEAD_DIM
@@ -271,7 +302,21 @@ def time_attention_train(attn: Attention, x: torch.Tensor, rope, heads: int, *,
                                                          dropout_rate, seed)
         return recomputed(fused_time.fused_time_attention_train_ref, x, attn, rope[0], rope[1],
                           heads, dropout_rate, seed)
-    return attention_block(attn, x, rope, heads, dropout_rate=dropout_rate, seed=seed)
+    return attention_train(attn, x, rope, heads, dropout_rate=dropout_rate, seed=seed,
+                           kernels=kernels)
+
+
+def attention_train(attn: Attention, x: torch.Tensor, rope, heads: int, *, dropout_rate: float,
+                    seed: Optional[int], kernels: bool) -> torch.Tensor:
+    """`attention_block` in training. With `kernels` as it is: its attention
+    kernels keep O(n) per query between the passes. Without, no (n, n)
+    tensor is kept either: sequences of at least FLASH_MIN_SEQ frames go
+    through `flash_attention_ref`, which recomputes its own chunks in the
+    backward, and a shorter block is recomputed as a whole (`recomputed`)."""
+    run = attention_block
+    if not kernels and x.shape[1] < FLASH_MIN_SEQ:
+        run = functools.partial(recomputed, attention_block)
+    return run(attn, x, rope, heads, dropout_rate=dropout_rate, seed=seed, kernels=kernels)
 
 
 def split_seed(seed: Optional[int]) -> tuple[Optional[int], Optional[int]]:
@@ -310,10 +355,11 @@ def freq_roformer(attn, ff, x, rope, heads, *, kernels: bool = True, train: bool
         return fused_freq_roformer(x, attn, ff, rope[0], rope[1])
     if train:
         seed_a, seed_f = split_seed(seed)
-        x = x + attention_block(attn, x, rope, heads, dropout_rate=dropout_rate, seed=seed_a)
+        x = x + attention_train(attn, x, rope, heads, dropout_rate=dropout_rate, seed=seed_a,
+                                kernels=kernels)
         return ff_residual(ff, x, kernels=kernels, train=True, dropout_rate=dropout_rate,
                            seed=seed_f)
-    x = x + attention_block(attn, x, rope, heads)
+    x = x + attention_block(attn, x, rope, heads, kernels=kernels)
     return ff_residual(ff, x, kernels=kernels)
 
 
@@ -331,8 +377,44 @@ def time_roformer(attn, ff, x, rope, heads, *, kernels: bool = True):
         from beat_this_tpu_torch.ops.fused_time import fused_time_roformer
 
         return fused_time_roformer(x, attn, ff, rope[0], rope[1], heads)
-    x = x + attention_block(attn, x, rope, heads)
+    x = x + attention_block(attn, x, rope, heads, kernels=kernels)
     return ff_residual(ff, x, kernels=kernels)
+
+
+def partial_roformer(attn: Attention, ff: FeedForward, x: torch.Tensor, direction: str,
+                     head_dim: int, *, kernels: bool = True, train: bool = False,
+                     dropout_rate: float = 0.0, seed: Optional[int] = None) -> torch.Tensor:
+    """Single-direction partial roformer on (batch, time, freq, C): attention
+    plus feed-forward across only the frequency axis ("f") or only the time
+    axis ("t"), counterpart of beat_this_tpu/model/layers.py:partial_roformer
+    (the reference's PartialRoformer, which the stock model does not use).
+    The attention is `attention_block`; the feed-forward goes through
+    `ff_residual`, the port's one route to `x + feed_forward(x)`. In training
+    (`train=True`) `seed` is split in two, one for each half."""
+    from beat_this_tpu_torch.ops.rotary import rope_tables
+
+    direction = direction[0].lower()
+    if direction not in "ft":
+        raise ValueError(f"direction must be F or T, got {direction}")
+    b, t, f, c = x.shape
+    heads = c // head_dim
+    if direction == "f":
+        h = x.reshape(b * t, f, c)
+    else:
+        h = x.transpose(1, 2).reshape(b * f, t, c)
+    rope = rope_tables(h.shape[1], head_dim, x.device)
+    if train:
+        seed_a, seed_f = split_seed(seed)
+        h = h + attention_train(attn, h, rope, heads, dropout_rate=dropout_rate, seed=seed_a,
+                                kernels=kernels)
+        h = ff_residual(ff, h, kernels=kernels, train=True, dropout_rate=dropout_rate,
+                        seed=seed_f)
+    else:
+        h = h + attention_block(attn, h, rope, heads, kernels=kernels)
+        h = ff_residual(ff, h, kernels=kernels)
+    if direction == "f":
+        return h.reshape(b, t, f, c)
+    return h.reshape(b, f, t, c).transpose(1, 2)
 
 
 def batch_norm_apply(bn: BatchNorm, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:

@@ -45,6 +45,10 @@ _SIGNATURES = {
     "bt_attn_train_bwd": [_I, _I] + [_P] * 26 + [_I, _I, _I] + _DROP + [_P],
     "bt_freq_train_fwd": [_I, _I] + [_P] * 14 + [_L, _I, _I] + _DROP + [_P],
     "bt_freq_train_bwd": [_I, _I] + [_P] * 26 + [_L, _I, _I, _I] + _DROP + [_P],
+    "bt_flash_fwd": [_I, _I] + [_P] * 7 + [_I, _I, _I] + _DROP + [_P],
+    "bt_flash_bwd": [_I, _I] + [_P] * 11 + [_I, _I, _I] + _DROP + [_P],
+    "bt_small_attn_fwd": [_I, _I, _I] + [_P] * 6 + [_L, _I] + _DROP + [_P],
+    "bt_small_attn_bwd": [_I, _I, _I] + [_P] * 9 + [_L, _I] + _DROP + [_P],
 }
 
 _lock = threading.Lock()

@@ -31,9 +31,10 @@ SITE_ATTN_PROBS, SITE_ATTN_OUT, SITE_FF_HIDDEN, SITE_FF_OUT = 0, 1, 2, 3
 # the key's second word: one salt per fused operation (SALT_FREQ: the whole
 # frequency-axis block, all four of its sites)
 SALT_ATTN, SALT_FF, SALT_FREQ = 0x7A77, 0x0FF0, 0xF4E9
-# elements per chunk of `keep_mask`: bounds its int64 temporaries (~10 live
-# tensors of this many elements, a few hundred MB)
-MASK_CHUNK = 1 << 22
+# elements per chunk of `keep_mask_entries`: bounds its int64 temporaries
+# (~10 live tensors of this many elements, 1.3 GB) while a chunk is still
+# large enough to fill a GPU (seven (1500, 1500) entries)
+MASK_CHUNK = 1 << 24
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -77,27 +78,39 @@ def keep_scale(rate: float) -> float:
     return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
 
 
-def keep_mask(seed: int, salt: int, site: int, items: int, heads: int, rows: int,
-              cols: int, rate: float, device=None) -> torch.Tensor:
-    """(items, heads, rows, cols) float32 mask: 0 where dropped, 1 / (1 -
-    rate) where kept, for the element (item, head, row, col) of `site`.
-    Items are drawn in chunks of at most MASK_CHUNK elements (at least one
-    item per chunk); the bits depend only on the coordinates, not on the
-    chunking."""
+def keep_mask_entries(seed: int, salt: int, site: int, items: torch.Tensor,
+                      heads: torch.Tensor, rows: int, cols: int, rate: float) -> torch.Tensor:
+    """(len(items), rows, cols) float32 mask: 0 where dropped, 1 / (1 - rate)
+    where kept, for the elements (items[e], heads[e], row, col) of `site`;
+    `items` and `heads` are int64 tensors of one length on the mask's
+    device. Entries are drawn in chunks of at most MASK_CHUNK elements (at
+    least one entry per chunk); the bits depend only on the coordinates,
+    not on the chunking."""
     thr, scale = keep_threshold(rate), keep_scale(rate)
+    device = items.device
     groups = -(-cols // 4)
     c0 = torch.arange(groups, device=device, dtype=torch.int64)
     c1 = torch.arange(rows, device=device, dtype=torch.int64)[:, None]
-    c3 = ((site << 16) | torch.arange(heads, device=device, dtype=torch.int64))[:, None, None]
-    out = torch.empty((items, heads, rows, cols), dtype=torch.float32, device=device)
-    step = max(1, MASK_CHUNK // (heads * rows * 4 * groups))
-    for i0 in range(0, items, step):
-        i1 = min(i0 + step, items)
-        c2 = torch.arange(i0, i1, device=device, dtype=torch.int64)[:, None, None, None]
-        words = philox4x32((c0, c1, c2, c3), (seed, salt))
-        bits = torch.stack(words, -1).reshape(i1 - i0, heads, rows, 4 * groups)[..., :cols]
-        out[i0:i1] = (bits < thr).float() * scale
+    c2 = items[:, None, None]
+    c3 = ((site << 16) | heads)[:, None, None]
+    out = torch.empty((len(items), rows, cols), dtype=torch.float32, device=device)
+    step = max(1, MASK_CHUNK // (rows * 4 * groups))
+    for e0 in range(0, len(items), step):
+        e1 = min(e0 + step, len(items))
+        words = philox4x32((c0, c1, c2[e0:e1], c3[e0:e1]), (seed, salt))
+        bits = torch.stack(words, -1).reshape(e1 - e0, rows, 4 * groups)[..., :cols]
+        out[e0:e1] = (bits < thr).float() * scale
     return out
+
+
+def keep_mask(seed: int, salt: int, site: int, items: int, heads: int, rows: int,
+              cols: int, rate: float, device=None) -> torch.Tensor:
+    """(items, heads, rows, cols) float32 mask for the element (item, head,
+    row, col) of `site`, as `keep_mask_entries` over every (item, head)."""
+    entries = torch.arange(items * heads, device=device, dtype=torch.int64)
+    mask = keep_mask_entries(seed, salt, site, entries // heads, entries % heads, rows, cols,
+                             rate)
+    return mask.reshape(items, heads, rows, cols)
 
 
 def kernel_args(rate: float, seed, salt: int) -> tuple:

@@ -1,7 +1,7 @@
 """Where the time of one training step goes on the card:
 
     python -m beat_this_tpu_torch.train.profile [--no-partial-transformers]
-        [--precision float32|bfloat16]
+        [--precision float32|bfloat16] [--head-dim 16|32]
 
 Trains the full-width model (`init_beat_this(0)`) for two warm-up steps on
 a click corpus written by `data.synth` into a temporary directory (batch 8
@@ -12,8 +12,10 @@ limit: the step's wall time (host clock around a synchronized step), the
 device's summed kernel time and busy share (kernel time over wall), and the
 kernels by device time, grouped by the port's kernel families (B4/B5
 `fused_time_train.cu`, B6 `fused_freq.cu`, B7 `fused_freq_train.cu`, B8/B9
-`fused_ff_train.cu`, the shared partial sums) and everything else (cuBLAS,
-cuDNN, elementwise, optimizer). Needs a CUDA device.
+`fused_ff_train.cu`, the shared partial sums; at `--head-dim 16`, where the
+fused attention kernels decline every block, B10/B11 `flash_attention.cu`
+and B12 `small_attention.cu`) and everything else (cuBLAS, cuDNN,
+elementwise, optimizer). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,6 +47,11 @@ FAMILIES = (
     ("ff_bwd_rows", "B9 ff_bwd_rows"),
     ("ff_wgrad", "B9 ff_wgrad"),
     ("sum_partials", "B5/B7/B9 sum_partials"),
+    ("flash_fwd", "B10 flash_fwd"),
+    ("flash_dq", "B11 flash_dq"),
+    ("flash_dkv", "B11 flash_dkv"),
+    ("small_fwd", "B12 small_fwd"),
+    ("small_bwd", "B12 small_bwd"),
 )
 
 
@@ -59,6 +66,7 @@ def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m beat_this_tpu_torch.train.profile")
     p.add_argument("--partial-transformers", default=True, action=argparse.BooleanOptionalAction)
     p.add_argument("--precision", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--head-dim", type=int, default=32, choices=[16, 32])
     return p
 
 
@@ -94,7 +102,8 @@ def main(argv=None) -> dict:
         batch = next(dm.train_batches(ACCUM, seed=0))
     batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
              for k, v in batch.items() if isinstance(v, np.ndarray)}
-    cfg = BeatThisConfig(partial_transformers=args.partial_transformers)
+    cfg = BeatThisConfig(partial_transformers=args.partial_transformers,
+                         head_dim=args.head_dim)
     tc = TrainConfig(warmup_steps=1, accum_steps=ACCUM,
                      pos_weight_beat=pw["beat"], pos_weight_downbeat=pw["downbeat"],
                      compute_dtype=args.precision, max_steps=100)
@@ -121,6 +130,8 @@ def main(argv=None) -> dict:
         by_family[family(name)] += ms
     device_ms = sum(by_name.values())
     config = "stock" if args.partial_transformers else "no-partial"
+    if args.head_dim != 32:
+        config += f", head_dim {args.head_dim}"
     print(f"[profile] {smi}")
     print(f"[profile] one train_step, {config} config, {args.precision}, full width, batch "
           f"{BATCH} x {LENGTH}, {ACCUM} microbatches: wall {1e3 * wall:.1f} ms, device kernel "

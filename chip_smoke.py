@@ -19,7 +19,13 @@ non-zero without the final `"ok": true` line:
    frames, C 32/64/128; dropout 0.1), and the fused frequency block
    (forward and backward: output, dx and ten parameter gradients) at the
    frontend's three frequency blocks (12000 items of F 32/16/8, C
-   32/64/128; dropout 0 and 0.1);
+   32/64/128; dropout 0 and 0.1). The attention kernels of the head_dim 16
+   configuration on (entries, seq, 16): flash_attention without lse and
+   small_attention's forward at an eval batch of 3 chunks, flash_attention
+   with lse and its backward and small_attention forward and backward
+   (output, dq, dk, dv) at a training microbatch of 8 crops; beside them
+   the time of one `scaled_dot_product_attention` call on rotated q and k
+   (a yardstick for the table, on no path);
 4. end to end: the full-width BeatThisConfig() model from a numpy-seeded
    synthetic checkpoint runs the port's CLI in-process on a 75 s click
    track (three chunks) and a 12 s one (the short-piece path), in float32
@@ -30,7 +36,10 @@ non-zero without the final `"ok": true` line:
    beats. Checks: the .beats files parse, every kernel's launch counter
    went up, the logits agree with the plain path of the same dtype on the
    card within the phase-3 limits, and the beats agree with the float32
-   plain path's at F >= 0.999;
+   plain path's at F >= 0.999. Then the same with a head_dim 16
+   checkpoint ("h16": every time block through flash_attention, every
+   frequency block through small_attention, every feed-forward through
+   fused_ff), with exact launch counts per CLI run;
 5. training end to end: `python -m beat_this_tpu_torch.train`, in-process,
    on a click corpus written by the port's `data.synth`, at full width
    (512 x 6, 16 heads), batch 8 x 1500 frames, 2 microbatches per step
@@ -46,7 +55,9 @@ non-zero without the final `"ok": true` line:
    kernel-produced layers' under the training loss (shift-tolerant), see
    `first_step_check`), the checkpoint loads through `load_model` and the
    port's CLI writes a .beats file with it. Prints the step time and the
-   peak device memory;
+   peak device memory. Then the h16 model through the `Trainer` class (the
+   command line fixes head_dim 32), float32 and bfloat16, with the same
+   checks;
 6. the kernel summary JSON, then the device JSON as the last line.
 
 Needs a CUDA device and the repository beside this script; it never runs
@@ -92,7 +103,19 @@ KERNELS = {
         "beat_this_tpu_torch/csrc/fused_freq.cu", "beat_this_tpu/ops/fused_freq.py:275"),
     "fused_freq_roformer_train_bwd": (
         "beat_this_tpu_torch/csrc/fused_freq_train.cu", "beat_this_tpu/ops/fused_freq.py:328"),
+    "flash_attention_fwd": (
+        "beat_this_tpu_torch/csrc/flash_attention.cu", "beat_this_tpu/ops/flash_attention.py:124"),
+    "flash_attention_fwd_lse": (
+        "beat_this_tpu_torch/csrc/flash_attention.cu", "beat_this_tpu/ops/flash_attention.py:131"),
+    "flash_attention_bwd": (
+        "beat_this_tpu_torch/csrc/flash_attention.cu", "beat_this_tpu/ops/flash_attention.py:189"),
+    "small_attention_fwd": (
+        "beat_this_tpu_torch/csrc/small_attention.cu", "beat_this_tpu/ops/small_attention.py:77"),
+    "small_attention_bwd": (
+        "beat_this_tpu_torch/csrc/small_attention.cu", "beat_this_tpu/ops/small_attention.py:110"),
 }
+ATTN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_lse", "flash_attention_bwd",
+                "small_attention_fwd", "small_attention_bwd")
 TRAIN_KERNELS = ("fused_time_attention_train_fwd", "fused_time_attention_train_bwd",
                  "fused_ff_train_fwd", "fused_ff_train_bwd", "fused_freq_roformer_train_fwd",
                  "fused_freq_roformer_train_bwd")
@@ -105,6 +128,14 @@ TRAIN_SHAPE = (8, 1500, 512, 16)
 FRONTEND_TIME_SHAPES = ((256, 1500, 32, 1), (128, 1500, 64, 2), (64, 1500, 128, 4))
 # the frontend's three frequency blocks, (items, F, C): 8 crops x 1500 frames
 FREQ_SHAPES = ((12000, 32, 32), (12000, 16, 64), (12000, 8, 128))
+# the h16 model's attention per 1500-frame crop, (entries, seq, heads): a main
+# layer (32 heads) and the frontend's time blocks (F bins x heads = 64
+# sequences; block 0's 2 heads stand for 4 and 8, which differ only in the
+# mask's coordinates), then its three frequency blocks (1500 frames x heads)
+H16 = 16
+H16_FLASH = ((32, 1500, 32), (64, 1500, 2))
+H16_SMALL = ((3000, 32, 2), (6000, 16, 4), (12000, 8, 8))
+EVAL_CHUNKS, TRAIN_CROPS = 3, 8
 DEVICE = "cuda"
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): float32 outside
 # the tensor cores, bfloat16 on them, and the HBM3 rate
@@ -114,9 +145,19 @@ PEAK_BYTES = 3.35e12
 
 def train_counters() -> dict:
     """The training kernels' wrappers, each with its `launches` count."""
-    from beat_this_tpu_torch.ops import fused_ff, fused_freq, fused_time
+    from beat_this_tpu_torch.ops import (
+        flash_attention,
+        fused_ff,
+        fused_freq,
+        fused_time,
+        small_attention,
+    )
 
-    return {"fused_time_attention_train_fwd": fused_time.attn_train_fwd,
+    return {"flash_attention_fwd_lse": flash_attention.flash_fwd_lse,
+            "flash_attention_bwd": flash_attention.flash_bwd,
+            "small_attention_fwd": small_attention.small_fwd,
+            "small_attention_bwd": small_attention.small_bwd,
+            "fused_time_attention_train_fwd": fused_time.attn_train_fwd,
             "fused_time_attention_train_bwd": fused_time.attn_train_bwd,
             "fused_ff_train_fwd": fused_ff.ff_train_fwd,
             "fused_ff_train_bwd": fused_ff.ff_train_bwd,
@@ -172,10 +213,10 @@ def rel_dev(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def median_ms(fn, reps: int = 10) -> float:
+def median_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -442,11 +483,31 @@ def fit_head(state: dict, config, spect, frames: int) -> str:
 
 
 def phase_end_to_end(smi: str) -> dict:
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        return _end_to_end(Path(tmp), smi)
+    """The CLI on the stock checkpoint, then on the head_dim 16 one; the
+    launches of both."""
+    launches = {}
+    for head_dim in (32, H16):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            for k, v in _end_to_end(Path(tmp), smi, head_dim).items():
+                launches[k] = launches.get(k, 0) + v
+    for k, n in launches.items():
+        check(n > 0 or k == "flash_attention_fwd_lse",
+              f"kernel {k} was never launched on the main path")
+    del launches["flash_attention_fwd_lse"]  # a training kernel: phase 5 counts it
+    return launches
 
 
-def _end_to_end(tmp: Path, smi: str) -> dict:
+# launches per CLI run (one forward of the 75 s piece's three chunks, or of
+# the masked 12 s piece) of the head_dim 16 model: 3 frontend and 6 main time
+# blocks, 3 frequency blocks, 12 feed-forwards; the masked time blocks run
+# plain attention as in the JAX package
+H16_EVAL_LAUNCHES = {
+    "long": {"flash_attention_fwd": 9, "small_attention_fwd": 3, "fused_ff": 12},
+    "short": {"flash_attention_fwd": 0, "small_attention_fwd": 3, "fused_ff": 12},
+}
+
+
+def _end_to_end(tmp: Path, smi: str, head_dim: int) -> dict:
     import torch
     from torch import nn
 
@@ -454,13 +515,18 @@ def _end_to_end(tmp: Path, smi: str) -> dict:
     from beat_this_tpu_torch.inference import Audio2Beats, ChunkedPredictor
     from beat_this_tpu_torch.io.checkpoint import init_beat_this
     from beat_this_tpu_torch.model import BeatThisConfig
+    from beat_this_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_lse
     from beat_this_tpu_torch.ops.fused_ff import fused_ff
     from beat_this_tpu_torch.ops.fused_freq import fused_freq_roformer
     from beat_this_tpu_torch.ops.fused_time import fused_time_roformer
     from beat_this_tpu_torch.ops.mel import log_mel_spectrogram
+    from beat_this_tpu_torch.ops.small_attention import small_fwd
 
     counters = {"fused_ff": fused_ff, "fused_time_roformer": fused_time_roformer,
-                "fused_freq_roformer": fused_freq_roformer}
+                "fused_freq_roformer": fused_freq_roformer, "flash_attention_fwd": flash_fwd,
+                "flash_attention_fwd_lse": flash_fwd_lse, "small_attention_fwd": small_fwd}
+    h16 = head_dim != 32
+    tag = f"e2e h{head_dim}" if h16 else "e2e"
 
     class Composable(nn.Module):
         """The model with every router on its composable path (the kernels'
@@ -475,7 +541,7 @@ def _end_to_end(tmp: Path, smi: str) -> dict:
 
     pieces = {"long": (tmp / "long.wav", 3750), "short": (tmp / "short.wav", 601)}
     durations = {k: write_wav(p, frames, i) for i, (k, (p, frames)) in enumerate(pieces.items())}
-    config = BeatThisConfig()
+    config = BeatThisConfig(head_dim=head_dim)
     state = init_beat_this(0, config)
     # a trained checkpoint's input batch norm holds the log-mel statistics of
     # its data; with the init's identity statistics the log-mel offset (~3.5)
@@ -489,8 +555,8 @@ def _end_to_end(tmp: Path, smi: str) -> dict:
     n_params = sum(v.numel() for k, v in state.items() if "running" not in k)
     ckpt = tmp / "synthetic.ckpt"
     torch.save({"state_dict": {"model." + k: v for k, v in state.items()},
-                "hyper_parameters": {}}, ckpt)
-    print(f"[e2e] synthetic checkpoint: BeatThisConfig() defaults, {n_params} parameters, "
+                "hyper_parameters": {"head_dim": head_dim} if h16 else {}}, ckpt)
+    print(f"[{tag}] synthetic checkpoint: {config}, {n_params} parameters, "
           f"seed 0, input batch norm from the long piece's log-mel statistics, {fit}")
 
     def run_cli(wav: Path, out: Path, float16: bool) -> float:
@@ -517,15 +583,19 @@ def _end_to_end(tmp: Path, smi: str) -> dict:
 
     for piece, float16, out, wall, delta in runs:
         dt = "bf16" if float16 else "f32"
-        print(f"[e2e] cli {piece} ({durations[piece]:.1f} s audio) {dt}: {wall:.3f} s wall "
+        print(f"[{tag}] cli {piece} ({durations[piece]:.1f} s audio) {dt}: {wall:.3f} s wall "
               f"(checkpoint load included), {durations[piece] / wall:.1f}x realtime, "
               f"launches {delta} [{smi}]")
+        if h16:
+            want = {k: H16_EVAL_LAUNCHES[piece].get(k, 0) for k in counters}
+            check(delta == want, f"{tag} {piece} {dt}: launches {delta}, expected {want}")
+            continue
         expect = (("fused_time_roformer", "fused_freq_roformer") if piece == "long"
                   else ("fused_ff", "fused_freq_roformer"))
         for k in expect:
             check(delta[k] > 0, f"{piece} {dt}: kernel {k} was not launched")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was never launched on the main path")
+        for k in ("flash_attention_fwd", "flash_attention_fwd_lse", "small_attention_fwd"):
+            check(delta[k] == 0, f"{piece} {dt}: kernel {k} launched on the stock path")
 
     # references from the plain path on the card, float32
     tower = Audio2Beats(str(ckpt), "cuda", False)
@@ -555,7 +625,7 @@ def _end_to_end(tmp: Path, smi: str) -> dict:
         limit = BF16_LIMIT if float16 else F32_LIMIT
         f_beat, f_down = f_measure(beats, ref_beats), f_measure(downbeats, ref_down)
         true_beats, true_down = (f / FPS for f in click_frames(pieces[piece][1]))
-        print(f"[e2e] {piece} {dt}: logits vs plain {dt} path rel max dev {dev_rel:.3e} "
+        print(f"[{tag}] {piece} {dt}: logits vs plain {dt} path rel max dev {dev_rel:.3e} "
               f"(limit {limit:g}); vs plain f32 beats: beats {len(beats)} F {f_beat:.4f}, "
               f"downbeats {len(downbeats)} F {f_down:.4f} (min {F_MIN}); vs the clicks "
               f"({len(true_beats)} / {len(true_down)}): F {f_measure(beats, true_beats):.4f} / "
@@ -690,6 +760,149 @@ def phase_train_kernels(smi: str) -> dict:
     return results
 
 
+# -- phase 3c: the attention kernels of the head_dim 16 configuration ------------
+
+
+def attention_work(entries: int, seq: int, d: int, dt: str, backward: bool):
+    """(FLOPs, bytes) of attention over (entries, seq, d): the QK^T and PV
+    products forward (4 seq^2 d per entry), the five products of the
+    backward (10 seq^2 d); q, k, v read and o written once (backward: q, k,
+    v, dout read and dq, dk, dv written, plus the float32 lse and delta)."""
+    size = 2 if dt == "bf16" else 4
+    rows = entries * seq * d * size
+    if backward:
+        return 10 * entries * seq * seq * d, 7 * rows + 2 * entries * seq * 4
+    return 4 * entries * seq * seq * d, 4 * rows
+
+
+def qkv_grads(fn, qkv, cot):
+    """Output and dq, dk, dv of sum(fn(q, k, v) * cot)."""
+    import torch
+
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in qkv)
+    out = fn(q, k, v)
+    torch.autograd.backward(out, (cot.to(out.dtype),))
+    return [out.detach(), q.grad, k.grad, v.grad]
+
+
+def qkv_fwd_bwd_ms(fn, qkv, cot, reps: int, warmup: int = 3) -> tuple[float, float]:
+    """Median forward time with the autograd graph built, and median backward
+    time on a retained graph."""
+    import torch
+
+    inputs = [t.detach().clone().requires_grad_(True) for t in qkv]
+    fwd = median_ms(lambda: fn(*inputs), reps, warmup)
+    out = fn(*inputs)
+    bwd = median_ms(lambda: torch.autograd.grad(out, inputs, cot.to(out.dtype),
+                                                retain_graph=True), reps, warmup)
+    return fwd, bwd
+
+
+def attention_cases():
+    """(kernel names, description, kernel, plain version, (entries, seq, D),
+    heads, rate, training) of phase 3c: eval cases first (one forward name),
+    then training cases (forward and backward names)."""
+    from beat_this_tpu_torch.ops import flash_attention as flash_ops
+    from beat_this_tpu_torch.ops import small_attention as small_ops
+
+    flash = (flash_ops.flash_attention, flash_ops.flash_attention_ref)
+    small = (small_ops.small_attention, small_ops.small_attention_ref)
+    for per_crop, seq, heads in H16_FLASH:
+        yield (("flash_attention_fwd",), *flash, (per_crop * EVAL_CHUNKS, seq, H16), heads, 0.0,
+               False)
+    for per_crop, seq, heads in H16_SMALL:
+        yield (("small_attention_fwd",), *small, (per_crop * EVAL_CHUNKS, seq, H16), heads, 0.0,
+               False)
+    for (per_crop, seq, heads), rates in zip(H16_FLASH, ((0.0, 0.2), (0.1,))):
+        for rate in rates:
+            yield (("flash_attention_fwd_lse", "flash_attention_bwd"), *flash,
+                   (per_crop * TRAIN_CROPS, seq, H16), heads, rate, True)
+    for per_crop, seq, heads in H16_SMALL:
+        for rate in (0.0, 0.1):
+            yield (("small_attention_fwd", "small_attention_bwd"), *small,
+                   (per_crop * TRAIN_CROPS, seq, H16), heads, rate, True)
+
+
+def phase_attention_kernels(smi: str) -> dict:
+    """flash_attention and small_attention against their plain versions at
+    the h16 model's shapes, on the same inputs, seed and cotangent: the
+    output (eval) or the output and dq, dk, dv (training); median times of
+    the kernel, the plain version and one `scaled_dot_product_attention`
+    call on rotated q and k (the library's time for the same function,
+    used on no path)."""
+    import torch
+    import torch.nn.functional as F
+
+    from beat_this_tpu_torch.ops.rotary import apply_rope, rope_tables
+
+    dev = torch.device(DEVICE)
+    results = {name: [] for name in ATTN_KERNELS}
+    for dtype, limit in ((torch.float32, F32_LIMIT), (torch.bfloat16, BF16_LIMIT)):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        for i, (names, kernel, plain, shape, heads, rate, training) in enumerate(
+                attention_cases()):
+            entries, seq, d = shape
+            gen = torch.Generator(device=dev).manual_seed(100 + 2 * i + (dtype == torch.float32))
+            qkv = [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3)]
+            cot = torch.randn(shape, generator=gen, device=dev)
+            cos, sin = rope_tables(seq, d, dev)
+            # the library call takes (batch, heads, seq, d): at most 8 entries as its
+            # heads, the rest as its batch
+            lib_shape = (entries // 8, 8, seq, d)
+            lib_in = [t.reshape(lib_shape) for t in
+                      (apply_rope(qkv[0], cos, sin), apply_rope(qkv[1], cos, sin), qkv[2])]
+
+            def run(fn, q, k, v):
+                return fn(q, k, v, cos, sin, rate, 41, heads)
+
+            def library(q, k, v):
+                return F.scaled_dot_product_attention(q, k, v, dropout_p=rate)
+
+            if training:
+                got = qkv_grads(lambda *t: run(kernel, *t), qkv, cot)
+                want = qkv_grads(lambda *t: run(plain, *t), qkv, cot)
+            else:
+                with torch.inference_mode():
+                    got, want = [run(kernel, *qkv)], [run(plain, *qkv)]
+            torch.cuda.synchronize()
+            devs = {g: rel_dev(a, b) for g, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+            abs_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+            finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+            del got, want
+            if training:
+                slow = rate > 0.0 and seq >= 512  # the plain version's torch Philox: seconds
+                ms = qkv_fwd_bwd_ms(lambda *t: run(kernel, *t), qkv, cot, 10)
+                plain_ms = qkv_fwd_bwd_ms(lambda *t: run(plain, *t), qkv, cot,
+                                          2 if slow else 5, 1 if slow else 3)
+                lib_ms = qkv_fwd_bwd_ms(library, lib_in, cot.reshape(lib_shape), 10)
+            else:
+                with torch.inference_mode():
+                    ms = (median_ms(lambda: run(kernel, *qkv)),)
+                    plain_ms = (median_ms(lambda: run(plain, *qkv), 5),)
+                    lib_ms = (median_ms(lambda: library(*lib_in)),)
+            torch.cuda.empty_cache()
+            worst = max(devs.values())
+            ok = finite and (worst <= limit if dtype == torch.float32 else worst < limit)
+            bounds = [bound(*attention_work(entries, seq, d, dt, k == 1), dt)
+                      for k in range(len(names))]
+            desc = f"rate {rate} x ({entries}, {seq}, {d}) heads {heads}"
+            print(f"[attention-kernels] {' + '.join(names)} {dt} {desc}: rel max dev "
+                  + " ".join(f"{g} {v:.2e}" for g, v in devs.items()) + f" (limit {limit:g}); "
+                  + "; ".join(
+                      f"{name} kernel {ms[k]:.3f} ms plain {plain_ms[k]:.3f} ms library "
+                      f"{lib_ms[k]:.3f} ms bound {bounds[k][0]:.3f} ms ({bounds[k][1]})"
+                      for k, name in enumerate(names))
+                  + f" [{smi}] {'ok' if ok else 'FAIL'}", flush=True)
+            check(ok, f"{names[0]} {dt} {desc}: deviation {worst:.3e} over {limit:g}"
+                      f" or non-finite ({devs})")
+            for k, name in enumerate(names):
+                results[name].append({
+                    "case": f"{dt} {desc}", "rel_max_dev": worst, "max_abs_err": abs_err,
+                    "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bounds[k][0],
+                    "bound_by": bounds[k][1], "library_ms": lib_ms[k]})
+    return results
+
+
 # -- phase 5: training end to end --------------------------------------------
 
 
@@ -698,10 +911,35 @@ def phase_train(smi: str) -> dict:
         return _train(Path(tmp), smi)
 
 
-# phase 5's training runs: (name, partial transformers, precision). The stock
-# configuration in both precisions; --no-partial-transformers cut to float32
-TRAIN_RUNS = (("no-partial", False, "float32"), ("stock", True, "float32"),
-              ("stock", True, "bfloat16"))
+# phase 5's training runs: (name, partial transformers, precision, head_dim).
+# The stock configuration in both precisions; --no-partial-transformers cut
+# to float32; the head_dim 16 configuration in both precisions
+TRAIN_RUNS = (("no-partial", False, "float32", 32), ("stock", True, "float32", 32),
+              ("stock", True, "bfloat16", 32), ("h16", True, "float32", H16),
+              ("h16", True, "bfloat16", H16))
+
+
+def expected_train_launches(partial: bool, head_dim: int) -> dict:
+    """Launches of each training kernel over one run: per microbatch one
+    attention and one feed-forward per time block (6 main layers, 3 frontend
+    blocks with partial transformers) and one fused call per frequency
+    block; at head_dim 16 the fused attention kernels decline every block,
+    so each time block's attention is flash_attention, each frequency
+    block small_attention plus a feed-forward of its own."""
+    per_step = TRAIN_ACCUM * TRAIN_STEPS
+    frontend = FRONTEND_BLOCKS if partial else 0
+    time_blocks = (TRAIN_LAYERS + frontend) * per_step
+    freq_blocks = frontend * per_step
+    fused = head_dim == 32
+    attn = {"fused_time_attention_train": time_blocks if fused else 0,
+            "fused_freq_roformer_train": freq_blocks if fused else 0,
+            "fused_ff_train": time_blocks + (0 if fused else freq_blocks)}
+    expect = {f"{k}_{d}": v for k, v in attn.items() for d in ("fwd", "bwd")}
+    expect.update({"flash_attention_fwd_lse": 0 if fused else time_blocks,
+                   "flash_attention_bwd": 0 if fused else time_blocks,
+                   "small_attention_fwd": 0 if fused else freq_blocks,
+                   "small_attention_bwd": 0 if fused else freq_blocks})
+    return expect
 
 
 def _train_args(root: Path, name: str, partial: bool, precision: str) -> list:
@@ -728,7 +966,30 @@ def step_grads(trainer, tc, batch, seeds, kernels: bool):
             {k: b.clone() for k, b in model.named_buffers()})
 
 
-def first_step_check(args) -> tuple[float, float, int]:
+def make_trainer(args, head_dim: int, **kwargs):
+    """(trainer, data module, train config) for the training command's
+    arguments `args` at `head_dim` (the command itself fixes 32)."""
+    from beat_this_tpu_torch.data import BeatDataModule
+    from beat_this_tpu_torch.model.beat_this import BeatThisConfig
+    from beat_this_tpu_torch.train.task import TrainConfig
+    from beat_this_tpu_torch.train.trainer import Trainer
+
+    dm = BeatDataModule(Path(args.data_dir), batch_size=args.batch_size,
+                        train_length=args.train_length, num_workers=args.num_workers,
+                        augmentations={}, length_based_oversampling_factor=0.65, seed=args.seed)
+    dm.setup("fit")
+    pw = dm.get_train_positive_weights(widen_target_mask=3)
+    tc = TrainConfig(warmup_steps=args.warmup_steps, accum_steps=args.accumulate_grad_batches,
+                     pos_weight_beat=pw["beat"], pos_weight_downbeat=pw["downbeat"],
+                     compute_dtype=args.precision, max_steps=args.max_steps)
+    cfg = BeatThisConfig(transformer_dim=args.transformer_dim, n_layers=args.n_layers,
+                         head_dim=head_dim, dropout_frontend=args.frontend_dropout,
+                         dropout_transformer=args.transformer_dropout,
+                         partial_transformers=args.partial_transformers)
+    return Trainer(cfg, tc, dm, seed=args.seed, device=args.device, **kwargs), dm, tc
+
+
+def first_step_check(args, head_dim: int = 32) -> tuple[float, float, int]:
     """The first step's losses, gradients and batch-norm statistics on the
     kernel path against the plain path, from the training run's first batch and
     dropout seeds; then the kernel and plain step times (host clock around
@@ -752,29 +1013,9 @@ def first_step_check(args) -> tuple[float, float, int]:
 
     import torch
 
-    from beat_this_tpu_torch.data import BeatDataModule
-    from beat_this_tpu_torch.model.beat_this import BeatThisConfig
-    from beat_this_tpu_torch.train.task import (
-        TrainConfig,
-        make_optimizer,
-        make_scheduler,
-        train_step,
-    )
-    from beat_this_tpu_torch.train.trainer import Trainer
+    from beat_this_tpu_torch.train.task import make_optimizer, make_scheduler, train_step
 
-    dm = BeatDataModule(Path(args.data_dir), batch_size=args.batch_size,
-                        train_length=args.train_length, num_workers=args.num_workers,
-                        augmentations={}, length_based_oversampling_factor=0.65, seed=args.seed)
-    dm.setup("fit")
-    pw = dm.get_train_positive_weights(widen_target_mask=3)
-    tc = TrainConfig(warmup_steps=args.warmup_steps, accum_steps=args.accumulate_grad_batches,
-                     pos_weight_beat=pw["beat"], pos_weight_downbeat=pw["downbeat"],
-                     compute_dtype=args.precision, max_steps=args.max_steps)
-    cfg = BeatThisConfig(transformer_dim=args.transformer_dim, n_layers=args.n_layers,
-                         dropout_frontend=args.frontend_dropout,
-                         dropout_transformer=args.transformer_dropout,
-                         partial_transformers=args.partial_transformers)
-    trainer = Trainer(cfg, tc, dm, seed=args.seed, device=args.device)
+    trainer, dm, tc = make_trainer(args, head_dim)
     batch = trainer._to_device(next(dm.train_batches(tc.accum_steps, seed=args.seed)))
     gen = torch.Generator().manual_seed((args.seed & 0xFFFFFFFF) << 32)
     seeds = torch.randint(0, 2**31 - 1, (tc.accum_steps,), generator=gen).tolist()
@@ -834,7 +1075,9 @@ def first_step_check(args) -> tuple[float, float, int]:
     torch.cuda.reset_peak_memory_stats()
     kernel_times = timed(trainer.init_state().model, True, 4)
     peak = torch.cuda.max_memory_allocated()
-    plain_times = timed(trainer.init_state().model, False, 2)
+    # one plain step at head_dim 16: its torch Philox masks over (n, n) scores take
+    # tens of seconds
+    plain_times = timed(trainer.init_state().model, False, 2 if head_dim == 32 else 1)
     return statistics.median(kernel_times[1:]), plain_times[-1], peak
 
 
@@ -850,26 +1093,34 @@ def _train(root: Path, smi: str) -> dict:
     print("[train] click corpus: 16 training and 2 validation pieces of 3000 frames; reduced: "
           f"{TRAIN_ACCUM} microbatches per step (reference 8), {TRAIN_STEPS} steps, "
           "augmentations off (the corpus has no pitch- or tempo-shifted spectrograms)")
-    print("[train] reduced: the --no-partial-transformers run in float32 only; "
-          "the stock configuration in float32 and bfloat16")
+    print("[train] reduced: the --no-partial-transformers run in float32 only; the stock and "
+          "the head_dim 16 configuration in float32 and bfloat16 (head_dim 16 through the "
+          "Trainer class, validated once after its counted steps)")
     counters = train_counters()
     launches = {}
     wav = root / "piece.wav"
     write_wav(wav, 601, 7)
-    for name, partial, precision in TRAIN_RUNS:
-        frontend = FRONTEND_BLOCKS if partial else 0
-        expect = {k: (TRAIN_LAYERS + frontend) * TRAIN_ACCUM * TRAIN_STEPS for k in counters}
-        for k in FREQ_KERNELS:
-            expect[k] = frontend * TRAIN_ACCUM * TRAIN_STEPS
+    for name, partial, precision, head_dim in TRAIN_RUNS:
+        expect = expected_train_launches(partial, head_dim)
         args = get_parser().parse_args(_train_args(root, name, partial, precision))
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        state = main(args)
+        if head_dim == 32:
+            state = main(args)
+        else:
+            # the command line fixes head_dim 32: the class it wraps, without validation
+            # inside the counted run (its eval forward launches small_attention too)
+            trainer = make_trainer(
+                args, head_dim, max_epochs=args.max_epochs, val_frequency=TRAIN_STEPS + 1,
+                checkpoint_dir=Path(args.checkpoint_dir), name=name, log_file=args.log_file)[0]
+            state = trainer.fit(max_steps_override=args.max_steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         run = {k: fn.launches for k, fn in counters.items()}
         launches = {k: launches.get(k, 0) + v for k, v in run.items()}
+        if head_dim != 32:
+            trainer.validate(state, TRAIN_STEPS)
         tag = f"{name} {precision}"
         print(f"[train] training run {tag}: {state.step} steps in {wall:.1f} s wall (set-up, "
               f"validation and checkpoints included), launches {run}")
@@ -882,7 +1133,8 @@ def _train(root: Path, smi: str) -> dict:
         print(f"[train] {tag}: logged losses {[round(v, 4) for v in losses]}")
         ckpt = next(Path(args.checkpoint_dir).glob("*.ckpt"))
         model = load_model(ckpt, args.device)
-        check(model.config.partial_transformers == partial, f"{tag}: checkpoint config")
+        check(model.config.partial_transformers == partial
+              and model.config.head_dim == head_dim, f"{tag}: checkpoint config")
         out = root / f"piece-{name}-{precision}.beats"
         cli.run([str(wav)], str(ckpt), str(out), ".beats", False, False, False, False,
                 0 if DEVICE == "cuda" else -1, precision == "bfloat16", False)
@@ -890,7 +1142,7 @@ def _train(root: Path, smi: str) -> dict:
         print(f"[train] {tag}: checkpoint {ckpt.name} ({ckpt.stat().st_size} bytes) loads "
               f"through load_model; the CLI wrote {out.name} with "
               f"{len(out.read_text().splitlines())} beats")
-        step_s, plain_s, peak = first_step_check(args)
+        step_s, plain_s, peak = first_step_check(args, head_dim)
         print(f"[train] step time {tag}, full width, batch 8 x 1500, {TRAIN_ACCUM} "
               f"microbatches, dropout {args.frontend_dropout} / {args.transformer_dropout}: "
               f"kernel path {step_s:.3f} s, plain path {plain_s:.3f} s [{smi}]")
@@ -929,8 +1181,10 @@ def main() -> int:
         timed("build", phase_build)
         results = timed("kernels", phase_kernels, smi)
         results.update(timed("train-kernels", phase_train_kernels, smi))
+        results.update(timed("attention-kernels", phase_attention_kernels, smi))
         launches = timed("end-to-end", phase_end_to_end, smi)
-        launches.update(timed("train", phase_train, smi))
+        for k, v in timed("train", phase_train, smi).items():
+            launches[k] = launches.get(k, 0) + v  # small_attention_fwd runs on both paths
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "beat_this_tpu") or m.startswith(("jax.", "beat_this_tpu.")))
         check(not bad, f"imported {bad}")
@@ -947,8 +1201,9 @@ def main() -> int:
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             # no single PyTorch call computes a fused roformer block, its
-            # gated attention branch or its FF residual
-            "library_ms": None,
+            # gated attention branch or its FF residual: only the attention
+            # kernels have a library time
+            "library_ms": main_case.get("library_ms"),
             "cases": results[name],
         })
     print(f"[summary] {smi}")

@@ -4,7 +4,9 @@ not a multiple of the 32-row tile, sequence lengths that are not a multiple
 of the attention tiles, every supported width; the training kernels with
 dropout off and on (the same Philox masks on both sides), output and every
 gradient, also at the frontend's widths over enough rows that the
-weight-gradient launches take more than two row-tile groups. Needs a CUDA
+weight-gradient launches take more than two row-tile groups; the attention
+kernels on (entries, seq, head_dim) at ragged lengths, head widths 16 and
+32, with and without rotation tables, output and dq, dk, dv. Needs a CUDA
 device and nvcc; skips without one. Run on the GPU machine with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
@@ -20,9 +22,11 @@ import pytest
 import torch
 
 from beat_this_tpu_torch.model.layers import Attention, FeedForward
+from beat_this_tpu_torch.ops import flash_attention as flash_ops
 from beat_this_tpu_torch.ops import fused_ff as ff_ops
 from beat_this_tpu_torch.ops import fused_freq as freq_ops
 from beat_this_tpu_torch.ops import fused_time as time_ops
+from beat_this_tpu_torch.ops import small_attention as small_ops
 from beat_this_tpu_torch.ops.fused_ff import fused_ff, fused_ff_ref
 from beat_this_tpu_torch.ops.fused_freq import fused_freq_roformer, fused_freq_roformer_ref
 from beat_this_tpu_torch.ops.fused_time import fused_time_roformer, fused_time_roformer_ref
@@ -241,3 +245,115 @@ def test_training_kernels_at_frontend_widths(device, dtype, tol, heads):
     _compare_train(lambda t: ff_ops.fused_ff_train(t, ff, 0.1, 6),
                    lambda t: ff_ops.fused_ff_train_ref(t, ff, 0.1, 6),
                    x, list(ff.parameters()), tol, c + 3)
+
+
+def _qkv_grads(fn, q, k, v, cot):
+    """Output and dq, dk, dv of sum(fn(q, k, v) * cot)."""
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v)
+    (out.float() * cot).sum().backward()
+    return [out.detach(), q.grad, k.grad, v.grad]
+
+
+def _compare_qkv(kernel, plain, shape, dtype, tol, device, seed):
+    q, k, v = (_x(shape, dtype, device, seed + i) for i in range(3))
+    cot = _x(shape, torch.float32, device, seed + 3)
+    got = _qkv_grads(kernel, q, k, v, cot)
+    want = _qkv_grads(plain, q, k, v, cot)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == torch.Size(shape), name
+        assert bool(torch.isfinite(g.float()).all()), name
+        if shape[1] == 1 and name in ("dq", "dk"):
+            # one key: the softmax is constant and dq = dk = 0; each side gives the
+            # rounding of dp - delta, two numbers of the size of dout * v
+            assert max(float(g.float().abs().max()), float(w.float().abs().max())) < 10 * tol
+        else:
+            assert _rel(g, w) < tol, (name, _rel(g, w))
+    return got
+
+
+@pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("n,d,bh,heads,rope", [(1, 16, 3, 1, True), (31, 32, 4, 2, True),
+                                               (200, 16, 6, 3, True), (200, 32, 2, 1, False),
+                                               (1500, 16, 2, 2, True)])
+def test_flash_attention(device, dtype, tol, rate, n, d, bh, heads, rope):
+    """B10 (with lse) and B11 against flash_attention_ref: output and dq, dk,
+    dv at ragged lengths, with the same Philox mask on both sides."""
+    cos, sin = rope_tables(n, d, device) if rope else (None, None)
+    before = (flash_ops.flash_fwd.launches, flash_ops.flash_fwd_lse.launches,
+              flash_ops.flash_bwd.launches)
+    got = _compare_qkv(
+        lambda q, k, v: flash_ops.flash_attention(q, k, v, cos, sin, rate, 31, heads),
+        lambda q, k, v: flash_ops.flash_attention_ref(q, k, v, cos, sin, rate, 31, heads),
+        (bh, n, d), dtype, tol, device, n + d)
+    assert (flash_ops.flash_fwd.launches, flash_ops.flash_fwd_lse.launches,
+            flash_ops.flash_bwd.launches) == (before[0], before[1] + 1, before[2] + 1)
+    # without a gradient to compute, the forward that writes no lse: the same output
+    q, k, v = (_x((bh, n, d), dtype, device, n + d + i) for i in range(3))
+    with torch.no_grad():
+        out = flash_ops.flash_attention(q, k, v, cos, sin, rate, 31, heads)
+    assert flash_ops.flash_fwd.launches == before[0] + 1
+    assert torch.equal(out, got[0])
+
+
+@pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("f,d,items,heads", [(32, 16, 5, 1), (16, 16, 37, 2), (8, 16, 301, 4),
+                                             (8, 32, 45, 3), (32, 32, 9, 2), (4, 16, 50, 1),
+                                             (2, 32, 21, 2), (1, 16, 130, 1)])
+def test_small_attention(device, dtype, tol, rate, f, d, items, heads):
+    """B12 forward and backward against small_attention_ref: every F
+    dividing 32, item counts that do not fill the last block."""
+    cos, sin = rope_tables(f, d, device)
+    before = (small_ops.small_fwd.launches, small_ops.small_bwd.launches)
+    _compare_qkv(
+        lambda q, k, v: small_ops.small_attention(q, k, v, cos, sin, rate, 37, heads),
+        lambda q, k, v: small_ops.small_attention_ref(q, k, v, cos, sin, rate, 37, heads),
+        (items, f, d), dtype, tol, device, f + d + items)
+    assert (small_ops.small_fwd.launches, small_ops.small_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_small_attention_without_tables(device):
+    _compare_qkv(lambda q, k, v: small_ops.small_attention(q, k, v),
+                 lambda q, k, v: small_ops.small_attention_ref(q, k, v),
+                 (40, 16, 16), torch.float32, 1e-4, device, 3)
+
+
+@pytest.mark.parametrize("name", ["flash", "small"])
+def test_attention_backward_is_deterministic(device, name):
+    """Two backward runs give the same bits (dk and dv by a key-major pass,
+    no float atomics)."""
+    if name == "flash":
+        shape, (cos, sin) = (4, 700, 16), rope_tables(700, 16, device)
+        fn = lambda q, k, v: flash_ops.flash_attention(q, k, v, cos, sin, 0.2, 3, 2)  # noqa: E731
+    else:
+        shape, (cos, sin) = (500, 16, 16), rope_tables(16, 16, device)
+        fn = lambda q, k, v: small_ops.small_attention(q, k, v, cos, sin, 0.2, 3, 2)  # noqa: E731
+    q, k, v = (_x(shape, torch.bfloat16, device, i) for i in range(3))
+    cot = _x(shape, torch.float32, device, 4)
+    for a, b in zip(_qkv_grads(fn, q, k, v, cot), _qkv_grads(fn, q, k, v, cot)):
+        assert torch.equal(a, b)
+
+
+def test_attention_kernels_take_views_and_refuse_other_shapes(device):
+    """Strided views, and a contiguous view that starts 4 bytes into its
+    buffer (the kernels load rows 16 bytes at a time), give the plain
+    version's result; an unsupported head width or sequence length raises
+    and names the supported ones."""
+    qkv = _x((3, 4, 33, 16), torch.float32, device, 1)
+    q, k = qkv[0, :, 1:], qkv[1, :, 1:]
+    v = _x((4 * 32 * 16 + 1,), torch.float32, device, 2)[1:].view(4, 32, 16)
+    assert v.is_contiguous() and v.data_ptr() % 16 != 0
+    cos, sin = rope_tables(32, 16, device)
+    assert _rel(flash_ops.flash_attention(q, k, v, cos, sin),
+                flash_ops.flash_attention_ref(q, k, v, cos, sin)) < 1e-5
+    assert _rel(small_ops.small_attention(q, k, v, cos, sin),
+                small_ops.small_attention_ref(q, k, v, cos, sin)) < 1e-5
+    bad = torch.zeros((2, 8, 24), device=device)
+    with pytest.raises(ValueError, match=r"head_dim in \(16, 32\)"):
+        flash_ops.flash_attention(bad, bad, bad)
+    bad = torch.zeros((2, 24, 16), device=device)
+    with pytest.raises(ValueError, match="sequence lengths"):
+        small_ops.small_attention(bad, bad, bad)

@@ -152,12 +152,12 @@ def test_sites_are_independent(a, b):
 
 
 def test_chunked_keep_mask_equals_per_item(monkeypatch):
-    """The chunked draw gives the bits of one item at a time."""
+    """The chunked draw gives the bits of one (item, head) entry at a time."""
     want = drop.keep_mask(9, drop.SALT_FREQ, drop.SITE_ATTN_PROBS, 70, 4, 8, 8, 0.1)
-    monkeypatch.setattr(drop, "MASK_CHUNK", 1)  # one item per chunk
+    monkeypatch.setattr(drop, "MASK_CHUNK", 1)  # one entry per chunk
     assert torch.equal(drop.keep_mask(9, drop.SALT_FREQ, drop.SITE_ATTN_PROBS, 70, 4, 8, 8, 0.1),
                        want)
-    monkeypatch.setattr(drop, "MASK_CHUNK", 3 * 4 * 8 * 8 + 5)  # chunks of 3 items, ragged end
+    monkeypatch.setattr(drop, "MASK_CHUNK", 3 * 4 * 8 * 8 + 5)  # chunks of 12 entries, ragged end
     assert torch.equal(drop.keep_mask(9, drop.SALT_FREQ, drop.SITE_ATTN_PROBS, 70, 4, 8, 8, 0.1),
                        want)
 

@@ -144,3 +144,40 @@ def test_conv2d_tf(c_in, c_out, k_freq, stride):
     got = tl.conv2d_tf(_t(w_ref), _t(x), stride_freq=stride, pad_time=1)
     assert got.shape == want.shape
     _close(got, want, atol=1e-4, rtol=1e-5)
+
+
+class _OnCard:
+    """Stands in for a CUDA tensor in a wrapper's shape checks."""
+
+    def __init__(self, shape, dtype=torch.float32):
+        self.shape, self.dtype = torch.Size(shape), dtype
+        self.device = torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("c", [96, 256])
+def test_kernels_refuse_other_widths_by_name(c):
+    """A width outside the instantiated ones raises and names the supported
+    widths on a CUDA tensor (it must not turn into a silent fallback)."""
+    from beat_this_tpu_torch.ops import fused_ff, fused_freq, fused_time
+
+    with pytest.raises(ValueError, match=r"supports C in \(32, 64, 128, 512\)"):
+        fused_ff._check_cuda("fused_ff", _OnCard((4, c)), c)
+    with pytest.raises(ValueError, match=r"in \(32, 64, 128, 512\)"):
+        fused_time._check_time("fused_time_roformer", _OnCard((1, 600, c)), c // 32)
+    with pytest.raises(ValueError, match=r"C in \(32, 64, 128\)"):
+        fused_freq._check_freq("fused_freq_roformer", _OnCard((5, 8, c)))
+
+
+def test_attention_block_takes_kernels_argument():
+    """Every router passes `kernels` on to attention_block (the masked path
+    of the model and the routers' composable branches)."""
+    rng = np.random.default_rng(8)
+    jp, m = _attention(rng, 64, 2)
+    _, ff = _ff(rng, 64)
+    x = _t(rng.standard_normal((2, 24, 64)))  # 24 frames: no fused route, plain attention
+    rope = rope_tables(24, 32)
+    want = x + tl.attention_block(m, x, rope, 2, kernels=False)
+    for fn in (tl.time_roformer, tl.freq_roformer):
+        for kernels in (True, False):
+            got = fn(m, ff, x, rope, 2, kernels=kernels)
+            _close(got, tl.ff_residual(ff, want, kernels=False).detach(), atol=1e-6, rtol=1e-6)

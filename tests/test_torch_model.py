@@ -77,6 +77,67 @@ def test_composable_path_equals_plain_versions(models):
         np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-6)
 
 
+H16 = dict(head_dim=16, transformer_dim=64, n_layers=2)
+
+
+@pytest.fixture(scope="module")
+def h16_models():
+    """The head_dim 16 configuration, which the fused routers decline: time
+    blocks through `attention_block` (flash_attention from 512 frames on),
+    frequency blocks through small_attention."""
+    params, state = jax_init(4, JaxConfig(**H16))
+    model = BeatThis(BeatThisConfig(**H16))
+    model.load_state_dict(from_jax(params, state))
+    return params, state, model.eval()
+
+
+def _jax_h16(params, state, x, valid=None):
+    out, _ = apply_beat_this(params, state, jnp.asarray(x), JaxConfig(**H16),
+                             valid_lengths=None if valid is None else jnp.asarray(valid))
+    return np.asarray(out["beat"]), np.asarray(out["downbeat"])
+
+
+@pytest.mark.parametrize("batch,t", [(2, 64), (1, 512)])
+def test_head_dim_16_forward_matches_jax(h16_models, batch, t):
+    params, state, model = h16_models
+    x = np.random.default_rng(t).standard_normal((batch, t, 128)).astype(np.float32)
+    got = _torch_logits(model, x)
+    for g, w in zip(got, _jax_h16(params, state, x)):
+        np.testing.assert_allclose(g, w, atol=2e-3, rtol=1e-3)
+    for g, p in zip(got, _torch_logits(model, x, kernels=False)):
+        np.testing.assert_allclose(g, p, atol=1e-6, rtol=1e-6)
+
+
+def test_head_dim_16_valid_lengths_match_jax(h16_models):
+    params, state, model = h16_models
+    x = np.random.default_rng(6).standard_normal((2, 96, 128)).astype(np.float32)
+    valid = np.array([96, 70], np.int32)
+    got = _torch_logits(model, x, valid.astype(np.int64))
+    for g, w in zip(got, _jax_h16(params, state, x, valid)):
+        np.testing.assert_allclose(g, w, atol=2e-3, rtol=1e-3)
+
+
+def test_head_dim_16_routes(h16_models, monkeypatch):
+    """Per forward of the head_dim 16 model: 3 small_attention calls
+    (frequency blocks), one flash_attention call per time block when
+    unmasked and long enough (3 frontend + 2 main), none when masked, and no
+    fused time or frequency block."""
+    from beat_this_tpu_torch.ops import flash_attention, fused_freq, fused_time, small_attention
+
+    _, _, model = h16_models
+    seen = []
+    for mod, name in ((flash_attention, "flash_attention"), (small_attention, "small_attention"),
+                      (fused_time, "fused_time_roformer"), (fused_freq, "fused_freq_roformer")):
+        monkeypatch.setattr(mod, name, lambda *a, fn=getattr(mod, name), name=name:
+                            seen.append(name) or fn(*a))
+    x = np.random.default_rng(7).standard_normal((1, 512, 128)).astype(np.float32)
+    _torch_logits(model, x)
+    assert sorted(seen) == ["flash_attention"] * 5 + ["small_attention"] * 3
+    seen.clear()
+    _torch_logits(model, x, np.array([400], np.int64))
+    assert seen == ["small_attention"] * 3
+
+
 def test_init_matches_jax_init():
     cfg = dict(transformer_dim=64, n_layers=1)
     want = from_jax(*jax_init(7, JaxConfig(**cfg)))

@@ -26,6 +26,8 @@ def test_import_pulls_in_no_jax():
         "import beat_this_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 30, names\n"
+        "for mod in ('flash_attention', 'small_attention'):\n"
+        "    assert 'beat_this_tpu_torch.ops.' + mod in names, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'beat_this_tpu')\n"
@@ -46,6 +48,8 @@ def test_sources_import_nothing_of_the_jax_package():
                          r"(\.| import))", re.MULTILINE)
     paths = list(PACKAGE.rglob("*.py")) + [PACKAGE.parent / "chip_smoke.py"]
     assert len(paths) > 30
+    for name in ("flash_attention.py", "small_attention.py"):
+        assert PACKAGE / "ops" / name in paths
     for path in paths:
         assert not pattern.search(path.read_text()), path
 
@@ -62,7 +66,21 @@ def test_sources_use_no_library_kernels():
 def test_kernel_sources_exist():
     names = {p.name for p in (PACKAGE / "csrc").glob("*.cu")}
     assert names == {"fused_ff.cu", "fused_time.cu", "fused_freq.cu", "fused_ff_train.cu",
-                     "fused_time_train.cu", "fused_freq_train.cu"}
+                     "fused_time_train.cu", "fused_freq_train.cu", "flash_attention.cu",
+                     "small_attention.cu"}
+
+
+def test_attention_wrappers_call_no_library_product():
+    """The modules of the attention kernels take no matrix product of a
+    library on a CUDA path: `torch.matmul` stands only in their plain
+    versions (`*_ref`, `_ref_chunk`), no `bmm`, `einsum` or `F.` call
+    anywhere."""
+    for name in ("flash_attention.py", "small_attention.py"):
+        text = (PACKAGE / "ops" / name).read_text()
+        assert not re.search(r"\bbmm\b|einsum|torch\.nn\.functional|\bF\.", text), name
+        for block in re.split(r"^(?=def |class )", text, flags=re.MULTILINE):
+            if "torch.matmul" in block:
+                assert re.match(r"def (\w+_ref|_ref_chunk)\(", block), (name, block[:60])
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

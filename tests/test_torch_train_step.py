@@ -92,8 +92,19 @@ def _assert_trees_close(got, want, *, rel=None, atol=None):
 
 @pytest.mark.parametrize("partial", [False, True])
 def test_train_step_matches_jax(partial):
+    _train_step_matches_jax(partial_transformers=partial)
+
+
+def test_train_step_matches_jax_at_head_dim_16():
+    """The configuration the fused routers decline: every frequency block
+    through `small_attention`, every time block through `attention_block`,
+    q/k/v sized from head_dim by `init_beat_this` and `to_jax`."""
+    _train_step_matches_jax(head_dim=16)
+
+
+def _train_step_matches_jax(**config):
     kwargs = dict(transformer_dim=64, n_layers=1, dropout_frontend=0.0,
-                  dropout_transformer=0.0, partial_transformers=partial)
+                  dropout_transformer=0.0, **config)
     jcfg, cfg = JaxConfig(**kwargs), BeatThisConfig(**kwargs)
     jtc = JaxTrainConfig(max_steps=50, accum_steps=ACCUM, warmup_steps=5)
     tc = TrainConfig(max_steps=50, accum_steps=ACCUM, warmup_steps=5)
