@@ -4,9 +4,10 @@
 Same flags as beat_this_tpu/cli.py and the reference's console script
 (beat_this/cli.py): detects beats and downbeats in audio files or
 directories and writes `.beats` TSV files. `--gpu N` runs on cuda:N and
-`--gpu -1` on the CPU; `--float16` selects bfloat16 compute. `--dbn`
-raises: the DBN decoder is not ported yet (ROADMAP.md queue A4). Directory
-mode runs the files one at a time.
+`--gpu -1` on the CPU; `--float16` selects bfloat16 compute; `--dbn` decodes
+with the DBN postprocessor. Several inputs or a directory run in groups of
+`--batch-files` files that share one batched forward and one batched
+postprocess (`inference.BatchedFile2File`), with the per-file path's output.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ def get_parser():
     )
     parser.add_argument(
         "--dbn", default=False, action=argparse.BooleanOptionalAction,
-        help="decode beats with the DBN postprocessor (not ported yet: raises)",
+        help="decode beats with the DBN postprocessor instead of peak picking",
     )
     parser.add_argument(
         "--gpu", type=int, default=0,
@@ -78,7 +79,7 @@ def get_parser():
     )
     parser.add_argument(
         "--batch-files", type=int, default=8,
-        help="accepted for compatibility; files run one at a time",
+        help="files per batched forward and postprocess in directory mode [%(default)s]",
     )
     return parser
 
@@ -147,34 +148,22 @@ def run(
     activations,
     batch_files=8,
 ):
+    from beat_this_tpu_torch.inference import BatchedFile2File
     from beat_this_tpu_torch.io.audio import load_audio
     from beat_this_tpu_torch.utils import save_beat_tsv
-    from beat_this_tpu_torch.inference import File2File
 
-    del batch_files  # files run one at a time
-    if dbn:
-        raise NotImplementedError(
-            "--dbn: the DBN postprocessor is not ported to PyTorch yet "
-            "(ROADMAP.md queue A4)"
-        )
     device = "cpu" if gpu < 0 else f"cuda:{gpu}"
     if not float16:
         # float32 means float32: cuDNN would otherwise run the convolutions
         # in TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    file2file = File2File(model, device, float16)
+    file2file = BatchedFile2File(model, device, float16, dbn, group_size=max(1, batch_files))
     audio_seconds = 0.0
     t0 = time.perf_counter()
 
-    def process(audio_path, beats_path):
-        nonlocal audio_seconds
-        signal, sr = load_audio(audio_path)
-        audio_seconds += len(signal) / sr
-        logits = file2file.spect2frames(file2file.signal2spect(signal, sr))
-        if activations:
-            np.save(Path(beats_path).with_suffix(".npy"), np.vstack(logits))
-        save_beat_tsv(*file2file.frames2beats(*logits), beats_path)
+    def dump_activations(_path, beats_path, beat_logits, downbeat_logits):
+        np.save(Path(beats_path).with_suffix(".npy"), np.vstack([beat_logits, downbeat_logits]))
 
     inputs = [Path(item) for item in inputs]
     if output is not None:
@@ -182,22 +171,33 @@ def run(
     if len(inputs) == 1 and not inputs[0].is_dir():
         if output is None or output.is_dir():
             output = derive_output_path(inputs[0], suffix, append, output)
-        process(inputs[0], output)
+        signal, sr = load_audio(inputs[0])
+        audio_seconds += len(signal) / sr
+        logits = file2file.spect2frames(file2file.signal2spect(signal, sr))
+        if activations:
+            dump_activations(inputs[0], output, *logits)
+        save_beat_tsv(*file2file.frames2beats(*logits), output)
     else:
         jobs = _gather_jobs(inputs, suffix, append, output, skip_existing)
         claimed = _claim_jobs(jobs, touch_first, skip_existing)
         progress = tqdm.tqdm(total=len(claimed)) if tqdm is not None else None
-        for audio_path, beats_path in claimed:
-            try:
-                process(audio_path, beats_path)
-            except Exception as exc:  # noqa: BLE001 - one bad file must not stop the run
-                print(
-                    f"beat_this_tpu_torch: {audio_path} failed ({type(exc).__name__}: "
-                    f"{exc})",
-                    file=sys.stderr,
-                )
+
+        def on_error(audio_path, exc):  # one bad file must not stop the run
+            print(
+                f"beat_this_tpu_torch: {audio_path} failed ({type(exc).__name__}: {exc})",
+                file=sys.stderr,
+            )
             if progress is not None:
                 progress.update(1)
+
+        def after_each(audio_path, beats_path, beat_logits, downbeat_logits):
+            if activations:
+                dump_activations(audio_path, beats_path, beat_logits, downbeat_logits)
+            if progress is not None:
+                progress.update(1)
+
+        audio_seconds += file2file.process_many(claimed, on_error=on_error,
+                                                after_each=after_each)
         if progress is not None:
             progress.close()
     elapsed = time.perf_counter() - t0

@@ -28,6 +28,14 @@
 //     give the same bits.
 // delta = rowsum(do * o) comes from the caller, as on the TPU.
 //
+// flash_fwd_kernel also carries the ablation modes of
+// tools/bench_flash_ablate.py:make_kernel (bt_flash_ablate): the forward with
+// parts left out, to see where its time goes. kNoRope takes q and k as they
+// are (no rotation, no scale); kNoExp sets p = s and l = sum(s), with no
+// running maximum at all; kMatmulOnly adds round_T(s) v and divides by the
+// number of key blocks the caller names. Each is a compile-time branch, so
+// the full mode's code is the kernel the model runs.
+//
 // Bound on the H100: arithmetic (4 n^2 D multiply-adds per entry forward,
 // 10 n^2 D backward, against O(n D) bytes). Products are float32 FMAs on the
 // SIMT cores; bfloat16 values are widened on load and rounded where the TPU
@@ -40,6 +48,8 @@ namespace {
 constexpr int kQT = 128;  // queries (dkv: keys) per block, one per thread
 constexpr int kKT = 64;   // keys (dkv: queries) per staged tile
 constexpr float kLn2 = 0.6931471805599453f;
+// ablation modes of the forward (kFull is the kernel the model runs)
+constexpr int kFull = 0, kNoRope = 1, kNoExp = 2, kMatmulOnly = 3;
 
 // Stage rows [r0, r0 + kKT) of src into dst (zeros past n), by pairs;
 // ROTATE: rotated, times `mul`, and rounded to T.
@@ -70,12 +80,14 @@ __device__ __forceinline__ void stage_rows(float (*dst)[D], const T* __restrict_
   }
 }
 
-template <int D, typename T>
+// MODE kNoExp writes its denominator l, not a log-sum-exp, to `lse`;
+// `blocks` is kMatmulOnly's denominator.
+template <int D, typename T, int MODE = kFull>
 __global__ void __launch_bounds__(kQT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const float* __restrict__ cosv, const float* __restrict__ sinv,
                      T* __restrict__ o, float* __restrict__ lse, int n, int heads,
-                     bt::Dropout drop) {
+                     bt::Dropout drop, float blocks = 0.f) {
   __shared__ __align__(16) float ks[kKT][D];
   __shared__ __align__(16) float vs[kKT][D];
   const int bh = blockIdx.x, item = bh / heads, h = bh % heads;
@@ -84,45 +96,64 @@ __global__ void __launch_bounds__(kQT)
   float qr[D], acc[D];
   bt::zero_row(qr);
   bt::zero_row(acc);
-  if (t < n) bt::load_rotated<D, T>(qr, q + base + (size_t)t * D, cosv, sinv, t, bt::qscale<D>());
+  if (t < n) {
+    if constexpr (MODE == kNoRope)
+      bt::load_row<D>(qr, q + base + (size_t)t * D);
+    else
+      bt::load_rotated<D, T>(qr, q + base + (size_t)t * D, cosv, sinv, t, bt::qscale<D>());
+  }
   float m = -INFINITY, l = 0.f;
   for (int k0 = 0; k0 < n; k0 += kKT) {
-    stage_rows<D, T, true>(ks, k, base, k0, n, cosv, sinv);
+    stage_rows<D, T, MODE != kNoRope>(ks, k, base, k0, n, cosv, sinv);
     stage_rows<D, T, false>(vs, v, base, k0, n, cosv, sinv);
     __syncthreads();
     const int kn = min(kKT, n - k0);
-    float s[kKT];
-    float mt = m;
+    if constexpr (MODE == kNoExp || MODE == kMatmulOnly) {
+      // no softmax: the scores themselves weigh v (keys past n staged as zeros)
+      for (int j = 0; j < kn; ++j) {
+        float a = 0.f;
 #pragma unroll
-    for (int j = 0; j < kKT; ++j) {
-      float a = 0.f;
+        for (int d = 0; d < D; ++d) a += qr[d] * ks[j][d];
+        if constexpr (MODE == kNoExp) l += a;
+        a = bt::round_to<T>(a);
 #pragma unroll
-      for (int d = 0; d < D; ++d) a += qr[d] * ks[j][d];
-      s[j] = j < kn ? a : -INFINITY;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float corr = exp2f(m - mt);
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= corr;
-#pragma unroll
-    for (int jg = 0; jg < kKT / 4; ++jg) {
-      float f[4];
-      bt::keep4(drop, bt::kSiteAttnProbs, item, h, t, (k0 >> 2) + jg, f);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[4 * jg + e] - mt);
-        l += p;
-        const float a = bt::round_to<T>(p * f[e]);
-#pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] += a * vs[4 * jg + e][d];
+        for (int d = 0; d < D; ++d) acc[d] += a * vs[j][d];
       }
+    } else {
+      float s[kKT];
+      float mt = m;
+#pragma unroll
+      for (int j = 0; j < kKT; ++j) {
+        float a = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) a += qr[d] * ks[j][d];
+        s[j] = j < kn ? a : -INFINITY;
+        mt = fmaxf(mt, s[j]);
+      }
+      const float corr = exp2f(m - mt);
+      l *= corr;
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] *= corr;
+#pragma unroll
+      for (int jg = 0; jg < kKT / 4; ++jg) {
+        float f[4];
+        bt::keep4(drop, bt::kSiteAttnProbs, item, h, t, (k0 >> 2) + jg, f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[4 * jg + e] - mt);
+          l += p;
+          const float a = bt::round_to<T>(p * f[e]);
+#pragma unroll
+          for (int d = 0; d < D; ++d) acc[d] += a * vs[4 * jg + e][d];
+        }
+      }
+      m = mt;
     }
-    m = mt;
     __syncthreads();
   }
   if (t >= n) return;
-  if (lse != nullptr) lse[(size_t)bh * n + t] = m + log2f(l);
+  if constexpr (MODE == kMatmulOnly) l = blocks;
+  if (lse != nullptr) lse[(size_t)bh * n + t] = MODE == kNoExp ? l : m + log2f(l);
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] /= l;
   bt::store_row<D>(o + base + (size_t)t * D, acc);
@@ -261,6 +292,33 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <int D, typename T, int MODE>
+cudaError_t launch_ablate(const void* q, const void* k, const void* v, const void* cosv,
+                          const void* sinv, void* o, void* lout, int bh, int n, float blocks,
+                          cudaStream_t stream) {
+  const dim3 grid(bh, (n + kQT - 1) / kQT);
+  flash_fwd_kernel<D, T, MODE><<<grid, kQT, 0, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)cosv, (const float*)sinv, (T*)o,
+      (float*)lout, n, 1, bt::Dropout{}, blocks);
+  return cudaGetLastError();
+}
+
+template <int D, typename T>
+cudaError_t dispatch_ablate(int mode, const void* q, const void* k, const void* v,
+                            const void* cosv, const void* sinv, void* o, void* lout, int bh,
+                            int n, float blocks, cudaStream_t s) {
+  switch (mode) {
+    case kFull: return launch_fwd<D, T>(q, k, v, cosv, sinv, o, lout, bh, n, 1, bt::Dropout{}, s);
+    case kNoRope:
+      return launch_ablate<D, T, kNoRope>(q, k, v, cosv, sinv, o, lout, bh, n, blocks, s);
+    case kNoExp:
+      return launch_ablate<D, T, kNoExp>(q, k, v, cosv, sinv, o, lout, bh, n, blocks, s);
+    case kMatmulOnly:
+      return launch_ablate<D, T, kMatmulOnly>(q, k, v, cosv, sinv, o, lout, bh, n, blocks, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int D, typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* cosv,
                        const void* sinv, const void* dout, const void* lse, const void* delta,
@@ -322,6 +380,23 @@ extern "C" int bt_flash_bwd(int dtype, int D, const void* q, const void* k, cons
   cudaStream_t s = (cudaStream_t)stream;
 #define BT_CALL(DD, TT) \
   launch_bwd<DD, TT>(q, k, v, cosv, sinv, dout, lse, delta, dq, dk, dv, bh, n, heads, d, s)
+  BT_FLASH_DISPATCH(BT_CALL)
+#undef BT_CALL
+}
+
+// The forward with parts left out (the modes of the kernel above): mode 0
+// full (the launch of bt_flash_fwd without dropout), 1 no rotation and no
+// scale, 2 no exp2 and no maximum (p = s, l = sum(s)), 3 products only
+// (round(s) v over `blocks` key blocks, the denominator). lout (bh, n)
+// float32 or null: the log-sum-exp (modes 0, 1, 3) or the denominator l
+// (mode 2).
+extern "C" int bt_flash_ablate(int dtype, int D, int mode, const void* q, const void* k,
+                               const void* v, const void* cosv, const void* sinv, void* o,
+                               void* lout, int bh, int n, float blocks, void* stream) {
+  if (bh <= 0 || n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define BT_CALL(DD, TT) \
+  dispatch_ablate<DD, TT>(mode, q, k, v, cosv, sinv, o, lout, bh, n, blocks, s)
   BT_FLASH_DISPATCH(BT_CALL)
 #undef BT_CALL
 }

@@ -24,6 +24,15 @@ template <int C> __host__ __device__ constexpr int pmask_floats() {
   return kRows * (C / kHeadDim) * 32;
 }
 
+// Dynamic shared memory of the fused forward kernel (fused_freq.cu) and of
+// its stage-by-stage ablations (freq_ablate.cu), which keep its layout: the
+// x / y1 tile, ff_tail's scratch, the q/k/v tile, the gates and, in
+// training, the probabilities' keep factors.
+template <int C, bool TRAIN> __host__ __device__ constexpr size_t freq_smem_bytes() {
+  return sizeof(float) * (kRows * tile_ld(C) + ff_tail_floats<C>() + kRows * (3 * C + 1) +
+                          kRows * (C / kHeadDim) + (TRAIN ? pmask_floats<C>() : 0));
+}
+
 // What the training backward keeps of its forward recompute; a null
 // pointer is not written.
 struct FreqKeep {

@@ -60,6 +60,8 @@ cudaError_t dispatch(int C, const void* x, const void* gamma, const void* w1, co
     case 32: return launch<32, T>(x, gamma, w1, b1, w2, b2, out, rows, M, s);
     case 64: return launch<64, T>(x, gamma, w1, b1, w2, b2, out, rows, M, s);
     case 128: return launch<128, T>(x, gamma, w1, b1, w2, b2, out, rows, M, s);
+    case 256: return launch<256, T>(x, gamma, w1, b1, w2, b2, out, rows, M, s);
+    case 384: return launch<384, T>(x, gamma, w1, b1, w2, b2, out, rows, M, s);
     case 512: return launch<512, T>(x, gamma, w1, b1, w2, b2, out, rows, M, s);
     default: return cudaErrorInvalidValue;
   }

@@ -323,6 +323,8 @@ cudaError_t launch_bwd(const void* x, const void* gamma, const void* w1, const v
     case 32: return CALL(32);                       \
     case 64: return CALL(64);                       \
     case 128: return CALL(128);                     \
+    case 256: return CALL(256);                     \
+    case 384: return CALL(384);                     \
     case 512: return CALL(512);                     \
     default: return cudaErrorInvalidValue;          \
   }

@@ -65,21 +65,13 @@ __global__ void __launch_bounds__(bt::kThreads)
   bt::ff_tail<C, T>(y, scratch, fgamma, w1, b1, w2, b2, M, out, row0, nrows, drop);
 }
 
-template <int C, bool TRAIN>
-constexpr size_t freq_smem_bytes() {
-  constexpr int H = C / bt::kHeadDim;
-  return sizeof(float) * (bt::kRows * bt::tile_ld(C) + bt::ff_tail_floats<C>() +
-                          bt::kRows * (3 * C + 1) + bt::kRows * H +
-                          (TRAIN ? bt::pmask_floats<C>() : 0));
-}
-
 template <int C, typename T, bool TRAIN>
 cudaError_t launch(const void* x, const void* agamma, const void* wqkv, const void* wg,
                    const void* gb, const void* wout, const void* fgamma, const void* w1,
                    const void* b1, const void* w2, const void* b2, const void* cosv,
                    const void* sinv, void* out, int64_t rows, int F, int M, bt::Dropout drop,
                    cudaStream_t stream) {
-  constexpr size_t smem = freq_smem_bytes<C, TRAIN>();
+  constexpr size_t smem = bt::freq_smem_bytes<C, TRAIN>();
   auto kernel = fused_freq_kernel<C, T, TRAIN>;
   cudaError_t err = bt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;

@@ -181,6 +181,8 @@ cudaError_t dispatch(int C, const void* x, const void* agamma, const void* wqkv,
     BT_TIME_CASE(32)
     BT_TIME_CASE(64)
     BT_TIME_CASE(128)
+    BT_TIME_CASE(256)
+    BT_TIME_CASE(384)
     BT_TIME_CASE(512)
     default: return cudaErrorInvalidValue;
   }

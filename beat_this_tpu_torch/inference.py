@@ -10,9 +10,16 @@ CHUNK_BATCH, and their border-trimmed logits are stitched back with "keep_first"
 (earlier chunks win) or "keep_last". A piece of at most one stride runs as a
 single shorter chunk of T + 2 * border_size frames, padded to the JAX
 package's time buckets and masked through the model's `valid_lengths`.
+
+`ChunkedPredictor.predict_many` packs the chunks of several pieces into
+shared forwards, and `BatchedFile2File` runs a directory through it in
+groups (mel per file, one batched forward and one batched postprocess per
+group); both give what the per-piece path gives.
 """
 
 from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -105,34 +112,42 @@ class ChunkedPredictor:
         out = self.model(x, valid_lengths=valid_lengths, compute_dtype=self.compute_dtype)
         return out["beat"].cpu().numpy(), out["downbeat"].cpu().numpy()
 
-    def _predict_short(self, spect: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """One chunk of T + 2 * border frames, padded to a time bucket."""
-        bs, t = self.border_size, len(spect)
-        valid = t + 2 * bs
-        padded_t = next(p for p in _time_buckets(self.chunk_size) if p >= valid)
-        batch = np.zeros((1, padded_t, spect.shape[1]), np.float32)
-        batch[0, bs : bs + t] = spect
-        beat, down = self._forward(batch, np.array([valid], np.int64))
-        return beat[0, bs : bs + t], down[0, bs : bs + t]
+    def _predict_short(self, spects) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Each piece as one chunk of T + 2 * border frames, padded to a time
+        bucket; the pieces of one bucket share forwards of at most
+        CHUNK_BATCH rows."""
+        bs = self.border_size
+        by_bucket: dict[int, list[int]] = {}
+        for idx, spect in enumerate(spects):
+            valid = len(spect) + 2 * bs
+            padded_t = next(p for p in _time_buckets(self.chunk_size) if p >= valid)
+            by_bucket.setdefault(padded_t, []).append(idx)
+        results: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        for padded_t, indices in by_bucket.items():
+            for i in range(0, len(indices), CHUNK_BATCH):
+                rows = indices[i : i + CHUNK_BATCH]
+                batch = np.zeros((len(rows), padded_t, spects[0].shape[1]), np.float32)
+                for row, idx in enumerate(rows):
+                    batch[row, bs : bs + len(spects[idx])] = spects[idx]
+                valid = np.array([len(spects[idx]) + 2 * bs for idx in rows], np.int64)
+                beat, down = self._forward(batch, valid)
+                for row, idx in enumerate(rows):
+                    t = len(spects[idx])
+                    results[idx] = (beat[row, bs : bs + t], down[row, bs : bs + t])
+        return [results[i] for i in range(len(spects))]
 
-    def predict(self, spect: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """spect: (T, mel_bins) -> (beat_logits, downbeat_logits), each (T,)
-        float32 numpy."""
-        spect = np.asarray(spect, dtype=np.float32)
-        t = spect.shape[0]
-        if t <= self.stride:
-            return self._predict_short(spect)
+    def _chunks(self, spect: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """A long piece's chunk starts (in coordinates padded by the border)
+        and its zero-padded chunks (n, chunk_size, bins)."""
         cs, bs, stride = self.chunk_size, self.border_size, self.stride
-        starts = plan_chunks(t, cs, bs) + bs  # in padded coordinates
+        starts = plan_chunks(len(spect), cs, bs) + bs
         padded = np.zeros((len(starts) * stride + 2 * bs, spect.shape[1]), np.float32)
-        padded[bs : bs + t] = spect
-        chunks = np.stack([padded[s : s + cs] for s in starts])
-        outs = [
-            self._forward(chunks[i : i + CHUNK_BATCH])
-            for i in range(0, len(chunks), CHUNK_BATCH)
-        ]
-        beat = np.concatenate([o[0] for o in outs])
-        down = np.concatenate([o[1] for o in outs])
+        padded[bs : bs + len(spect)] = spect
+        return starts, np.stack([padded[s : s + cs] for s in starts])
+
+    def _stitch(self, t: int, starts: np.ndarray, beat: np.ndarray, down: np.ndarray):
+        """A piece's (T,) logit tracks from its chunks' logits (n, chunk_size)."""
+        cs, bs, stride = self.chunk_size, self.border_size, self.stride
         buf_b = np.full(len(starts) * stride, -1000.0, np.float32)
         buf_d = np.full(len(starts) * stride, -1000.0, np.float32)
         order = range(len(starts))
@@ -142,6 +157,83 @@ class ChunkedPredictor:
             buf_b[starts[i] : starts[i] + stride] = beat[i, bs : cs - bs]
             buf_d[starts[i] : starts[i] + stride] = down[i, bs : cs - bs]
         return buf_b[:t], buf_d[:t]
+
+    def _predict_long(self, spects) -> list[tuple[np.ndarray, np.ndarray]]:
+        """The chunks of all pieces, packed into forwards of at most
+        CHUNK_BATCH chunks, then stitched per piece."""
+        plans = [self._chunks(spect) for spect in spects]
+        chunks = np.concatenate([c for _, c in plans])
+        outs = [
+            self._forward(chunks[i : i + CHUNK_BATCH])
+            for i in range(0, len(chunks), CHUNK_BATCH)
+        ]
+        beat = np.concatenate([o[0] for o in outs])
+        down = np.concatenate([o[1] for o in outs])
+        results, offset = [], 0
+        for spect, (starts, _) in zip(spects, plans):
+            n = len(starts)
+            results.append(self._stitch(len(spect), starts, beat[offset : offset + n],
+                                        down[offset : offset + n]))
+            offset += n
+        return results
+
+    def predict_many(self, spects) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Several pieces at once: the chunks of all long pieces share their
+        forwards, the short pieces go through the time buckets together.
+        Every row of a forward is computed on its own, so each piece gets
+        the logits `predict` gives it."""
+        spects = [np.asarray(s, dtype=np.float32) for s in spects]
+        short = [i for i, s in enumerate(spects) if len(s) <= self.stride]
+        long = [i for i, s in enumerate(spects) if len(s) > self.stride]
+        out: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        if short:
+            out.update(zip(short, self._predict_short([spects[i] for i in short])))
+        if long:
+            out.update(zip(long, self._predict_long([spects[i] for i in long])))
+        return [out[i] for i in range(len(spects))]
+
+    def predict(self, spect: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """spect: (T, mel_bins) -> (beat_logits, downbeat_logits), each (T,)
+        float32 numpy."""
+        return self.predict_many([spect])[0]
+
+
+def _pad_logit_group(logits):
+    """Per-piece (beat, downbeat) logit pairs of ragged lengths as padded
+    (n, t_max) arrays plus the validity mask the batched postprocessor
+    takes (padding at -1000 can never cross the 0-logit peak threshold)."""
+    t_max = max(len(b) for b, _ in logits)
+    n = len(logits)
+    beat = np.full((n, t_max), -1000.0, np.float32)
+    down = np.full((n, t_max), -1000.0, np.float32)
+    mask = np.zeros((n, t_max), bool)
+    for i, (b, d) in enumerate(logits):
+        beat[i, : len(b)] = b
+        down[i, : len(d)] = d
+        mask[i, : len(b)] = True
+    return beat, down, mask
+
+
+def predict_postprocess_batched(predictor: ChunkedPredictor, postprocessor, pieces,
+                                group_size: int = 32):
+    """Stream (piece, beat_times, downbeat_times) over an iterable of piece
+    dicts (each with a "spect"), `group_size` pieces per batched forward
+    (`predict_many`) and batched postprocess; the results are those of the
+    per-piece path."""
+
+    def flush(group):
+        logits = predictor.predict_many([p["spect"] for p in group])
+        beat_times, down_times = postprocessor(*_pad_logit_group(logits))
+        yield from zip(group, beat_times, down_times)
+
+    group = []
+    for piece in pieces:
+        group.append(piece)
+        if len(group) == group_size:
+            yield from flush(group)
+            group = []
+    if group:
+        yield from flush(group)
 
 
 class Spect2Frames:
@@ -206,8 +298,9 @@ class Audio2Frames(Spect2Frames):
 
 
 class Audio2Beats(Audio2Frames):
-    """Beat and downbeat times (seconds) from an audio waveform. `dbn=True`
-    raises: the DBN decoder is not ported yet (ROADMAP.md queue A4)."""
+    """Beat and downbeat times (seconds) from an audio waveform. `dbn`
+    selects the DBN decoder (`postprocessing/dbn.py`) instead of peak
+    picking."""
 
     def __init__(self, checkpoint_path, device="cuda", float16=False, dbn=False,
                  chunk_size=CHUNK_SIZE, border_size=BORDER_SIZE):
@@ -230,3 +323,76 @@ class File2File(File2Beats):
     def __call__(self, audio_path, output_path):
         beats, downbeats = super().__call__(audio_path)
         save_beat_tsv(beats, downbeats, output_path)
+
+
+def _try_call(fn, *args):
+    try:
+        return fn(*args), None
+    except Exception as exc:  # noqa: BLE001 - reported per file by the caller
+        return None, exc
+
+
+class BatchedFile2File(File2File):
+    """Directory-scale inference: groups of `group_size` files are loaded
+    together, share one batched forward (`predict_many`) and one batched
+    postprocess, and write the `.beats` files the per-file path writes."""
+
+    def __init__(self, checkpoint_path, device="cuda", float16=False, dbn=False, group_size=8):
+        super().__init__(checkpoint_path, device, float16, dbn)
+        self.group_size = group_size
+
+    def _decode_group(self, spects):
+        """Per spectrogram ((logits, (beats, downbeats)), None) from one
+        batched forward and postprocess. If the group fails, each file runs
+        alone and a failing one gives (None, exception): one bad file must
+        not stop the run, nor take its group along."""
+        try:
+            logits = self.predictor.predict_many(spects)
+            times = zip(*self.frames2beats(*_pad_logit_group(logits)))
+            return [((lg, t), None) for lg, t in zip(logits, times)]
+        except Exception:  # noqa: BLE001 - reported per file below
+            def alone(spect):
+                logits = self.predictor.predict(spect)
+                return logits, self.frames2beats(*logits)
+
+            return [_try_call(alone, spect) for spect in spects]
+
+    def process_many(self, tasks, on_error=None, after_each=None) -> float:
+        """tasks: iterable of (audio_path, output_path). A file that fails
+        to load or to process calls `on_error(path, exception)` and is
+        skipped; `after_each(path, output_path, beat_logits,
+        downbeat_logits)` follows each written file. Returns the seconds of
+        audio processed."""
+        tasks = list(tasks)
+        seconds = 0.0
+        for i in range(0, len(tasks), self.group_size):
+            group = tasks[i : i + self.group_size]
+            # decoding overlaps across files; the mel runs on the device in turn
+            with ThreadPoolExecutor() as pool:
+                loaded = list(pool.map(lambda t: _try_call(load_audio, t[0]), group))
+            spects, valid = [], []
+            for (path, out), (audio, err) in zip(group, loaded):
+                if err is None:
+                    spect, err = _try_call(self.signal2spect, *audio)
+                if err is not None:
+                    if on_error:
+                        on_error(path, err)
+                    continue
+                seconds += len(audio[0]) / audio[1]
+                spects.append(spect)
+                valid.append((path, out))
+            if not spects:
+                continue
+            for (path, out), (decoded, err) in zip(valid, self._decode_group(spects)):
+                try:
+                    if err is not None:
+                        raise err
+                    (beat_logits, downbeat_logits), (beats, downbeats) = decoded
+                    save_beat_tsv(beats, downbeats, out)
+                    if after_each:
+                        after_each(path, out, beat_logits, downbeat_logits)
+                except Exception as exc:  # noqa: BLE001 - one bad file must not stop the run
+                    if on_error:
+                        on_error(path, exc)
+        return seconds
+

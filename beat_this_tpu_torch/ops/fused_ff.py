@@ -29,7 +29,7 @@ from beat_this_tpu_torch.model.layers import (
 from beat_this_tpu_torch.ops import _build
 from beat_this_tpu_torch.ops import dropout as drop
 
-SUPPORTED_DIMS = (32, 64, 128, 512)
+SUPPORTED_DIMS = (32, 64, 128, 256, 384, 512)
 
 
 def dtype_code(dtype: torch.dtype) -> int:

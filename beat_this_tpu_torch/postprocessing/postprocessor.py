@@ -1,10 +1,12 @@
 """Framewise logits to beat and downbeat times, counterpart of
 beat_this_tpu/postprocessing/postprocessor.py.
 
-"minimal" only: strict local-maximum peak picking (`ops/pool.peak_pick`, on
-the given device), then the host tail copied from the JAX package
-(adjacent-peak deduplication, downbeat-to-beat snapping). The DBN decoder
-is not ported yet (ROADMAP.md queue A4).
+Two modes, as in the reference (beat_this/model/postprocessor.py:9-173):
+"minimal" is strict local-maximum peak picking (`ops/pool.peak_pick`, on the
+given device), then the host tail copied from the JAX package
+(adjacent-peak deduplication, downbeat-to-beat snapping); "dbn" is the
+madmom DBNDownBeatTrackingProcessor equivalent, a batched Viterbi pass on
+the given device (`postprocessing/dbn.py`).
 """
 
 from __future__ import annotations
@@ -55,22 +57,28 @@ class Postprocessor:
     """Convert framewise beat/downbeat logits to times in seconds.
 
     Args:
-        type: "minimal" ("dbn" is not ported yet and raises).
+        type: "minimal" or "dbn".
         fps: frames per second of the model output.
-        device: where peak picking runs.
+        device: where peak picking and the DBN's Viterbi passes run.
     """
 
     def __init__(self, type: str = "minimal", fps: int = 50, device="cpu"):
-        if type == "dbn":
-            raise NotImplementedError(
-                "the DBN postprocessor is not ported to PyTorch yet (ROADMAP.md "
-                "queue A4); use the minimal postprocessor"
-            )
-        if type != "minimal":
+        if type not in ("minimal", "dbn"):
             raise ValueError("Invalid postprocessing type")
         self.type = type
         self.fps = fps
         self.device = device
+        if type == "dbn":
+            from beat_this_tpu_torch.postprocessing.dbn import DbnDecoder
+
+            self.dbn = DbnDecoder(
+                beats_per_bar=(3, 4),
+                min_bpm=55.0,
+                max_bpm=215.0,
+                fps=fps,
+                transition_lambda=100.0,
+                device=device,
+            )
 
     def __call__(self, beat, downbeat, padding_mask=None):
         beat = np.asarray(beat, dtype=np.float32)
@@ -82,6 +90,15 @@ class Postprocessor:
             padding_mask = np.asarray(padding_mask).astype(bool)
         if not batched:
             beat, downbeat, padding_mask = beat[None], downbeat[None], padding_mask[None]
+        if self.type == "minimal":
+            out_beat, out_downbeat = self.postp_minimal(beat, downbeat, padding_mask)
+        else:
+            out_beat, out_downbeat = self.postp_dbn(beat, downbeat, padding_mask)
+        if not batched:
+            return out_beat[0], out_downbeat[0]
+        return out_beat, out_downbeat
+
+    def postp_minimal(self, beat, downbeat, padding_mask):
         stacked = torch.from_numpy(np.stack([beat, downbeat])).to(self.device)
         mask = torch.from_numpy(np.broadcast_to(padding_mask[None], stacked.shape).copy())
         peaks = peak_pick(stacked, mask.to(self.device)).cpu().numpy()  # (2, B, T)
@@ -90,8 +107,6 @@ class Postprocessor:
             for b, d, m in zip(peaks[0], peaks[1], padding_mask)
         ]
         out_beat, out_downbeat = zip(*results)
-        if not batched:
-            return out_beat[0], out_downbeat[0]
         return tuple(out_beat), tuple(out_downbeat)
 
     def _postp_minimal_item(self, beat_peaks, downbeat_peaks, mask):
@@ -109,3 +124,38 @@ class Postprocessor:
                 downbeat_time[i] = beat_time[beat_idx]
         downbeat_time = np.unique(downbeat_time)
         return beat_time, downbeat_time
+
+    def postp_dbn(self, beat, downbeat, padding_mask):
+        """Logits to probabilities clamped away from 0 and 1 (reference
+        beat_this/model/postprocessor.py:138-151), then every piece through
+        one batched decode. Batched eval pads short pieces with -1000
+        logits, whose exp overflows to inf: the probability 0 is right and
+        masked."""
+        with np.errstate(over="ignore"):
+            beat_prob = 1.0 / (1.0 + np.exp(-beat.astype(np.float64)))
+            downbeat_prob = 1.0 / (1.0 + np.exp(-downbeat.astype(np.float64)))
+        epsilon = 1e-5
+        beat_prob = beat_prob * (1 - epsilon) + epsilon / 2
+        downbeat_prob = downbeat_prob * (1 - epsilon) + epsilon / 2
+        combined = [
+            self._combined_activations(b, d, m)
+            for b, d, m in zip(beat_prob, downbeat_prob, padding_mask)
+        ]
+        out_beat, out_downbeat = [], []
+        for dbn_out in self.dbn.decode_many(combined):
+            out_beat.append(dbn_out[:, 0])
+            out_downbeat.append(dbn_out[dbn_out[:, 1] == 1][:, 0])
+        return tuple(out_beat), tuple(out_downbeat)
+
+    @staticmethod
+    def _combined_activations(beat_prob, downbeat_prob, mask):
+        """Böck-style combined activation matrix (reference
+        beat_this/model/postprocessor.py:153-168)."""
+        beat_prob = beat_prob[mask]
+        downbeat_prob = downbeat_prob[mask]
+        epsilon = 1e-5
+        return np.stack(
+            [np.maximum(beat_prob - downbeat_prob, epsilon / 2), downbeat_prob],
+            axis=1,
+        )
+

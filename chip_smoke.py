@@ -25,7 +25,15 @@ non-zero without the final `"ok": true` line:
    with lse and its backward and small_attention forward and backward
    (output, dq, dk, dv) at a training microbatch of 8 crops; beside them
    the time of one `scaled_dot_product_attention` call on rotated q and k
-   (a yardstick for the table, on no path);
+   (a yardstick for the table, on no path). The eval kernels, the
+   attention branch and the feed-forward also at C 256 and 384 (the widths
+   `--transformer-dim` reaches), at small row counts. Then the ablation
+   kernels of `beat_this_tpu_torch/bench/`: every stage of the frequency
+   block, every mode of the flash forward, every softmax variant and pass,
+   at the benches' full sizes in bfloat16 (the passes in float32), each
+   against its plain version; the `full` stage bit-equal to the block's own
+   kernel; then the three bench entry points through their `main()` at
+   default flags, with exact launch counts;
 4. end to end: the full-width BeatThisConfig() model from a numpy-seeded
    synthetic checkpoint runs the port's CLI in-process on a 75 s click
    track (three chunks) and a 12 s one (the short-piece path), in float32
@@ -39,7 +47,11 @@ non-zero without the final `"ok": true` line:
    plain path's at F >= 0.999. Then the same with a head_dim 16
    checkpoint ("h16": every time block through flash_attention, every
    frequency block through small_attention, every feed-forward through
-   fused_ff), with exact launch counts per CLI run;
+   fused_ff), with exact launch counts per CLI run. On the stock
+   checkpoint also `--dbn` on the 75 s piece (beats at F >= 0.999 against
+   the minimal postprocessor's, and equal to the DBN decode of the plain
+   float32 path's logits) and directory mode over four wavs of unequal
+   length, byte-identical to the four single-file runs;
 5. training end to end: `python -m beat_this_tpu_torch.train`, in-process,
    on a click corpus written by the port's `data.synth`, at full width
    (512 x 6, 16 heads), batch 8 x 1500 frames, 2 microbatches per step
@@ -57,7 +69,8 @@ non-zero without the final `"ok": true` line:
    port's CLI writes a .beats file with it. Prints the step time and the
    peak device memory. Then the h16 model through the `Trainer` class (the
    command line fixes head_dim 32), float32 and bfloat16, with the same
-   checks;
+   checks; and one 2-step run of `--transformer-dim 256 --n-layers 2` in
+   float32 (8 heads: the C 256 instantiations), with exact launch counts;
 6. the kernel summary JSON, then the device JSON as the last line.
 
 Needs a CUDA device and the repository beside this script; it never runs
@@ -113,7 +126,16 @@ KERNELS = {
         "beat_this_tpu_torch/csrc/small_attention.cu", "beat_this_tpu/ops/small_attention.py:77"),
     "small_attention_bwd": (
         "beat_this_tpu_torch/csrc/small_attention.cu", "beat_this_tpu/ops/small_attention.py:110"),
+    "freq_ablate": (
+        "beat_this_tpu_torch/csrc/freq_ablate.cu", "tools/bench_fused_freq_ablate.py:47"),
+    "flash_ablate": (
+        "beat_this_tpu_torch/csrc/flash_attention.cu", "tools/bench_flash_ablate.py:27"),
+    "softmax_variants": (
+        "beat_this_tpu_torch/csrc/softmax_variants.cu", "tools/bench_softmax_variants.py:74"),
+    "softmax_passes": (
+        "beat_this_tpu_torch/csrc/softmax_passes.cu", "tools/bench_softmax_variants.py:177"),
 }
+ABLATION_KERNELS = ("freq_ablate", "flash_ablate", "softmax_variants", "softmax_passes")
 ATTN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_lse", "flash_attention_bwd",
                 "small_attention_fwd", "small_attention_bwd")
 TRAIN_KERNELS = ("fused_time_attention_train_fwd", "fused_time_attention_train_bwd",
@@ -126,6 +148,8 @@ TRAIN_STEPS, TRAIN_ACCUM, TRAIN_LAYERS, FRONTEND_BLOCKS = 3, 2, 6, 3
 # time blocks (8 crops x F bins of 1500 frames)
 TRAIN_SHAPE = (8, 1500, 512, 16)
 FRONTEND_TIME_SHAPES = ((256, 1500, 32, 1), (128, 1500, 64, 2), (64, 1500, 128, 4))
+# the other widths `--transformer-dim` reaches, (items, n, C, heads), at small row counts
+OTHER_WIDTH_SHAPES = ((2, 750, 256, 8), (2, 750, 384, 12))
 # the frontend's three frequency blocks, (items, F, C): 8 crops x 1500 frames
 FREQ_SHAPES = ((12000, 32, 32), (12000, 16, 64), (12000, 8, 128))
 # the h16 model's attention per 1500-frame crop, (entries, seq, heads): a main
@@ -136,6 +160,10 @@ H16 = 16
 H16_FLASH = ((32, 1500, 32), (64, 1500, 2))
 H16_SMALL = ((3000, 32, 2), (6000, 16, 4), (12000, 8, 8))
 EVAL_CHUNKS, TRAIN_CROPS = 3, 8
+# the ablation benches' sizes: chunks of 1500 frames per frequency-block
+# launch, and the flash forward's (entries, seq, head_dim)
+ABLATE_BATCH = 16
+ABLATE_FLASH = (512, 1536, 32)
 DEVICE = "cuda"
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): float32 outside
 # the tensor cores, bfloat16 on them, and the HBM3 rate
@@ -214,20 +242,12 @@ def rel_dev(got, want) -> float:
 
 
 def median_ms(fn, reps: int = 10, warmup: int = 3) -> float:
+    """Median time in ms of `fn` on DEVICE, by the benches' own routine."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from beat_this_tpu_torch.bench import timing
+
+    return timing.median_ms(fn, torch.device(DEVICE), reps, warmup)
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -311,7 +331,8 @@ def phase_kernels(smi: str) -> dict:
     cases = []
     # K2: a main transformer layer over 2 chunks, frontend block 0's time
     # direction (B * F = 64 sequences of C = 32)
-    for c, heads, n, items in ((512, 16, 1500, 2), (32, 1, 1500, 64)):
+    for c, heads, n, items in ((512, 16, 1500, 2), (32, 1, 1500, 64), (256, 8, 750, 2),
+                               (384, 12, 750, 2)):
         attn, ff = random_block(c, heads, c + n, dev)
         cos, sin = rope_tables(n, 32, dev)
         cases.append(("fused_time_roformer", f"C={c} heads={heads} n={n} items={items}",
@@ -331,7 +352,7 @@ def phase_kernels(smi: str) -> dict:
                           fused_freq_roformer_ref(x, a, f, cs, sn)))
     # K1: the short-piece path at a 768-frame bucket: a main layer (1 x 768
     # rows of C = 512) and frontend block 0's time FF (32 x 768 rows of C = 32)
-    for c, items, n in ((512, 1, 768), (32, 32, 768)):
+    for c, items, n in ((512, 1, 768), (32, 32, 768), (256, 1, 768), (384, 1, 768)):
         _, ff = random_block(c, c // 32, 7 * c, dev)
         cases.append(("fused_ff", f"C={c} rows={items * n}", (items, n, c), ("ff", n),
                       lambda x, f=ff: fused_ff(x, f),
@@ -633,7 +654,62 @@ def _end_to_end(tmp: Path, smi: str, head_dim: int) -> dict:
         check(dev_rel < limit if float16 else dev_rel <= limit,
               f"{piece} {dt}: logits deviate {dev_rel:.3e}")
         check(f_beat >= F_MIN and f_down >= F_MIN, f"{piece} {dt}: beats disagree")
+    if not h16:
+        _dbn_and_directory(tmp, smi, ckpt, pieces, refs, durations)
     return launches
+
+
+def _dbn_and_directory(tmp: Path, smi: str, ckpt: Path, pieces: dict, refs: dict,
+                       durations: dict) -> None:
+    """The stock checkpoint through `--dbn` on the long piece, and through
+    directory mode (groups of files sharing their forwards) over four wavs
+    of unequal length."""
+    import torch
+
+    from beat_this_tpu_torch import cli
+    from beat_this_tpu_torch.ops.fused_time import fused_time_roformer
+    from beat_this_tpu_torch.postprocessing.postprocessor import Postprocessor
+
+    def run_cli(inputs, out: Path, dbn: bool = False) -> float:
+        t0 = time.perf_counter()
+        cli.run([str(i) for i in inputs], str(ckpt), str(out), ".beats", False, False, False, dbn,
+                0, False, False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out = tmp / "long_dbn.beats"
+    run_cli([pieces["long"][0]], tmp / "warm_dbn.beats", True)
+    wall = run_cli([pieces["long"][0]], out, True)
+    beats, downbeats = read_beats(out)
+    peak_beats, peak_down = read_beats(tmp / "long.beats")
+    ref_beats, ref_down = Postprocessor("dbn", device=DEVICE)(*refs["long"][1])
+    f_beat, f_down = f_measure(beats, peak_beats), f_measure(downbeats, peak_down)
+    same = (len(beats) == len(ref_beats) and len(downbeats) == len(ref_down)
+            and bool(np.allclose(beats, ref_beats, atol=1e-3))
+            and bool(np.allclose(downbeats, ref_down, atol=1e-3)))
+    print(f"[e2e] cli --dbn long ({durations['long']:.1f} s audio) f32: {wall:.3f} s wall, "
+          f"{durations['long'] / wall:.1f}x realtime; {len(beats)} beats / {len(downbeats)} "
+          f"downbeats; vs the minimal postprocessor's: F {f_beat:.4f} / {f_down:.4f} (beats min "
+          f"{F_MIN}); equal to the DBN decode of the plain f32 path's logits: {same} [{smi}]")
+    check(f_beat >= F_MIN, "--dbn: beats disagree with the minimal postprocessor's")
+    check(same, "--dbn: beats differ from the DBN decode of the plain path's logits")
+
+    src = tmp / "dir"
+    src.mkdir()
+    lengths = (3750, 601, 1600, 250)
+    seconds = sum(write_wav(src / f"p{i}.wav", frames, 10 + i) for i, frames in enumerate(lengths))
+    before = fused_time_roformer.launches
+    wall_dir = run_cli([src], tmp / "dir_out")
+    check(fused_time_roformer.launches > before, "directory mode launched no kernel")
+    wall_single = sum(run_cli([src / f"p{i}.wav"], tmp / "single" / f"p{i}.beats")
+                      for i in range(len(lengths)))
+    for i in range(len(lengths)):
+        got = (tmp / "dir_out" / f"p{i}.beats").read_bytes()
+        check(len(got) > 0 and got == (tmp / "single" / f"p{i}.beats").read_bytes(),
+              f"directory mode: p{i}.beats differs from the single-file run")
+    print(f"[e2e] directory mode, {len(lengths)} wavs of {lengths} frames ({seconds:.1f} s "
+          f"audio): {wall_dir:.3f} s wall ({seconds / wall_dir:.1f}x realtime), the four "
+          f"single-file runs {wall_single:.3f} s; .beats files byte-identical [{smi}]")
 
 
 # -- phase 3b: training kernels -------------------------------------------------
@@ -676,7 +752,8 @@ def train_cases(dev, dtype, dt: str):
 
     attn_names = ["dgamma", "dWqkv", "dWgates", "dgate_b", "dWout"]
     ff_names = ["dgamma_ff", "dW1", "db1", "dW2", "db2"]
-    time_shapes = [(TRAIN_SHAPE, (0.0, 0.2))] + [(s, (0.1,)) for s in FRONTEND_TIME_SHAPES]
+    time_shapes = ([(TRAIN_SHAPE, (0.0, 0.2))] + [(s, (0.1,)) for s in FRONTEND_TIME_SHAPES]
+                   + [(s, (0.2,)) for s in OTHER_WIDTH_SHAPES])
     for (items, n, c, heads), rates in time_shapes:
         attn, ff = random_block(c, heads, 2 * c + n, dev)
         attn.requires_grad_(True)
@@ -903,6 +980,215 @@ def phase_attention_kernels(smi: str) -> dict:
     return results
 
 
+# -- phase 3d: the ablation kernels and the bench entry points ------------------------
+
+
+def freq_stage_work(stage: str, rows: int, c: int, f_bins: int, size: int):
+    """(FLOPs, bytes) of the frequency block cut at `stage`: the products up
+    to there, x read and out written once, the stage's weights read once."""
+    per_row = {"copy": 0, "rms": 0, "qkv": 6 * c * c, "ff": 16 * c * c,
+               "attn": 8 * c * c + 4 * f_bins * c,
+               "full": 8 * c * c + 4 * f_bins * c + 16 * c * c}[stage]
+    weights = {"copy": 0, "rms": 0, "qkv": 3 * c * c, "ff": 8 * c * c, "attn": 4 * c * c,
+               "full": 12 * c * c}[stage]
+    return rows * per_row, (2 * rows * c + weights) * size
+
+
+def phase_ablation_kernels(smi: str) -> tuple[dict, dict]:
+    """Every stage, mode, variant and pass of the bench kernels against its
+    plain version on the card at the benches' full sizes (bfloat16; the
+    standalone passes float32), with median times; then the three entry
+    points through `main()` at default flags. Returns (results, the entry
+    points' launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from beat_this_tpu_torch.bench import flash_ablate, fused_freq_ablate, softmax_variants
+    from beat_this_tpu_torch.ops.fused_freq import fused_freq_roformer
+
+    dev = torch.device(DEVICE)
+    results = {name: [] for name in ABLATION_KERNELS}
+    bf16 = torch.bfloat16
+
+    def record(name, desc, got, want, limit, kernel, plain, work, dt, library=None, note="",
+               headline=False):
+        """Holds one case, times it and appends it to `results[name]`; the
+        first `headline` case of a kernel stands for it on the `kernels`
+        line. `library`: one PyTorch call that computes the same function."""
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()), f"{name} {desc}: non-finite")
+        dev_rel = rel_dev(got, want)
+        abs_err = float((got.float() - want.float()).abs().max())
+        ms, plain_ms = median_ms(kernel), median_ms(plain, 5)
+        lib_ms = median_ms(library) if library is not None else None
+        bound_ms, bound_by = bound(*work, dt)
+        ok = dev_rel <= limit if dt == "f32" else dev_rel < limit
+        print(f"[ablation-kernels] {name} {dt} {desc}: rel max dev {dev_rel:.3e} (limit "
+              f"{limit:g}){note}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound {bound_ms:.3f} ms "
+              f"({bound_by}) [{smi}] {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{name} {dt} {desc}: deviation {dev_rel:.3e} over {limit:g}")
+        headline = headline and not any(r["headline"] for r in results[name])
+        results[name].append({"case": f"{dt} {desc}", "rel_max_dev": dev_rel,
+                              "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                              "headline": headline})
+
+    with torch.inference_mode():
+        # B13: the frequency block cut after each stage, 16 chunks of 1500 frames
+        rng = np.random.RandomState(0)
+        items = ABLATE_BATCH * 1500
+        for c, f_bins in fused_freq_ablate.SHAPES:
+            x, params, (cos, sin) = fused_freq_ablate.make_case(rng, c, f_bins, items, dev)
+            for stage in fused_freq_ablate.STAGES:
+                def kernel(st=stage):
+                    return fused_freq_ablate.ablate_stage(x, params, st, cos, sin)
+
+                def plain(st=stage):
+                    return fused_freq_ablate.ablate_stage_ref(x, params, st, cos, sin)
+
+                got = kernel()
+                if stage == "full":
+                    check(torch.equal(got, fused_freq_roformer(x, *params, cos, sin)),
+                          f"freq_ablate full C={c}: not the bits of fused_freq_roformer")
+                library = None  # one call only for the first two stages
+                if stage == "copy":
+                    library = x.clone
+                elif stage == "rms" and hasattr(F, "rms_norm"):
+                    gamma = params[0].norm.gamma.to(bf16)
+
+                    def library(gamma=gamma, c=c):
+                        return F.rms_norm(x, (c,), gamma, 1e-24)
+                record("freq_ablate", f"{stage} C={c} F={f_bins} items={items}", got, plain(),
+                       BF16_LIMIT, kernel, plain,
+                       freq_stage_work(stage, items * f_bins, c, f_bins, 2), "bf16", library,
+                       headline=stage == "full")
+            del x, params
+        torch.cuda.empty_cache()
+
+        # B14: the flash forward with parts left out
+        bh, n, d = ABLATE_FLASH
+        q, k, v, cos, sin = flash_ablate.make_inputs(bh, n, d, dev)
+        lib_shape = (bh // 8, 8, n, d)
+        work = (4 * bh * n * n * d, 4 * bh * n * d * 2)
+        for mode in flash_ablate.MODES:
+            def kernel(md=mode):
+                return flash_ablate.flash_variant(q, k, v, cos, sin, md, flash_ablate.BLOCK_K)
+
+            def plain(md=mode):
+                return flash_ablate.flash_variant_ref(q, k, v, cos, sin, md, flash_ablate.BLOCK_K)
+
+            got, want, note = kernel(), plain(), ""
+            if mode == "noexp":
+                # o = acc / l with l = sum(s), which crosses zero: where |l| is small, the
+                # order of a float32 sum of 1536 scores moves o by percents on either
+                # side. The denominators and the numerators o * l (each side with its
+                # own l) are held on every row, o where |l| >= 1.
+                got, den = flash_ablate.flash_variant(q, k, v, cos, sin, mode,
+                                                      flash_ablate.BLOCK_K, with_denominator=True)
+                want, want_den = flash_ablate.flash_variant_ref(
+                    q, k, v, cos, sin, mode, flash_ablate.BLOCK_K, with_denominator=True)
+                den_dev = float((den - want_den).abs().max() / want_den.abs().max())
+                check(den_dev <= F32_LIMIT,
+                      f"flash_ablate noexp: denominators deviate {den_dev:.3e}")
+                num_dev = rel_dev(got.float() * den[..., None], want.float() * want_den[..., None])
+                check(num_dev < BF16_LIMIT,
+                      f"flash_ablate noexp: numerators deviate {num_dev:.3e}")
+                keep = want_den.abs() >= 1.0
+                note = (f", on the {int(keep.sum())} of {keep.numel()} rows with |l| >= 1; on "
+                        f"every row denominators rel max dev {den_dev:.3e}, numerators "
+                        f"{num_dev:.3e}")
+                got, want = got[keep], want[keep]
+            library = None
+            if mode == "full":  # cos = 1, sin = 0: q and k are their own rotations
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q.reshape(lib_shape), k.reshape(lib_shape), v.reshape(lib_shape))
+            record("flash_ablate", f"{mode} ({bh}, {n}, {d}) block_k {flash_ablate.BLOCK_K}", got,
+                   want, BF16_LIMIT, kernel, plain, work, "bf16", library, note, mode == "full")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+        # B15a: the softmax pass variants at the model's two geometries
+        rng = np.random.RandomState(0)
+        n = softmax_variants.N_PAD
+        mask, mask_col = softmax_variants.make_masks(n, softmax_variants.N_VALID, dev)
+        for name, items, gh in softmax_variants.GEOMETRIES:
+            q, k, v = softmax_variants.make_qkv(rng, items, n, gh, dev)
+            for var in softmax_variants.VARIANTS:
+                def kernel(vr=var):
+                    return softmax_variants.attention_variant(q, k, v, mask, vr, gh, mask_col)
+
+                def plain(vr=var):
+                    return softmax_variants.attention_variant_ref(q, k, v, mask, vr, gh, mask_col)
+
+                qk_cols = 33 if var in softmax_variants.FOLDED else 32
+                pv_cols = 34 if var == "tmxusum" else 33
+                work = (2 * n * n * (qk_cols + pv_cols) * items * gh, 4 * items * n * gh * 32 * 2)
+                library = None
+                if var == "full":
+                    lib_mask = mask.to(bf16)[None, None, None, :]
+
+                    def split(t):
+                        return t.reshape(items, n, gh, 32).transpose(1, 2)
+
+                    def library():
+                        return F.scaled_dot_product_attention(
+                            split(q), split(k), split(v), attn_mask=lib_mask, scale=1.0)
+                record("softmax_variants", f"{var} {items} items x {gh} heads n={n}", kernel(),
+                       plain(), BF16_LIMIT, kernel, plain, work, "bf16", library,
+                       headline=var == "full")
+            del q, k, v
+        torch.cuda.empty_cache()
+
+        # B15b: one pass alone over a score-sized float32 array
+        rows, out_cols = softmax_variants.PASS_ROWS, softmax_variants.PASS_OUT_COLS
+        x = torch.from_numpy((rng.rand(rows, n) * 2 - 1).astype(np.float32)).to(dev)
+        for op in softmax_variants.PASSES:
+            def kernel(o=op):
+                return softmax_variants.softmax_pass(x, o, out_cols)
+
+            def plain(o=op):
+                return softmax_variants.softmax_pass_ref(x, o, out_cols)
+
+            library = {"exp2": lambda: torch.exp2(x[:, :out_cols]),
+                       "rowmax": lambda: x.amax(1, keepdim=True).expand(-1, out_cols),
+                       "rowsum": lambda: x.sum(1, keepdim=True).expand(-1, out_cols)}[op]
+            check(rel_dev(library(), plain()) <= F32_LIMIT,
+                  f"softmax_passes {op}: the library call computes another function")
+            record("softmax_passes", f"{op} ({rows}, {n}) -> {out_cols} columns", kernel(),
+                   plain(), F32_LIMIT, kernel, plain, (rows * n, 4 * rows * (n + out_cols)), "f32",
+                   library, headline=op == "exp2")
+        del x
+        torch.cuda.empty_cache()
+
+    # the entry points at default flags: per timed variant 3 warm-ups and
+    # `reps` windows of one launch
+    wrappers = {"freq_ablate": fused_freq_ablate.ablate_stage,
+                "flash_ablate": flash_ablate.flash_variant,
+                "softmax_variants": softmax_variants.attention_variant,
+                "softmax_passes": softmax_variants.softmax_pass}
+    for fn in wrappers.values():
+        fn.launches = 0
+    for module in (fused_freq_ablate, flash_ablate, softmax_variants):
+        t0 = time.perf_counter()
+        module.main([])
+        torch.cuda.synchronize()
+        print(f"[ablation-kernels] {module.__name__}.main([]): {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    expect = {
+        "freq_ablate": len(fused_freq_ablate.SHAPES) * len(fused_freq_ablate.STAGES) * (3 + 10),
+        "flash_ablate": len(flash_ablate.MODES) * (3 + 10),
+        "softmax_variants": (len(softmax_variants.GEOMETRIES) * len(softmax_variants.VARIANTS)
+                             * (3 + 4)),
+        "softmax_passes": len(softmax_variants.PASSES) * (3 + 4),
+    }
+    print(f"[ablation-kernels] launches of the three entry points: {launches}")
+    check(launches == expect, f"bench entry points: launches {launches}, expected {expect}")
+    return results, launches
+
+
 # -- phase 5: training end to end --------------------------------------------
 
 
@@ -916,19 +1202,23 @@ def phase_train(smi: str) -> dict:
 # to float32; the head_dim 16 configuration in both precisions
 TRAIN_RUNS = (("no-partial", False, "float32", 32), ("stock", True, "float32", 32),
               ("stock", True, "bfloat16", 32), ("h16", True, "float32", H16),
-              ("h16", True, "bfloat16", H16))
+              ("h16", True, "bfloat16", H16), ("d256", True, "float32", 32))
+# the "d256" run: another main width (8 heads), cut to 2 layers and 2 steps
+D256_ARGS = ["--transformer-dim", "256", "--n-layers", "2", "--max-steps", "2",
+             "--max-epochs", "2"]
 
 
-def expected_train_launches(partial: bool, head_dim: int) -> dict:
+def expected_train_launches(partial: bool, head_dim: int, layers: int = TRAIN_LAYERS,
+                            steps: int = TRAIN_STEPS) -> dict:
     """Launches of each training kernel over one run: per microbatch one
     attention and one feed-forward per time block (6 main layers, 3 frontend
     blocks with partial transformers) and one fused call per frequency
     block; at head_dim 16 the fused attention kernels decline every block,
     so each time block's attention is flash_attention, each frequency
     block small_attention plus a feed-forward of its own."""
-    per_step = TRAIN_ACCUM * TRAIN_STEPS
+    per_step = TRAIN_ACCUM * steps
     frontend = FRONTEND_BLOCKS if partial else 0
-    time_blocks = (TRAIN_LAYERS + frontend) * per_step
+    time_blocks = (layers + frontend) * per_step
     freq_blocks = frontend * per_step
     fused = head_dim == 32
     attn = {"fused_time_attention_train": time_blocks if fused else 0,
@@ -1101,8 +1391,9 @@ def _train(root: Path, smi: str) -> dict:
     wav = root / "piece.wav"
     write_wav(wav, 601, 7)
     for name, partial, precision, head_dim in TRAIN_RUNS:
-        expect = expected_train_launches(partial, head_dim)
-        args = get_parser().parse_args(_train_args(root, name, partial, precision))
+        extra = D256_ARGS if name == "d256" else []
+        args = get_parser().parse_args(_train_args(root, name, partial, precision) + extra)
+        expect = expected_train_launches(partial, head_dim, args.n_layers, args.max_steps)
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -1124,7 +1415,7 @@ def _train(root: Path, smi: str) -> dict:
         tag = f"{name} {precision}"
         print(f"[train] training run {tag}: {state.step} steps in {wall:.1f} s wall (set-up, "
               f"validation and checkpoints included), launches {run}")
-        check(state.step == TRAIN_STEPS, f"{tag}: {state.step} steps")
+        check(state.step == args.max_steps, f"{tag}: {state.step} steps")
         for k, v in run.items():
             check(v == expect[k], f"{tag}: {k} launched {v} times, expected {expect[k]}")
         records = [json.loads(line) for line in Path(args.log_file).read_text().splitlines()]
@@ -1143,7 +1434,8 @@ def _train(root: Path, smi: str) -> dict:
               f"through load_model; the CLI wrote {out.name} with "
               f"{len(out.read_text().splitlines())} beats")
         step_s, plain_s, peak = first_step_check(args, head_dim)
-        print(f"[train] step time {tag}, full width, batch 8 x 1500, {TRAIN_ACCUM} "
+        print(f"[train] step time {tag}, transformer {args.transformer_dim} x {args.n_layers}, "
+              f"batch 8 x 1500, {TRAIN_ACCUM} "
               f"microbatches, dropout {args.frontend_dropout} / {args.transformer_dropout}: "
               f"kernel path {step_s:.3f} s, plain path {plain_s:.3f} s [{smi}]")
         print(f"[train] torch.cuda.max_memory_allocated over kernel-path steps {tag}: "
@@ -1182,7 +1474,10 @@ def main() -> int:
         results = timed("kernels", phase_kernels, smi)
         results.update(timed("train-kernels", phase_train_kernels, smi))
         results.update(timed("attention-kernels", phase_attention_kernels, smi))
+        ablation, bench_launches = timed("ablation-kernels", phase_ablation_kernels, smi)
+        results.update(ablation)
         launches = timed("end-to-end", phase_end_to_end, smi)
+        launches.update(bench_launches)
         for k, v in timed("train", phase_train, smi).items():
             launches[k] = launches.get(k, 0) + v  # small_attention_fwd runs on both paths
         bad = sorted(m for m in sys.modules
@@ -1193,7 +1488,8 @@ def main() -> int:
         return 1
     summary = []
     for name, (source, replaces) in KERNELS.items():
-        main_case = results[name][0]  # the first float32 case (rate 0 for training)
+        # the first float32 case (rate 0 for training); an ablation kernel's `full` case
+        main_case = next((r for r in results[name] if r.get("headline")), results[name][0])
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
@@ -1202,7 +1498,7 @@ def main() -> int:
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             # no single PyTorch call computes a fused roformer block, its
             # gated attention branch or its FF residual: only the attention
-            # kernels have a library time
+            # kernels and the standalone passes have a library time
             "library_ms": main_case.get("library_ms"),
             "cases": results[name],
         })

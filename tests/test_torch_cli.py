@@ -15,6 +15,17 @@ from beat_this_tpu_torch.cli import get_parser, run
 HPARAMS = {"transformer_dim": 64, "n_layers": 1}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The DBN's per-frame loop is thousands of tiny operations per piece:
+    threads add only their hand-off, which costs minutes where several test
+    processes share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def ckpt_path(tmp_path_factory):
     params, state = init_beat_this(13, BeatThisConfig(**HPARAMS))
@@ -73,5 +84,34 @@ def test_parser_flags():
 
 
 def test_dbn_not_ported(ckpt_path, wav_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="A4"):
-        run(**_args([str(wav_dir / "short.wav")], ckpt_path, str(tmp_path / "x.beats"), dbn=True))
+    """`--dbn` (which raised while the decoder was not ported) writes the
+    JAX CLI's .beats file."""
+    wav = str(wav_dir / "long.wav")
+    run(**_args([wav], ckpt_path, str(tmp_path / "torch.beats"), dbn=True))
+    jax_run(**_args([wav], ckpt_path, str(tmp_path / "jax.beats"), dbn=True))
+    assert (tmp_path / "torch.beats").read_text() == (tmp_path / "jax.beats").read_text()
+
+
+@pytest.mark.parametrize("dbn", [False, True])
+def test_directory_mode_equals_single_files(ckpt_path, wav_dir, tmp_path, dbn):
+    """The batched directory run writes, byte for byte, what one run per
+    file writes (which the tests above hold to the JAX CLI)."""
+    run(**_args([str(wav_dir)], ckpt_path, str(tmp_path / "dir"), dbn=dbn, batch_files=2))
+    for name in ("short", "long"):
+        single = tmp_path / f"{name}.beats"
+        run(**_args([str(wav_dir / f"{name}.wav")], ckpt_path, str(single), dbn=dbn))
+        got = (tmp_path / "dir" / f"{name}.beats").read_bytes()
+        assert got and got == single.read_bytes()
+
+
+def test_directory_mode_reports_a_bad_file(ckpt_path, wav_dir, tmp_path, capsys):
+    """A file that cannot be read is reported and skipped; the others of its
+    group are still written."""
+    src = tmp_path / "in"
+    src.mkdir()
+    (src / "a.wav").write_bytes((wav_dir / "short.wav").read_bytes())
+    (src / "b.wav").write_bytes(b"not audio")
+    run(**_args([str(src)], ckpt_path, str(tmp_path / "out")))
+    assert (tmp_path / "out" / "a.beats").exists()
+    assert not (tmp_path / "out" / "b.beats").exists()
+    assert "b.wav failed" in capsys.readouterr().err

@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's framework-free modules give
 results identical to their originals on the same inputs: audio loading and
 resampling, the beat TSV writer, the metrics, the checkpoint key maps, the
-click corpus writer and the training batches of the data module."""
+click corpus writer, the training batches of the data module and the DBN
+decoder's state-space construction."""
 
 import jax
 import numpy as np
@@ -12,6 +13,7 @@ import beat_this_tpu.io.audio as jax_audio
 import beat_this_tpu.io.torch_ckpt as jax_keys
 import beat_this_tpu.metrics as jax_metrics
 import beat_this_tpu.ops.resample as jax_resample
+import beat_this_tpu.postprocessing.dbn as jax_dbn
 import beat_this_tpu.utils as jax_utils
 from beat_this_tpu.data.synth import write_click_corpus as jax_write_click_corpus
 from beat_this_tpu.model import BeatThisConfig, init_beat_this
@@ -19,6 +21,7 @@ from beat_this_tpu_torch import data, metrics, utils
 from beat_this_tpu_torch.data.synth import write_click_corpus
 from beat_this_tpu_torch.io import audio, keys
 from beat_this_tpu_torch.ops import resample
+from beat_this_tpu_torch.postprocessing import dbn
 
 
 def _signal(n, seed, channels=1):
@@ -128,3 +131,24 @@ def test_data_module_batches(tmp_path):
                 np.testing.assert_equal(a[k], b[k], err_msg=k)
     assert (modules[0].get_train_positive_weights(widen_target_mask=3)
             == modules[1].get_train_positive_weights(widen_target_mask=3))
+
+
+@pytest.mark.parametrize("num_beats,fps,bpm,lam", [(3, 50.0, (55.0, 215.0), 100.0),
+                                                   (4, 50.0, (55.0, 215.0), 100.0),
+                                                   (4, 100.0, (60.0, 180.0), 50.0)])
+def test_dbn_state_space_matches(num_beats, fps, bpm, lam):
+    """The bar-pointer state space, its transitions and its observation
+    pointers, array by array, and the activation trimming."""
+    got = dbn.build_pattern_hmm(num_beats, *bpm, fps, lam)
+    want = jax_dbn.build_pattern_hmm(num_beats, *bpm, fps, lam)
+    assert (got.num_beats, got.num_states) == (want.num_beats, want.num_states)
+    for name in ("state_positions", "from_idx", "log_probs", "pointers"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), name
+    assert dbn.STAY_CHOICE == jax_dbn.STAY_CHOICE
+    act = np.random.default_rng(num_beats).random((50, 2)) * 0.2
+    for threshold in (0.05, 0.15, 0.5):
+        a = dbn.threshold_activations(act, threshold)
+        b = jax_dbn.threshold_activations(act, threshold)
+        assert np.array_equal(a[0], b[0]) and a[1] == b[1]
+

@@ -15,7 +15,9 @@ device and nvcc; skips without one. Run on the GPU machine with
 Tolerances: float32 relative max deviation 1e-5 (TF32 off; only the order
 of float32 sums differs), 1e-4 for the training kernels' gradients (sums
 over every row, in another order), bfloat16 < 2.5e-2 (the two sides round
-intermediates to bfloat16 at different places)."""
+intermediates to bfloat16 at different places). The ablation kernels of
+`beat_this_tpu_torch/bench/` (every stage, mode, variant and pass) and the
+DBN decoder on the card against the CPU are held here too."""
 
 import numpy as np
 import pytest
@@ -69,7 +71,7 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("c", [32, 64, 128, 512])
+@pytest.mark.parametrize("c", [32, 64, 128, 256, 384, 512])
 def test_fused_ff(device, dtype, tol, c):
     _, ff = _block(c, c // 32, c, device)
     x = _x((2, 45, c), dtype, device, c)
@@ -81,7 +83,8 @@ def test_fused_ff(device, dtype, tol, c):
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("heads,n,items", [(1, 77, 3), (2, 130, 2), (4, 64, 1), (16, 200, 1)])
+@pytest.mark.parametrize("heads,n,items", [(1, 77, 3), (2, 130, 2), (4, 64, 1), (16, 200, 1),
+                                           (8, 150, 1), (12, 90, 2)])
 def test_fused_time(device, dtype, tol, heads, n, items):
     c = heads * 32
     attn, ff = _block(c, heads, n, device)
@@ -134,7 +137,8 @@ def _compare_train(kernel, plain, x, params, tol, seed):
 
 @pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("c,rows", [(32, 45), (64, 100), (128, 77), (512, 70)])
+@pytest.mark.parametrize("c,rows", [(32, 45), (64, 100), (128, 77), (512, 70), (256, 90),
+                                    (384, 300)])
 def test_fused_ff_train(device, dtype, tol, rate, c, rows):
     _, ff = _block(c, c // 32, c + rows, device)
     ff.requires_grad_(True)
@@ -149,7 +153,8 @@ def test_fused_ff_train(device, dtype, tol, rate, c, rows):
 
 @pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("heads,n,items", [(1, 77, 3), (2, 130, 2), (4, 64, 1), (16, 200, 1)])
+@pytest.mark.parametrize("heads,n,items", [(1, 77, 3), (2, 130, 2), (4, 64, 1), (16, 200, 1),
+                                           (8, 150, 1), (12, 90, 2)])
 def test_fused_time_attention_train(device, dtype, tol, rate, heads, n, items):
     c = heads * 32
     attn, _ = _block(c, heads, n, device)
@@ -357,3 +362,132 @@ def test_attention_kernels_take_views_and_refuse_other_shapes(device):
     bad = torch.zeros((2, 24, 16), device=device)
     with pytest.raises(ValueError, match="sequence lengths"):
         small_ops.small_attention(bad, bad, bad)
+
+
+# -- the ablation kernels of beat_this_tpu_torch/bench/ ----------------------------
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("stage", ["copy", "rms", "qkv", "ff", "attn", "full"])
+@pytest.mark.parametrize("c,f,items", [(32, 32, 5), (64, 16, 7), (128, 8, 37)])
+def test_freq_ablate_stage(device, dtype, tol, stage, c, f, items):
+    from beat_this_tpu_torch.bench import fused_freq_ablate as fa
+
+    x, params, (cos, sin) = fa.make_case(np.random.RandomState(c + f), c, f, items, device, dtype)
+    before = fa.ablate_stage.launches
+    got = fa.ablate_stage(x, params, stage, cos, sin)
+    assert fa.ablate_stage.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _rel(got, fa.ablate_stage_ref(x, params, stage, cos, sin)) < tol
+    if stage == "full":  # the block's own launch, bit for bit
+        assert torch.equal(got, fused_freq_roformer(x, *params, cos, sin))
+    if stage == "copy":
+        assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("mode", ["full", "norope", "noexp", "mxu_only"])
+@pytest.mark.parametrize("bh,n,d,block_k,rope", [(3, 200, 32, 64, True), (2, 256, 32, 128, False),
+                                                 (4, 77, 16, 32, True)])
+def test_flash_variant(device, dtype, tol, mode, bh, n, d, block_k, rope):
+    from beat_this_tpu_torch.bench import flash_ablate as fl
+
+    q, k, v = (_x((bh, n, d), dtype, device, 10 * i + n) for i in range(3))
+    cos, sin = rope_tables(n, d, device) if rope else (None, None)
+    before = fl.flash_variant.launches
+    got = fl.flash_variant(q, k, v, cos, sin, mode, block_k)
+    assert fl.flash_variant.launches == before + 1
+    want, den = fl.flash_variant_ref(q, k, v, cos, sin, mode, block_k, with_denominator=True)
+    assert got.dtype == dtype and got.shape == q.shape
+    if mode == "noexp":  # divides by a sum of scores that crosses zero: hold the rows away from it
+        got, got_den = fl.flash_variant(q, k, v, cos, sin, mode, block_k, with_denominator=True)
+        assert float((got_den - den).abs().max()) < 1e-3 * float(den.abs().max())
+        # the numerator o * l on every row, each side with its own l
+        assert _rel(got.float() * got_den[..., None], want.float() * den[..., None]) < tol
+        keep = den.abs() >= 0.25 * den.abs().max()
+        got, want = got[keep], want[keep]
+    assert _rel(got, want) < tol
+    if mode == "full":  # the model's own forward
+        assert torch.equal(got, flash_ops.flash_attention(q, k, v, cos, sin))
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("variant", ["nosmax", "nomax", "noexp", "b16exp", "full", "kfold", "b16s",
+                                     "b16sfold", "tfull", "tmxusum", "tb16sum"])
+@pytest.mark.parametrize("items,n,valid,heads", [(3, 200, 170, 2), (2, 128, 128, 1)])
+def test_attention_variant(device, dtype, tol, variant, items, n, valid, heads):
+    from beat_this_tpu_torch.bench import softmax_variants as sv
+
+    q, k, v = sv.make_qkv(np.random.RandomState(n + heads), items, n, heads, device, dtype)
+    mask, mask_col = sv.make_masks(n, valid, device)
+    before = sv.attention_variant.launches
+    got = sv.attention_variant(q, k, v, mask, variant, heads, mask_col)
+    assert sv.attention_variant.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = sv.attention_variant_ref(q, k, v, mask, variant, heads, mask_col)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, want) < tol
+
+
+@pytest.mark.parametrize("op", ["exp2", "rowmax", "rowsum"])
+@pytest.mark.parametrize("rows,cols,out_cols", [(37, 1536, 128), (8, 100, 100), (3, 33, 1)])
+def test_softmax_pass(device, op, rows, cols, out_cols):
+    from beat_this_tpu_torch.bench import softmax_variants as sv
+
+    x = _x((rows, cols), torch.float32, device, rows) * 2
+    before = sv.softmax_pass.launches
+    got = sv.softmax_pass(x, op, out_cols)
+    assert sv.softmax_pass.launches == before + 1
+    assert got.shape == (rows, out_cols)
+    assert _rel(got, sv.softmax_pass_ref(x, op, out_cols)) < 1e-5
+
+
+# -- the DBN decoder on the card against the CPU -------------------------------------
+
+
+def _dbn_tracks():
+    """[beat-only, downbeat] activations: 4/4 and 3/4 clicks plus noise, an
+    all-below-threshold track, a one-frame track and a flat one (ties)."""
+    rng = np.random.default_rng(0)
+    tracks = []
+    for frames, bpb, period in ((700, 4, 25), (450, 3, 30), (1000, 4, 33)):
+        act = 1e-3 + 0.05 * rng.random((frames, 2))
+        for i, t in enumerate(range(period // 2, frames, period)):
+            act[t] = (0.02, 0.9) if i % bpb == 0 else (0.85, 0.02)
+        tracks.append(act)
+    return tracks + [np.full((120, 2), 0.01), np.array([[0.6, 0.1]]), np.full((90, 2), 0.25)]
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_dbn_decoder_on_the_card_equals_cpu(device, batched):
+    from beat_this_tpu_torch.postprocessing.dbn import DbnDecoder
+
+    card, cpu = DbnDecoder(device=device), DbnDecoder()
+    tracks = _dbn_tracks()
+    got = card.decode_many(tracks) if batched else [card(t) for t in tracks]
+    want = cpu.decode_many(tracks)
+    assert sum(len(w) > 0 for w in want) == 4
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.array_equal(g, w)
+
+
+def test_dbn_forward_on_the_card_equals_cpu(device):
+    """Scores at 1e-4 relative (float32 adds in the same order; exp and log
+    are not involved), choices exactly, also where candidates tie."""
+    from beat_this_tpu_torch.postprocessing import dbn
+
+    decoder = dbn.DbnDecoder()
+    dens = np.stack([decoder._log_densities(t) for t in (_dbn_tracks()[1], np.full((450, 2), 0.25))])
+    dens = torch.from_numpy(dens.astype(np.float32))
+    lengths = torch.tensor([450, 300])
+    for tensors in decoder._tensors:
+        final, choices = dbn.viterbi_forward(*tensors, dens, lengths)
+        on_card = [t.to(device) for t in tensors]
+        got_final, got_choices = dbn.viterbi_forward(*on_card, dens.to(device), lengths.to(device))
+        assert torch.equal(got_choices.cpu(), choices)
+        assert _rel(got_final.cpu(), final) < 1e-4
+        starts = final.argmax(1)
+        path = dbn.viterbi_backtrack(tensors[0], choices, starts)
+        got_path = dbn.viterbi_backtrack(on_card[0], got_choices, starts.to(device))
+        assert torch.equal(got_path.cpu(), path)
+

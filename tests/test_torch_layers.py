@@ -154,15 +154,15 @@ class _OnCard:
         self.device = torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("c", [96, 256])
+@pytest.mark.parametrize("c", [96, 160])
 def test_kernels_refuse_other_widths_by_name(c):
     """A width outside the instantiated ones raises and names the supported
     widths on a CUDA tensor (it must not turn into a silent fallback)."""
     from beat_this_tpu_torch.ops import fused_ff, fused_freq, fused_time
 
-    with pytest.raises(ValueError, match=r"supports C in \(32, 64, 128, 512\)"):
+    with pytest.raises(ValueError, match=r"supports C in \(32, 64, 128, 256, 384, 512\)"):
         fused_ff._check_cuda("fused_ff", _OnCard((4, c)), c)
-    with pytest.raises(ValueError, match=r"in \(32, 64, 128, 512\)"):
+    with pytest.raises(ValueError, match=r"in \(32, 64, 128, 256, 384, 512\)"):
         fused_time._check_time("fused_time_roformer", _OnCard((1, 600, c)), c // 32)
     with pytest.raises(ValueError, match=r"C in \(32, 64, 128\)"):
         fused_freq._check_freq("fused_freq_roformer", _OnCard((5, 8, c)))

@@ -19,19 +19,21 @@ PACKAGE = Path(__file__).resolve().parent.parent / "beat_this_tpu_torch"
 
 
 def test_import_pulls_in_no_jax():
-    """Every module of the port, imported in a fresh interpreter, loads no
-    module named jax*, beat_this_tpu or beat_this_tpu.*."""
+    """Every module of the port (the bench entry points, the DBN decoder and
+    the hub module among them), imported in a fresh interpreter, loads no
+    module named jax*, beat_this_tpu, beat_this_tpu.*, tools or tools.*."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import beat_this_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 30, names\n"
-        "for mod in ('flash_attention', 'small_attention'):\n"
-        "    assert 'beat_this_tpu_torch.ops.' + mod in names, names\n"
+        "for mod in ('ops.flash_attention', 'ops.small_attention', 'bench.fused_freq_ablate',\n"
+        "            'bench.flash_ablate', 'bench.softmax_variants', 'postprocessing.dbn', 'hub'):\n"
+        "    assert 'beat_this_tpu_torch.' + mod in names, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'beat_this_tpu')\n"
-        "             or m.startswith(('jax.', 'jaxlib.', 'beat_this_tpu.')))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'beat_this_tpu', 'tools')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'beat_this_tpu.', 'tools.')))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(
@@ -42,14 +44,17 @@ def test_import_pulls_in_no_jax():
 
 
 def test_sources_import_nothing_of_the_jax_package():
-    """No `import beat_this_tpu` or `from beat_this_tpu.` (nor of jax) in the
-    port's sources or chip_smoke.py, at any indentation."""
-    pattern = re.compile(r"^\s*(import (beat_this_tpu|jax)\b|from (beat_this_tpu|jax)"
+    """No `import beat_this_tpu` or `from beat_this_tpu.` (nor of jax, nor of
+    the JAX package's `tools/`) in the port's sources or chip_smoke.py, at
+    any indentation."""
+    pattern = re.compile(r"^\s*(import (beat_this_tpu|jax|tools)\b|from (beat_this_tpu|jax|tools)"
                          r"(\.| import))", re.MULTILINE)
     paths = list(PACKAGE.rglob("*.py")) + [PACKAGE.parent / "chip_smoke.py"]
     assert len(paths) > 30
-    for name in ("flash_attention.py", "small_attention.py"):
-        assert PACKAGE / "ops" / name in paths
+    for name in ("ops/flash_attention.py", "ops/small_attention.py", "bench/flash_ablate.py",
+                 "bench/fused_freq_ablate.py", "bench/softmax_variants.py", "postprocessing/dbn.py",
+                 "hub.py"):
+        assert PACKAGE / name in paths
     for path in paths:
         assert not pattern.search(path.read_text()), path
 
@@ -67,7 +72,8 @@ def test_kernel_sources_exist():
     names = {p.name for p in (PACKAGE / "csrc").glob("*.cu")}
     assert names == {"fused_ff.cu", "fused_time.cu", "fused_freq.cu", "fused_ff_train.cu",
                      "fused_time_train.cu", "fused_freq_train.cu", "flash_attention.cu",
-                     "small_attention.cu"}
+                     "small_attention.cu", "freq_ablate.cu", "softmax_variants.cu",
+                     "softmax_passes.cu"}
 
 
 def test_attention_wrappers_call_no_library_product():
@@ -81,6 +87,19 @@ def test_attention_wrappers_call_no_library_product():
         for block in re.split(r"^(?=def |class )", text, flags=re.MULTILINE):
             if "torch.matmul" in block:
                 assert re.match(r"def (\w+_ref|_ref_chunk)\(", block), (name, block[:60])
+
+
+@pytest.mark.parametrize("name", ["fused_freq_ablate.py", "flash_ablate.py",
+                                  "softmax_variants.py"])
+def test_bench_wrappers_call_no_library_product(name):
+    """In the bench modules a product, a softmax pass or any `F.` call of a
+    library stands only in the plain versions (`*_ref`, `_ref_chunk`): the
+    wrappers' CUDA paths reach nothing but the C entry points."""
+    text = (PACKAGE / "bench" / name).read_text()
+    assert "bt_" in text and "_build.load_library()" in text
+    for block in re.split(r"^(?=def |class )", text, flags=re.MULTILINE):
+        if re.search(r"torch\.matmul|\bbmm\b|einsum|\bF\.|torch\.exp2|torch\.softmax|\.amax\(", block):
+            assert re.match(r"def (\w+_ref|_ref_chunk)\(", block), (name, block[:60])
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
