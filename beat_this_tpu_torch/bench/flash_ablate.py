@@ -15,8 +15,9 @@ Counterpart of tools/bench_flash_ablate.py. Modes:
             products and nothing between them
 
 `block_k` is part of each function's meaning where the tool's arithmetic
-depends on it: `mxu_only` divides by ceil(n / block_k). The CUDA kernel
-always walks 64-key tiles, so the tool's (block_q, block_k) sweep has no
+depends on it: `mxu_only` divides by ceil(n / block_k). The CUDA kernels
+(float32 on the SIMT cores, bfloat16 on the tensor cores) always walk
+64-key tiles, so the tool's (block_q, block_k) sweep has no
 counterpart here and is dropped; `--block-k` only sets that denominator.
 """
 
@@ -38,6 +39,7 @@ from beat_this_tpu_torch.ops.flash_attention import (
     check_qkv,
     ptr,
     rotated,
+    rotation_scratch,
     table,
 )
 from beat_this_tpu_torch.ops.fused_ff import stream_of
@@ -118,11 +120,13 @@ def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load_library()
     out = torch.empty_like(q)
     den = torch.empty((bh, n), dtype=torch.float32, device=q.device) if with_denominator else None
+    scratch = rotation_scratch(q)
     with torch.cuda.device(q.device):
         _build.check(
             lib.bt_flash_ablate(
                 code, d, MODES.index(mode), q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(cos),
-                ptr(sin), out.data_ptr(), ptr(den), bh, n, float(-(-n // block_k)), stream_of(q),
+                ptr(sin), out.data_ptr(), ptr(den), bh, n, float(-(-n // block_k)),
+                ptr(scratch), stream_of(q),
             ),
             "bt_flash_ablate",
         )

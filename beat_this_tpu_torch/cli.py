@@ -37,7 +37,8 @@ def get_parser():
     )
     parser.add_argument(
         "--model", type=str, default="final0",
-        help="checkpoint to run: a local file [%(default)s]",
+        help="checkpoint to run: a released shortname (fetched and cached on "
+             "first use), a local path, or a URL [%(default)s]",
     )
     parser.add_argument(
         "--output", "-o", type=str, default=None,

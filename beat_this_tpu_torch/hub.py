@@ -4,9 +4,8 @@ class and the inference tower), importable as
 
     from beat_this_tpu_torch.hub import beat_this, File2Beats
 
-`load_model(checkpoint_path, device)` takes a local checkpoint file;
-checkpoint shortnames and URLs are not resolved (there is nothing to
-download them from here).
+`load_model(checkpoint_path, device)` takes a local checkpoint file, a URL
+or a released shortname (fetched once into $BEAT_THIS_CACHE).
 """
 
 dependencies = ["torch", "numpy"]

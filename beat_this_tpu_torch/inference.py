@@ -26,7 +26,7 @@ import torch
 
 from beat_this_tpu_torch.io.audio import load_audio
 from beat_this_tpu_torch.utils import save_beat_tsv
-from beat_this_tpu_torch.io.checkpoint import load_checkpoint, model_state_dict
+from beat_this_tpu_torch.io.checkpoint import init_beat_this, load_checkpoint, model_state_dict
 from beat_this_tpu_torch.model.beat_this import BeatThis, BeatThisConfig
 from beat_this_tpu_torch.ops.mel import LogMelConfig, log_mel_spectrogram, num_frames
 from beat_this_tpu_torch.postprocessing.postprocessor import Postprocessor
@@ -46,15 +46,21 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def load_model(checkpoint_path, device) -> BeatThis:
-    """A BeatThis module in eval mode on `device`, from a local checkpoint
-    file (reference beat_this/inference.py:56-87)."""
+def load_model(checkpoint_path="final0", device="cuda") -> BeatThis:
+    """A BeatThis module in eval mode on `device`, from a checkpoint given by
+    local path, URL or released shortname (`io.checkpoint.load_checkpoint`;
+    reference beat_this/inference.py:56-87). With `None`, a freshly
+    initialized default model (`init_beat_this(0, BeatThisConfig())`)."""
     device = resolve_device(device)
-    checkpoint = load_checkpoint(checkpoint_path)
-    config = BeatThisConfig.from_hparams(checkpoint.get("hyper_parameters", {}))
+    if checkpoint_path is None:
+        config, state_dict = BeatThisConfig(), init_beat_this(0, BeatThisConfig())
+    else:
+        checkpoint = load_checkpoint(checkpoint_path)
+        config = BeatThisConfig.from_hparams(checkpoint.get("hyper_parameters", {}))
+        state_dict = model_state_dict(checkpoint)
     with torch.device(device):
         model = BeatThis(config)
-    model.load_state_dict(model_state_dict(checkpoint))
+    model.load_state_dict(state_dict)
     return model.eval().requires_grad_(False)
 
 
@@ -198,6 +204,71 @@ class ChunkedPredictor:
         return self.predict_many([spect])[0]
 
 
+def zeropad(spect, left: int = 0, right: int = 0) -> np.ndarray:
+    """Zero frames added before and after a (T, F) spectrogram (reference
+    beat_this/inference.py:100-107), host-side numpy."""
+    spect = np.asarray(spect)
+    if not left and not right:
+        return spect
+    return np.pad(spect, ((left, right), (0, 0)))
+
+
+def split_piece(spect, chunk_size: int, border_size: int = BORDER_SIZE,
+                avoid_short_end: bool = True):
+    """(chunks, starts) of a (T, F) spectrogram on `plan_chunks`' grid
+    (reference beat_this/inference.py:110-144): chunks overlap by
+    2 * border_size, the first and last are zero-padded at the piece's
+    edges. `ChunkedPredictor` cuts its chunks itself; this is the
+    reference's public helper."""
+    spect = np.asarray(spect)
+    t = len(spect)
+    starts = plan_chunks(t, chunk_size, border_size, avoid_short_end)
+    chunks = []
+    for start in starts:
+        start = int(start)
+        lo, hi = max(start, 0), min(start + chunk_size, t)
+        chunks.append(zeropad(spect[lo:hi], left=lo - start,
+                              right=max(0, min(border_size, start + chunk_size - t))))
+    return chunks, starts
+
+
+def aggregate_prediction(pred_chunks, starts, full_size: int, chunk_size: int,
+                         border_size: int, overlap_mode: str, device=None):
+    """(beat, downbeat) logits of a whole piece, (full_size,) float32 numpy
+    each, from per-chunk dicts of "beat" and "downbeat" logits (reference
+    beat_this/inference.py:147-185): borders are cut, uncovered frames stay
+    at -1000, and where trimmed chunks overlap "keep_first" lets the earlier
+    chunk win and "keep_last" the later. `device` is accepted and unused."""
+    if overlap_mode not in ("keep_first", "keep_last"):
+        raise ValueError(f"unknown overlap_mode: {overlap_mode!r}")
+    del device, chunk_size
+    beat = np.full(full_size, -1000.0, np.float32)
+    downbeat = np.full(full_size, -1000.0, np.float32)
+    items = list(zip(starts, pred_chunks))
+    if overlap_mode == "keep_first":
+        items = items[::-1]  # later writes win, so write the winners last
+    for start, chunk in items:
+        start = int(start)
+        for out, key in ((beat, "beat"), (downbeat, "downbeat")):
+            seg = chunk[key]
+            seg = seg.float().cpu().numpy() if torch.is_tensor(seg) else np.asarray(seg)
+            if border_size > 0:
+                seg = seg[border_size : len(seg) - border_size]
+            out[start + border_size : start + border_size + len(seg)] = seg
+    return beat, downbeat
+
+
+def split_predict_aggregate(spect, chunk_size: int, border_size: int, overlap_mode: str,
+                            model: BeatThis, compute_dtype: torch.dtype = torch.float32) -> dict:
+    """Framewise {"beat", "downbeat"} logits of a whole (T, F) piece through
+    `ChunkedPredictor` with "keep_first" or "keep_last" overlap handling
+    (reference beat_this/inference.py:188-230)."""
+    predictor = ChunkedPredictor(model, chunk_size, border_size, compute_dtype,
+                                 overlap_mode=overlap_mode)
+    beat, downbeat = predictor.predict(np.asarray(spect))
+    return {"beat": beat, "downbeat": downbeat}
+
+
 def _pad_logit_group(logits):
     """Per-piece (beat, downbeat) logit pairs of ragged lengths as padded
     (n, t_max) arrays plus the validity mask the batched postprocessor
@@ -238,10 +309,11 @@ def predict_postprocess_batched(predictor: ChunkedPredictor, postprocessor, piec
 
 class Spect2Frames:
     """Framewise beat/downbeat logits from a (T, 128) log-mel spectrogram.
-    `device` defaults to CUDA; pass "cpu" to run on the CPU. `float16`
-    selects bfloat16 compute."""
+    `checkpoint_path` is a local path, URL or released shortname (None: a
+    freshly initialized default model). `device` defaults to CUDA; pass
+    "cpu" to run on the CPU. `float16` selects bfloat16 compute."""
 
-    def __init__(self, checkpoint_path, device="cuda", float16=False,
+    def __init__(self, checkpoint_path="final0", device="cuda", float16=False,
                  chunk_size=CHUNK_SIZE, border_size=BORDER_SIZE):
         self.device = resolve_device(device)
         self.float16 = float16
@@ -302,7 +374,7 @@ class Audio2Beats(Audio2Frames):
     selects the DBN decoder (`postprocessing/dbn.py`) instead of peak
     picking."""
 
-    def __init__(self, checkpoint_path, device="cuda", float16=False, dbn=False,
+    def __init__(self, checkpoint_path="final0", device="cuda", float16=False, dbn=False,
                  chunk_size=CHUNK_SIZE, border_size=BORDER_SIZE):
         self.frames2beats = Postprocessor(
             type="dbn" if dbn else "minimal", device=resolve_device(device)
@@ -337,7 +409,8 @@ class BatchedFile2File(File2File):
     together, share one batched forward (`predict_many`) and one batched
     postprocess, and write the `.beats` files the per-file path writes."""
 
-    def __init__(self, checkpoint_path, device="cuda", float16=False, dbn=False, group_size=8):
+    def __init__(self, checkpoint_path="final0", device="cuda", float16=False, dbn=False,
+                 group_size=8):
         super().__init__(checkpoint_path, device, float16, dbn)
         self.group_size = group_size
 

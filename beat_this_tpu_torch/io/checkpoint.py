@@ -1,5 +1,6 @@
-"""Checkpoints for the PyTorch model: local loading, weights carried over from
-the JAX package, and numpy-seeded initialization.
+"""Checkpoints for the PyTorch model: loading by local path, URL or released
+shortname, weights carried over from the JAX package, and numpy-seeded
+initialization.
 
 The state-dict key map is `io/keys.py`, the port's copy of the JAX
 package's (beat_this_tpu/io/torch_ckpt.py: `_strip_keys`,
@@ -9,6 +10,7 @@ package's (beat_this_tpu/io/torch_ckpt.py: `_strip_keys`,
 from __future__ import annotations
 
 import os
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -22,15 +24,46 @@ from beat_this_tpu_torch.io.keys import (
 from beat_this_tpu_torch.model.beat_this import BeatThisConfig
 
 
+# where released checkpoints are published (the JAX package's CHECKPOINT_URL)
+CHECKPOINT_URL = "https://cloud.cp.jku.at/public.php/dav/files/7ik4RrBKTS273gp"
+
+
+def cache_dir() -> Path:
+    """Where downloaded checkpoints are kept: $BEAT_THIS_CACHE, else
+    ~/.cache/beat_this_tpu_torch."""
+    return Path(os.environ.get("BEAT_THIS_CACHE", Path.home() / ".cache" / "beat_this_tpu_torch"))
+
+
 def load_checkpoint(checkpoint_path) -> dict:
-    """Load a reference-format checkpoint dict from a local file. Released
-    checkpoints are not fetched by shortname or URL."""
-    if not os.path.isfile(checkpoint_path):
-        raise ValueError(
-            f"checkpoint {checkpoint_path!r} is not a local file (shortnames and "
-            "URLs are not supported by this package)"
-        )
-    return torch.load(checkpoint_path, map_location="cpu", weights_only=True)
+    """Load a reference-format checkpoint dict from a local path, a URL or a
+    released shortname, in the reference's order (beat_this/inference.py:
+    16-53): an existing file loads as it is; an http(s) URL downloads to
+    <cache>/<basename>; any other name is fetched from CHECKPOINT_URL as
+    <name>.ckpt and cached as beat_this-<name>.ckpt. A download is staged
+    through a .tmp file and renamed; a failed one raises ValueError and
+    caches nothing."""
+    path = Path(checkpoint_path)
+    if path.exists():
+        return torch.load(path, map_location="cpu", weights_only=True)
+    name = str(checkpoint_path)
+    if name.startswith(("http://", "https://")):
+        url, file_name = name, Path(name).name
+    else:
+        url, file_name = f"{CHECKPOINT_URL}/{name}.ckpt", f"beat_this-{name}.ckpt"
+    cached = cache_dir() / file_name
+    if not cached.exists():
+        import urllib.request
+
+        cached.parent.mkdir(parents=True, exist_ok=True)
+        tmp = cached.with_suffix(".tmp")
+        try:
+            urllib.request.urlretrieve(url, tmp)
+            tmp.rename(cached)
+        except Exception as exc:
+            tmp.unlink(missing_ok=True)
+            raise ValueError("Could not load the checkpoint given the provided name",
+                             checkpoint_path) from exc
+    return torch.load(cached, map_location="cpu", weights_only=True)
 
 
 def model_state_dict(checkpoint: dict) -> dict[str, torch.Tensor]:

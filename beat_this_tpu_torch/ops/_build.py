@@ -45,12 +45,12 @@ _SIGNATURES = {
     "bt_attn_train_bwd": [_I, _I] + [_P] * 26 + [_I, _I, _I] + _DROP + [_P],
     "bt_freq_train_fwd": [_I, _I] + [_P] * 14 + [_L, _I, _I] + _DROP + [_P],
     "bt_freq_train_bwd": [_I, _I] + [_P] * 26 + [_L, _I, _I, _I] + _DROP + [_P],
-    "bt_flash_fwd": [_I, _I] + [_P] * 7 + [_I, _I, _I] + _DROP + [_P],
-    "bt_flash_bwd": [_I, _I] + [_P] * 11 + [_I, _I, _I] + _DROP + [_P],
+    "bt_flash_fwd": [_I, _I] + [_P] * 7 + [_I, _I, _I] + _DROP + [_P, _P],
+    "bt_flash_bwd": [_I, _I] + [_P] * 11 + [_I, _I, _I] + _DROP + [_P, _P],
     "bt_small_attn_fwd": [_I, _I, _I] + [_P] * 6 + [_L, _I] + _DROP + [_P],
     "bt_small_attn_bwd": [_I, _I, _I] + [_P] * 9 + [_L, _I] + _DROP + [_P],
     # the ablation kernels of beat_this_tpu_torch/bench/
-    "bt_flash_ablate": [_I, _I, _I] + [_P] * 7 + [_I, _I, ctypes.c_float, _P],
+    "bt_flash_ablate": [_I, _I, _I] + [_P] * 7 + [_I, _I, ctypes.c_float, _P, _P],
     "bt_freq_ablate": [_I, _I, _I] + [_P] * 14 + [_L, _I, _I, _P],
     "bt_attn_variant": [_I, _I] + [_P] * 5 + [_I, _I, _I, _P],
     "bt_softmax_pass": [_I, _P, _P, _L, _I, _I, _P],

@@ -5,8 +5,11 @@ Counterpart of beat_this_tpu/ops/flash_attention.py:flash_attention, which
 `attention_block` takes for unmasked sequences of at least FLASH_MIN_SEQ
 frames when the fused time kernels decline the shape (a head width other
 than 32). On a CUDA tensor `flash_attention` launches the hand-written
-kernels in `csrc/flash_attention.cu` (an online softmax in base 2, never an
-(n, n) tensor in device memory); on a CPU tensor it runs the plain version
+kernels in `csrc/flash_attention.cu` (a softmax in base 2, never an (n, n)
+tensor in device memory; float32 online on the SIMT cores, bfloat16 on the
+tensor cores with each query's maximum score taken in a first walk over
+the keys, after a pre-pass that writes the rotated q and k to scratch this
+module allocates); on a CPU tensor it runs the plain version
 `flash_attention_ref`. It is differentiable: the forward saves q, k, v, o
 and the base-2 log-sum-exp per query, the backward is a query-major dq
 kernel and a key-major dk/dv kernel.
@@ -134,17 +137,27 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def rotation_scratch(q: torch.Tensor) -> Optional[torch.Tensor]:
+    """The bfloat16 kernels' scratch for the rotated q and k, (2, *q.shape);
+    None for float32, whose kernels rotate in place."""
+    if q.dtype != torch.bfloat16:
+        return None
+    return torch.empty((2, *q.shape), dtype=q.dtype, device=q.device)
+
+
 def _launch_fwd(q, k, v, cos, sin, rate, seed, heads, lse):
     code = check_qkv("flash_attention", q, k, v, cos, sin)
     bh, n, d = q.shape
     lib = _build.load_library()
     out = torch.empty_like(q)
+    scratch = rotation_scratch(q)
     with torch.cuda.device(q.device):
         _build.check(
             lib.bt_flash_fwd(
                 code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(cos), ptr(sin),
                 out.data_ptr(), ptr(lse), bh, n, heads,
-                *drop.kernel_args(rate, seed, drop.SALT_ATTN), stream_of(q),
+                *drop.kernel_args(rate, seed, drop.SALT_ATTN), ptr(scratch),
+                stream_of(q),
             ),
             "bt_flash_fwd",
         )
@@ -177,13 +190,14 @@ def flash_bwd(q, k, v, cos, sin, out, lse, dout, rate, seed, heads):
     delta = (dout.float() * out.float()).sum(-1)
     dout = aligned(dout.to(q.dtype))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    scratch = rotation_scratch(q)
     with torch.cuda.device(q.device):
         _build.check(
             lib.bt_flash_bwd(
                 code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(cos), ptr(sin),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), bh, n, heads, *drop.kernel_args(rate, seed, drop.SALT_ATTN),
-                stream_of(q),
+                ptr(scratch), stream_of(q),
             ),
             "bt_flash_bwd",
         )

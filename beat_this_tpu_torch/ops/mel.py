@@ -110,3 +110,31 @@ def log_mel_spectrogram(
     ).to(x.device)
     out = torch.log1p(c.log_multiplier * (mag @ fb))
     return out[0] if squeeze else out
+
+
+class LogMelSpect:
+    """Callable-class surface of `log_mel_spectrogram`, as the reference's
+    `beat_this.preprocessing.LogMelSpect` module (beat_this/preprocessing.py:
+    26-63) and beat_this_tpu/ops/mel.py:LogMelSpect: construct with the
+    spectrogram's parameters, call with a (num_samples,) or (batch,
+    num_samples) waveform (tensor or array), get (frames, n_mels) log-mel
+    values on `device` (CUDA unless the caller asks for the CPU).
+    `mel_scale`, `normalized` and `power` take only the reference's
+    defaults, the only values the model was trained with."""
+
+    def __init__(self, sample_rate=22050, n_fft=1024, hop_length=441, f_min=30, f_max=11000,
+                 n_mels=128, mel_scale="slaney", normalized="frame_length", power=1,
+                 log_multiplier=1000, device="cuda"):
+        if (mel_scale, normalized, power) != ("slaney", "frame_length", 1):
+            raise NotImplementedError(
+                "only the reference configuration is implemented: "
+                "mel_scale='slaney', normalized='frame_length', power=1"
+            )
+        self.device = torch.device(device)
+        self.config = LogMelConfig(
+            sample_rate=sample_rate, n_fft=n_fft, hop_length=hop_length, f_min=float(f_min),
+            f_max=float(f_max), n_mels=n_mels, log_multiplier=float(log_multiplier),
+        )
+
+    def __call__(self, waveform) -> torch.Tensor:
+        return log_mel_spectrogram(torch.as_tensor(waveform, device=self.device), self.config)

@@ -14,8 +14,9 @@ kernels by device time, grouped by the port's kernel families (B4/B5
 `fused_time_train.cu`, B6 `fused_freq.cu`, B7 `fused_freq_train.cu`, B8/B9
 `fused_ff_train.cu`, the shared partial sums; at `--head-dim 16`, where the
 fused attention kernels decline every block, B10/B11 `flash_attention.cu`
-and B12 `small_attention.cu`) and everything else (cuBLAS, cuDNN,
-elementwise, optimizer). Needs a CUDA device.
+(in bfloat16 with its rotation pre-pass) and B12 `small_attention.cu`) and
+everything else (cuBLAS, cuDNN, elementwise, optimizer). Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ FAMILIES = (
     ("ff_bwd_rows", "B9 ff_bwd_rows"),
     ("ff_wgrad", "B9 ff_wgrad"),
     ("sum_partials", "B5/B7/B9 sum_partials"),
+    ("rotate_kernel", "B10/B11 rotate (bf16 pre-pass)"),
     ("flash_fwd", "B10 flash_fwd"),
     ("flash_dq", "B11 flash_dq"),
     ("flash_dkv", "B11 flash_dkv"),

@@ -7,7 +7,9 @@ Phases, each printing its lines and its seconds; any failure exits
 non-zero without the final `"ok": true` line:
 
 1. environment: GPU name and power limit, torch / CUDA / nvcc versions;
-2. build: compiles the CUDA kernels from this checkout's sources;
+2. build: compiles the CUDA kernels from this checkout's sources, and
+   checks with `cuobjdump -sass` that every bfloat16 instantiation of the
+   flash kernels (forward, dq, dk/dv) holds tensor-core HMMA instructions;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes, in float32 (TF32 off, relative max
    deviation <= 1e-3) and bfloat16 (< 2.5e-2), with median times and the
@@ -23,7 +25,8 @@ non-zero without the final `"ok": true` line:
    configuration on (entries, seq, 16): flash_attention without lse and
    small_attention's forward at an eval batch of 3 chunks, flash_attention
    with lse and its backward and small_attention forward and backward
-   (output, dq, dk, dv) at a training microbatch of 8 crops; beside them
+   (output, dq, dk, dv) at a training microbatch of 8 crops, flash_attention
+   with lse and its backward also at head_dim 32 (512, 1536, 32); beside them
    the time of one `scaled_dot_product_attention` call on rotated q and k
    (a yardstick for the table, on no path). The eval kernels, the
    attention branch and the feed-forward also at C 256 and 384 (the widths
@@ -164,6 +167,8 @@ EVAL_CHUNKS, TRAIN_CROPS = 3, 8
 # launch, and the flash forward's (entries, seq, head_dim)
 ABLATE_BATCH = 16
 ABLATE_FLASH = (512, 1536, 32)
+# bfloat16 instantiations of the tensor-core flash kernels in the library
+FLASH_TC_KERNELS = {"flash_fwd_kernel": 8, "flash_dq_kernel": 2, "flash_dkv_kernel": 2}
 DEVICE = "cuda"
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): float32 outside
 # the tensor cores, bfloat16 on them, and the HBM3 rate
@@ -273,6 +278,24 @@ def phase_environment() -> str:
 # -- phase 2 -----------------------------------------------------------------
 
 
+def sass_hmma_counts(lib: Path) -> dict:
+    """HMMA (tensor-core product) instructions per compiled function of the
+    kernel library, by its mangled name, from `cuobjdump -sass`."""
+    from beat_this_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 def phase_build() -> None:
     from beat_this_tpu_torch.ops import _build
 
@@ -285,6 +308,19 @@ def phase_build() -> None:
         for line in log.read_text().splitlines():
             if "spill" in line and not line.strip().endswith("0 bytes spill loads"):
                 print(f"[build] ptxas: {line.strip()}")
+    # the bfloat16 flash kernels run on the tensor cores: every instantiation
+    # (the forward's four modes at D 16 and 32, dq and dk/dv at both) holds
+    # HMMA instructions
+    counts = sass_hmma_counts(path)
+    for kernel, expect in FLASH_TC_KERNELS.items():
+        found = {name: n for name, n in counts.items()
+                 if kernel in name and "__nv_bfloat16" in name}
+        f32 = [n for name, n in counts.items() if kernel in name and "__nv_bfloat16" not in name]
+        print(f"[build] HMMA per bfloat16 instantiation of {kernel}: "
+              f"{sorted(found.values())}; float32 (SIMT) instantiations: {f32}")
+        check(len(found) == expect and all(n > 0 for n in found.values()),
+              f"{kernel}: {len(found)} bfloat16 instantiations (expected {expect}), HMMA "
+              f"counts {found}")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -894,6 +930,9 @@ def attention_cases():
         for rate in rates:
             yield (("flash_attention_fwd_lse", "flash_attention_bwd"), *flash,
                    (per_crop * TRAIN_CROPS, seq, H16), heads, rate, True)
+    for rate in (0.0, 0.1):  # head_dim 32 at the flash ablation's shape
+        yield (("flash_attention_fwd_lse", "flash_attention_bwd"), *flash, ABLATE_FLASH, 1, rate,
+               True)
     for per_crop, seq, heads in H16_SMALL:
         for rate in (0.0, 0.1):
             yield (("small_attention_fwd", "small_attention_bwd"), *small,

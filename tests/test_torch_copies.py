@@ -2,13 +2,14 @@
 results identical to their originals on the same inputs: audio loading and
 resampling, the beat TSV writer, the metrics, the checkpoint key maps, the
 click corpus writer, the training batches of the data module and the DBN
-decoder's state-space construction."""
+decoder's state-space construction; and the checkpoint release host."""
 
 import jax
 import numpy as np
 import pytest
 
 import beat_this_tpu.data as jax_data
+import beat_this_tpu.inference as jax_inference
 import beat_this_tpu.io.audio as jax_audio
 import beat_this_tpu.io.torch_ckpt as jax_keys
 import beat_this_tpu.metrics as jax_metrics
@@ -19,7 +20,7 @@ from beat_this_tpu.data.synth import write_click_corpus as jax_write_click_corpu
 from beat_this_tpu.model import BeatThisConfig, init_beat_this
 from beat_this_tpu_torch import data, metrics, utils
 from beat_this_tpu_torch.data.synth import write_click_corpus
-from beat_this_tpu_torch.io import audio, keys
+from beat_this_tpu_torch.io import audio, checkpoint, keys
 from beat_this_tpu_torch.ops import resample
 from beat_this_tpu_torch.postprocessing import dbn
 
@@ -152,3 +153,7 @@ def test_dbn_state_space_matches(num_beats, fps, bpm, lam):
         b = jax_dbn.threshold_activations(act, threshold)
         assert np.array_equal(a[0], b[0]) and a[1] == b[1]
 
+
+def test_checkpoint_url_matches():
+    """The release host the port fetches shortnames from is the JAX package's."""
+    assert checkpoint.CHECKPOINT_URL == jax_inference.CHECKPOINT_URL

@@ -302,6 +302,26 @@ def test_flash_attention(device, dtype, tol, rate, n, d, bh, heads, rope):
     assert torch.equal(out, got[0])
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("heads,rope", [(1, True), (1, False), (2, True), (2, False)])
+@pytest.mark.parametrize("n", [1, 17, 63, 64, 65, 1500])
+@pytest.mark.parametrize("d", [16, 32])
+def test_flash_attention_bf16_tensor_cores(device, d, n, heads, rope, rate):
+    """The bfloat16 kernels (tensor cores): B10 with lse and B11 (output, dq,
+    dk, dv), then B10 without lse (the same output bits), against
+    flash_attention_ref within 2.5e-2, at lengths around the 64-row tiles and
+    the model's 1500."""
+    cos, sin = rope_tables(n, d, device) if rope else (None, None)
+    shape = (2 * heads, n, d)
+    got = _compare_qkv(
+        lambda q, k, v: flash_ops.flash_attention(q, k, v, cos, sin, rate, 5, heads),
+        lambda q, k, v: flash_ops.flash_attention_ref(q, k, v, cos, sin, rate, 5, heads),
+        shape, torch.bfloat16, 2.5e-2, device, 7 * n + d)
+    q, k, v = (_x(shape, torch.bfloat16, device, 7 * n + d + i) for i in range(3))
+    with torch.no_grad():
+        assert torch.equal(flash_ops.flash_attention(q, k, v, cos, sin, rate, 5, heads), got[0])
+
+
 @pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("f,d,items,heads", [(32, 16, 5, 1), (16, 16, 37, 2), (8, 16, 301, 4),
@@ -326,12 +346,13 @@ def test_small_attention_without_tables(device):
                  (40, 16, 16), torch.float32, 1e-4, device, 3)
 
 
-@pytest.mark.parametrize("name", ["flash", "small"])
+@pytest.mark.parametrize("name", ["flash", "small", "flash32"])
 def test_attention_backward_is_deterministic(device, name):
     """Two backward runs give the same bits (dk and dv by a key-major pass,
     no float atomics)."""
-    if name == "flash":
-        shape, (cos, sin) = (4, 700, 16), rope_tables(700, 16, device)
+    if name.startswith("flash"):
+        d = 32 if name == "flash32" else 16
+        shape, (cos, sin) = (4, 700, d), rope_tables(700, d, device)
         fn = lambda q, k, v: flash_ops.flash_attention(q, k, v, cos, sin, 0.2, 3, 2)  # noqa: E731
     else:
         shape, (cos, sin) = (500, 16, 16), rope_tables(16, 16, device)
