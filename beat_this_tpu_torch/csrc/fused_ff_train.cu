@@ -5,33 +5,48 @@
 //
 // Replaces beat_this_tpu/ops/fused_ff.py:_ff_train_kernel (forward, reached
 // through _fused_ff_train) and :_ff_train_bwd_kernel (backward, through
-// _fused_ff_train_bwd). On the TPU the backward accumulates the weight
-// gradients across its sequential grid; here blocks run in parallel, so the
-// backward is three launches and no float atomics:
+// _fused_ff_train_bwd).
 //
-//   1. ff_bwd_rows:  per 32-row tile, recompute the forward hidden layer
-//                    64 units at a time, pull d_y back through W2, the hidden
-//                    mask and the GELU, and accumulate d_g = d_pre1 W1 in
-//                    registers; then dx = dout + rmsnorm'(d_g), and per-tile
-//                    partials of dgamma and db2.
-//   2. ff_wgrad:     per (32 hidden units, group of row tiles), recompute
-//                    pre1, h1 and d_pre1 for those units and accumulate
-//                    dW1 = d_pre1^T g and dW2 = d_y^T h1 over the group's rows
-//                    in registers, and db1; one partial per group.
-//   3. sum_partials: sum the per-tile and per-group partials in a fixed
-//                    order, so two runs give the same bits.
+// The forward (B8) streams the hidden layer 64 units at a time through
+// bt::ff_tail (SIMT float32 FMAs), so it never reaches device memory.
 //
-// The (rows, 4C) hidden activations never reach device memory, in either
-// pass; the price is recomputing the forward products (the backward does
-// about 3.5x the forward's multiply-adds).
+// The backward (B9) does the TPU kernel's five products, once each, on the
+// tensor cores (mma.sync m16n8k16, bf16 operands, float32 accumulators,
+// mma.cuh). The TPU kernel sums the weight gradients across its sequential
+// grid; here blocks run in parallel, so the backward writes its hidden-width
+// operands to scratch and takes the weight gradients as products over the
+// rows:
+//   1. weights:  W1, W1^T and W2 as bf16 operands;
+//   2. pre:      per 128 rows, the row norms, g = round_T(rmsnorm(x) gamma)
+//                and d_y = round_T(dout * output mask) as bf16 operands, and
+//                the tile's column sums of the unrounded d_y (db2);
+//   3. hidden:   per (128 rows, 64 hidden units), pre1 = g W1^T and d_h1 =
+//                d_y W2 on one tile; its epilogue draws the hidden mask once
+//                and writes h1d = round_T(gelu(pre1 + b1) f) and d_pre1 =
+//                round_T(d_h1 f gelu'(pre1 + b1)) to scratch, with the tile's
+//                column sums of the unrounded d_pre1 (db1);
+//   4. d_g = d_pre1 W1 (float32, scratch);
+//   5. post:     per 128 rows, dx = dout + rmsnorm'(d_g) and the tile's
+//                column sums for dgamma;
+//   6. dW1 = d_pre1^T g and dW2 = d_y^T h1d, over groups of rows (one
+//      float32 partial per group);
+//   7. the per-tile and per-group partials summed in a fixed order, in one
+//      launch (column_sums_kernel), so two runs give the same bits (no
+//      float atomics).
+// float32 runs every product as three bf16 products of split operands (a =
+// a_hi + a_lo, both bf16: a_hi b_hi + a_hi b_lo + a_lo b_hi), about 16
+// significant bits against plain TF32's 11; the scratch then holds both
+// parts of each operand. Scratch at C 512 and 12000 rows: 0.20 GB in bf16,
+// 0.33 GB in float32; at the frontend's widths up to 0.33 / 0.58 GB
+// (Layout; the wrapper asks bt_ff_train_bwd_scratch for the size).
 //
-// Bound on the H100: arithmetic. At C = 512, M = 2048 every row costs 2 C M
-// multiply-adds in the forward and about 7 C M in the backward, against
-// 4 C activation values read or written. Products are float32 FMAs on the
-// SIMT cores, as in fused_ff.cu; bfloat16 values are widened on load and
-// rounded where the TPU kernel rounds (g, the dropped hidden layer, d_y and
-// d_pre1 before their products).
+// Bound on the H100: arithmetic at C 512 (five products of 2 rows C 4C
+// FLOPs against about 4 C values of each row read or written); at the
+// frontend's C 32-128 the bytes of the scratch operands bound it.
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace bt {
 namespace {
@@ -59,8 +74,6 @@ cudaError_t sum_partials(const float* part, float* out, int parts, int64_t n,
 
 namespace {
 
-constexpr int kWChunk = 32;  // hidden units per weight-gradient block
-
 template <int C, typename T>
 __global__ void __launch_bounds__(bt::kThreads)
     ff_train_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
@@ -76,191 +89,645 @@ __global__ void __launch_bounds__(bt::kThreads)
                     nrows, drop);
 }
 
-template <int C>
-__host__ __device__ constexpr int rows_smem_floats() {
-  return 2 * bt::kRows * bt::tile_ld(C) + bt::kRows * (bt::kHid + 1) +
-         bt::stage_floats(C > bt::kHid ? C : bt::kHid) + bt::kRows;
+// -- backward ------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTM = 128;    // rows of a product block (M side); rows of a row-pass block
+constexpr int kTK = 32;     // depth of a staged tile
+constexpr int kStages = 3;  // staged tiles in flight (cp.async ring)
+constexpr int kHidN = 64;   // hidden units per block of the hidden pass
+constexpr int kAlign = 256; // scratch sections start on multiples of this many bytes
+
+// A bf16 matrix operand with row stride `ld`; its lo part (value - hi,
+// rounded to bf16) lies `lo` elements after the hi part (split products).
+struct Operand {
+  const bf16* p;
+  int64_t ld, lo;
+};
+
+// bf16 elements of one staged tile. A is staged [m][k] (k contiguous) or,
+// with AM, [k][m]; B always [k][n]. The 8-element pad puts the 8 rows an
+// ldmatrix reads in 8 different bank groups.
+template <bool AM> __host__ __device__ constexpr int a_tile() {
+  return AM ? kTK * (kTM + 8) : kTM * (kTK + 8);
+}
+template <int BN> __host__ __device__ constexpr int b_tile() { return kTK * (BN + 8); }
+template <bool AM, int BN, bool SPLIT> __host__ __device__ constexpr int stage_elems() {
+  return (SPLIT ? 2 : 1) * (a_tile<AM>() + b_tile<BN>());
+}
+template <bool AM, int BN, bool SPLIT> constexpr size_t product_smem() {
+  return sizeof(bf16) * kStages * stage_elems<AM, BN, SPLIT>();
 }
 
-template <int C, typename T>
-__global__ void __launch_bounds__(bt::kThreads)
-    ff_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                       const T* __restrict__ w1, const float* __restrict__ b1,
-                       const T* __restrict__ w2, const T* __restrict__ dout,
-                       T* __restrict__ dx, float* __restrict__ db2p, float* __restrict__ dgp,
-                       int64_t rows, int M, bt::Dropout drop) {
-  constexpr int ld = bt::tile_ld(C), hld = bt::kHid + 1;
-  extern __shared__ float smem[];
-  float* gt = smem;                // round_T(g), later dgamma's products
-  float* dy = gt + bt::kRows * ld;  // round_T(dout * output mask)
-  float* h = dy + bt::kRows * ld;   // one chunk of round_T(d_pre1)
-  float* ws = h + bt::kRows * hld;
-  float* rn = ws + bt::stage_floats(C > bt::kHid ? C : bt::kHid);  // row norms
-  const int tid = threadIdx.x, cp = tid & 15, rg = tid >> 4;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int64_t row0 = (int64_t)blockIdx.x * bt::kRows;
-  const int nrows = bt::tile_rows(rows, row0);
-  const float sc = sqrtf((float)C);
-
-  bt::load_rows<C, T>(x, gt, row0, nrows);
-  for (int r = warp; r < bt::kRows; r += bt::kThreads / 32) {
-    float ss = 0.f;
-    for (int c = lane; c < C; c += 32) ss += gt[r * ld + c] * gt[r * ld + c];
+// Stage depth [k0, k0 + kTK) of A's rows [m0, m0 + kTM) and of B's columns
+// [n0, n0 + BN) into `st` by cp.async, zeros at m >= m_end, n >= n_end or
+// k >= k_end. Bounds along a contiguous axis are multiples of 8.
+template <bool AM, int BN, bool SPLIT>
+__device__ __forceinline__ void stage(bf16* st, const Operand& A, const Operand& B, int64_t m0,
+                                      int n0, int64_t k0, int64_t m_end, int n_end,
+                                      int64_t k_end) {
+  constexpr int P = SPLIT ? 2 : 1;
 #pragma unroll
-    for (int o = 16; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    const float nrm = fmaxf(sqrtf(ss), 1e-12f);
-    if (lane == 0) rn[r] = nrm;
-    for (int c = lane; c < C; c += 32)
-      gt[r * ld + c] = bt::round_to<T>(gt[r * ld + c] / nrm * sc * gamma[c]);
+  for (int p = 0; p < P; ++p) {
+    bf16* as = st + p * a_tile<AM>();
+    const bf16* ap = A.p + p * A.lo;
+    if constexpr (AM) {
+      constexpr int CH = kTM / 8;
+      for (int e = threadIdx.x; e < kTK * CH; e += bt::kThreads) {
+        const int r = e / CH, c = e % CH;
+        const int64_t k = k0 + r, m = m0 + 8 * c;
+        const bool ok = k < k_end && m < m_end;
+        bt::cp_async16(as + r * (kTM + 8) + 8 * c, ap + (ok ? k * A.ld + m : 0), ok);
+      }
+    } else {
+      constexpr int CH = kTK / 8;
+      for (int e = threadIdx.x; e < kTM * CH; e += bt::kThreads) {
+        const int r = e / CH, c = e % CH;
+        const int64_t m = m0 + r, k = k0 + 8 * c;
+        const bool ok = m < m_end && k < k_end;
+        bt::cp_async16(as + r * (kTK + 8) + 8 * c, ap + (ok ? m * A.ld + k : 0), ok);
+      }
+    }
   }
-  bt::load_dy<C, T>(dout, dy, row0, nrows, drop, db2p + blockIdx.x * (int64_t)C);
+  bf16* bs = st + P * a_tile<AM>();
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    constexpr int CH = BN / 8;
+    const bf16* bp = B.p + p * B.lo;
+    for (int e = threadIdx.x; e < kTK * CH; e += bt::kThreads) {
+      const int r = e / CH, c = e % CH;
+      const int64_t k = k0 + r;
+      const int n = n0 + 8 * c;
+      const bool ok = k < k_end && n < n_end;
+      bt::cp_async16(bs + p * b_tile<BN>() + r * (BN + 8) + 8 * c, bp + (ok ? k * B.ld + n : 0),
+                     ok);
+    }
+  }
+}
 
-  float acc[2][C / 16];
-  bt::zero(acc);
-  for (int j0 = 0; j0 < M; j0 += bt::kHid) {
-    float hacc[2][bt::kHid / 16], dacc[2][bt::kHid / 16];
-    bt::zero(hacc);
-    bt::zero(dacc);
-    bt::mm_acc<bt::kHid, T>(hacc, gt, ld, w1, C, j0, C, ws);
-    bt::mm_acc_t<bt::kHid, T>(dacc, dy, ld, w2, M, j0, C, ws);
+// acc += the block's staged A tile times its B tile. The 8 warps are 4 (m)
+// x 2 (n): warp w owns rows 32 (w % 4) .. + 31 and columns BN / 2 (w / 4)
+// .. + BN / 2 - 1; acc[mi][j] is the C fragment of rows 16 mi .. + 15 and
+// columns 8 j .. + 7 of that.
+template <bool AM, int BN, bool SPLIT>
+__device__ __forceinline__ void mma_stage(float (&acc)[2][BN / 16][4], const bf16* st) {
+  constexpr int P = SPLIT ? 2 : 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = 32 * (warp & 3), wn = (BN / 2) * (warp >> 2);
+  const bf16* bs = st + P * a_tile<AM>();
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int kk = 0; kk < kTK / 16; ++kk) {
+    uint32_t a[P][2][4];
 #pragma unroll
-      for (int j = 0; j < bt::kHid / 32; ++j) {
-        const int r = rg + 16 * i, c0 = j0 + 2 * cp + 32 * j;
-        float f[4];
-        bt::keep4(drop, bt::kSiteFFHidden, 0, 0, (uint32_t)(row0 + r), c0 >> 2, f);
+    for (int p = 0; p < P; ++p)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pre = hacc[i][2 * j + e] + b1[c0 + e];
-          const float d = dacc[i][2 * j + e] * f[(c0 & 3) + e] * bt::gelu_grad(pre);
-          h[r * hld + c0 - j0 + e] = bt::round_to<T>(d);
+      for (int mi = 0; mi < 2; ++mi) {
+        const bf16* as = st + p * a_tile<AM>();
+        if constexpr (AM)
+          bt::ldsm_x4_t(a[p][mi], as + (16 * kk + (lane & 7) + 8 * (lane >> 4)) * (kTM + 8) +
+                                      wm + 16 * mi + 8 * ((lane >> 3) & 1));
+        else
+          bt::ldsm_x4(a[p][mi],
+                      as + (wm + 16 * mi + (lane & 15)) * (kTK + 8) + 16 * kk + 8 * (lane >> 4));
+      }
+#pragma unroll
+    for (int nb = 0; nb < BN / 32; ++nb) {
+      uint32_t b[P][4];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        bt::ldsm_x4_t(b[p], bs + p * b_tile<BN>() +
+                                (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * (BN + 8) + wn +
+                                16 * nb + 8 * (lane >> 4));
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float(&c)[4] = acc[mi][2 * nb + h];
+          if constexpr (SPLIT) {
+            bt::mma_bf16(c, a[1][mi], b[0][2 * h], b[0][2 * h + 1]);
+            bt::mma_bf16(c, a[0][mi], b[1][2 * h], b[1][2 * h + 1]);
+          }
+          bt::mma_bf16(c, a[0][mi], b[0][2 * h], b[0][2 * h + 1]);
+        }
+    }
+  }
+}
+
+// acc = A[m0 .. m0 + kTM) B[:, n0 .. n0 + BN) over depth [k_begin, k_end),
+// through a kStages-deep cp.async ring in `smem`. Ends with a barrier, so
+// `smem` is free again.
+template <bool AM, int BN, bool SPLIT>
+__device__ __forceinline__ void product(float (&acc)[2][BN / 16][4], const Operand& A,
+                                        const Operand& B, int64_t m0, int n0, int64_t k_begin,
+                                        int64_t k_end, int64_t m_end, int n_end, bf16* smem) {
+  constexpr int S = stage_elems<AM, BN, SPLIT>();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
+  const int nk = k_end > k_begin ? (int)((k_end - k_begin + kTK - 1) / kTK) : 0;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk)
+      stage<AM, BN, SPLIT>(smem + s * S, A, B, m0, n0, k_begin + (int64_t)s * kTK, m_end, n_end,
+                           k_end);
+    bt::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    bt::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nx = kt + kStages - 1;
+    if (nx < nk)
+      stage<AM, BN, SPLIT>(smem + (nx % kStages) * S, A, B, m0, n0, k_begin + (int64_t)nx * kTK,
+                           m_end, n_end, k_end);
+    bt::cp_async_commit();
+    mma_stage<AM, BN, SPLIT>(acc, smem + (kt % kStages) * S);
+  }
+  bt::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// out (+ blockIdx.z * out_step) = A B over the depth slice [z k_per,
+// min((z + 1) k_per, k_end)) of z = blockIdx.z, for A (m_end x K) and B
+// (K x n_end); element (m, n) at out[m * ldo + n], or with trans_out at
+// out[n * ldo + m].
+template <bool AM, int BN, bool SPLIT>
+__global__ void __launch_bounds__(bt::kThreads)
+    ff_product_kernel(Operand A, Operand B, float* __restrict__ out, int64_t ldo,
+                      int64_t out_step, int trans_out, int64_t m_end, int n_end, int64_t k_end,
+                      int64_t k_per) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int64_t m0 = (int64_t)blockIdx.y * kTM, k0 = (int64_t)blockIdx.z * k_per;
+  const int n0 = blockIdx.x * BN;
+  float acc[2][BN / 16][4];
+  product<AM, BN, SPLIT>(acc, A, B, m0, n0, k0, min(k0 + k_per, k_end), m_end, n_end,
+                         reinterpret_cast<bf16*>(smem_b));
+  out += blockIdx.z * out_step;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = 32 * (warp & 3), wn = (BN / 2) * (warp >> 2);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t m = m0 + wm + 16 * mi + (lane >> 2) + 8 * h;
+        const int n = n0 + wn + 8 * j + 2 * (lane & 3);
+        if (m >= m_end || n >= n_end) continue;
+        const float v0 = acc[mi][j][2 * h], v1 = acc[mi][j][2 * h + 1];
+        if (trans_out) {
+          out[n * ldo + m] = v0;
+          out[(n + 1) * ldo + m] = v1;
+        } else {
+          *reinterpret_cast<float2*>(out + m * ldo + n) = make_float2(v0, v1);
         }
       }
-    __syncthreads();
-    bt::mm_acc_t<C, T>(acc, h, hld, w1 + (size_t)j0 * C, C, 0, bt::kHid, ws);
-  }
+}
 
-  // acc holds d_g. dx = dout + (w - n (n . w)) / r with w = d_g gamma sqrt(C)
-  // and n = x / r; rows rg and rg + 16 are spread over the 16 threads of a
-  // half warp.
-  float s[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = rg + 16 * i;
-#pragma unroll
-    for (int j = 0; j < C / 32; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 2 * cp + 32 * j + e;
-        const float n = r < nrows ? bt::to_f(x[(row0 + r) * C + col]) / rn[r] : 0.f;
-        s[i] += n * acc[i][2 * j + e] * gamma[col] * sc;
-        gt[r * ld + col] = acc[i][2 * j + e] * n * sc;
-      }
-#pragma unroll
-    for (int o = 8; o; o >>= 1) s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = rg + 16 * i;
-    if (r >= nrows) continue;
-#pragma unroll
-    for (int j = 0; j < C / 32; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 2 * cp + 32 * j + e;
-        const int64_t at = (row0 + r) * C + col;
-        const float n = bt::to_f(x[at]) / rn[r];
-        const float w = acc[i][2 * j + e] * gamma[col] * sc;
-        dx[at] = bt::from_f<T>(bt::to_f(dout[at]) + (w - n * s[i]) / rn[r]);
-      }
-  }
-  __syncthreads();
-  for (int c = tid; c < C; c += bt::kThreads) {
-    float sum = 0.f;
-    for (int r = 0; r < bt::kRows; ++r) sum += gt[r * ld + c];
-    dgp[blockIdx.x * (int64_t)C + c] = sum;
+// v0, v1 as bf16 at p[0], p[1] (round to nearest even, which is round_T for
+// bf16); with SPLIT also their remainders v - hi at p[lo], p[lo + 1].
+template <bool SPLIT>
+__device__ __forceinline__ void store2(bf16* p, int64_t lo, float v0, float v1) {
+  const uint32_t hi = bt::pack_bf16(v0, v1);
+  *reinterpret_cast<uint32_t*>(p) = hi;
+  if constexpr (SPLIT) {
+    const float2 h = bt::unpack_bf16(hi);
+    *reinterpret_cast<uint32_t*>(p + lo) = bt::pack_bf16(v0 - h.x, v1 - h.y);
   }
 }
 
+template <bool SPLIT>
+__device__ __forceinline__ void store4(bf16* p, int64_t lo, const float (&v)[4]) {
+  store2<SPLIT>(p, lo, v[0], v[1]);
+  store2<SPLIT>(p + 2, lo, v[2], v[3]);
+}
+
+// Keep factors of the FF hidden site for this lane's columns col8 + 2t,
+// col8 + 2t + 1 (t = lane % 4) in rows `row` (f[0]) and row + 8 (f[1]). A
+// 4-column Philox group spans lanes t = 2u and 2u + 1: the even lane draws
+// row `row`'s group, the odd lane row + 8's, and they trade by one shuffle,
+// so every group is drawn once. Every lane of the warp must call it.
+__device__ __forceinline__ void hidden_keep(const bt::Dropout& d, int64_t row, int col8,
+                                            float (&f)[2][2]) {
+  if (!d.on) {
+    f[0][0] = f[0][1] = f[1][0] = f[1][1] = 1.f;
+    return;
+  }
+  const int t = threadIdx.x & 3, odd = t & 1;
+  const uint4 b = bt::philox4x32_10(
+      make_uint4((uint32_t)(col8 >> 2) + (t >> 1), (uint32_t)(row + 8 * odd), 0u,
+                 bt::kSiteFFHidden << 16),
+      d.seed, d.salt);
+  const uint32_t mine = (uint32_t)(b.x < d.thr) | ((uint32_t)(b.y < d.thr) << 1) |
+                        ((uint32_t)(b.z < d.thr) << 2) | ((uint32_t)(b.w < d.thr) << 3);
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+  const uint32_t r0 = odd ? other : mine, r1 = odd ? mine : other;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    f[0][e] = (r0 >> (2 * odd + e)) & 1u ? d.scale : 0.f;
+    f[1][e] = (r1 >> (2 * odd + e)) & 1u ? d.scale : 0.f;
+  }
+}
+
+// The hidden pass over rows [m0, m0 + kTM) and hidden units [n0, n0 +
+// kHidN): pre1 = g W1^T + b1 and d_h1 = d_y W2 on the tensor cores, then
+// h1d = round_T(gelu(pre1) f) and d_pre1 = d_h1 f gelu'(pre1) for the hidden
+// keep factors f; writes h1d and round_T(d_pre1) (M columns, bf16 parts
+// `lo` apart) and the tile's column sums of the unrounded d_pre1 (db1).
+template <bool SPLIT>
+__global__ void __launch_bounds__(bt::kThreads)
+    ff_hidden_kernel(Operand G, Operand W1t, Operand DY, Operand W2, const float* __restrict__ b1,
+                     bf16* __restrict__ dp, bf16* __restrict__ h1d, int64_t lo,
+                     float* __restrict__ db1p, int64_t rows, int M, int C, bt::Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_b);
+  constexpr int NJ = kHidN / 16;
+  const int64_t m0 = (int64_t)blockIdx.y * kTM;
+  const int n0 = blockIdx.x * kHidN;
+  float pre[2][NJ][4], dh[2][NJ][4];
+  product<false, kHidN, SPLIT>(pre, G, W1t, m0, n0, 0, C, rows, M, smem);
+  product<false, kHidN, SPLIT>(dh, DY, W2, m0, n0, 0, C, rows, M, smem);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = 32 * (warp & 3), wn = (kHidN / 2) * (warp >> 2);
+  float colsum[NJ][2] = {};
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int64_t row = m0 + wm + 16 * mi + (lane >> 2);
+      const int col = n0 + wn + 8 * j + 2 * (lane & 3);
+      float f[2][2];
+      hidden_keep(drop, row, n0 + wn + 8 * j, f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t r = row + 8 * h;
+        float hv[2], dv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = pre[mi][j][2 * h + e] + b1[col + e];
+          hv[e] = bt::gelu_exact(p) * f[h][e];
+          dv[e] = r < rows ? dh[mi][j][2 * h + e] * f[h][e] * bt::gelu_grad(p) : 0.f;
+          colsum[j][e] += dv[e];
+        }
+        if (r < rows) {
+          store2<SPLIT>(h1d + r * M + col, lo, hv[0], hv[1]);
+          store2<SPLIT>(dp + r * M + col, lo, dv[0], dv[1]);
+        }
+      }
+    }
+  // column sums: over the 8 row groups of a warp, then over the 4 warps of a
+  // column half, in a fixed order
+  float* red = reinterpret_cast<float*>(smem_b);  // [4][kHidN]
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = colsum[j][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) red[(warp & 3) * kHidN + wn + 8 * j + 2 * lane + e] = v;
+    }
+  __syncthreads();
+  if (threadIdx.x < kHidN) {
+    const int c = threadIdx.x;
+    db1p[blockIdx.y * (int64_t)M + n0 + c] =
+        red[c] + red[kHidN + c] + red[2 * kHidN + c] + red[3 * kHidN + c];
+  }
+}
+
+// Row passes: a block covers kTM rows with 8 warps. A row takes L = min(32,
+// C / 4) lanes, each over NG = C / (4 L) groups of 4 columns (q + L i for
+// lane q of the row); a warp covers 32 / L rows at once.
+template <int C> struct RowMap {
+  static constexpr int L = C / 4 < 32 ? C / 4 : 32, NG = C / (4 * L), RPW = 32 / L;
+};
+
+template <typename T> __device__ __forceinline__ void load4(const T* p, float (&v)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = bt::to_f(p[e]);
+}
+
+// Each lane's per-column sums acc (its NG groups of 4 columns) summed over
+// the rows of the block into part[0 .. C), in a fixed order: over the lanes
+// of one column group in a warp, then over the 8 warps. red: 8 C floats of
+// shared memory.
 template <int C>
-__host__ __device__ constexpr int wgrad_smem_floats() {
-  return 2 * bt::kRows * bt::tile_ld(C) + 3 * bt::kRows * (kWChunk + 1) +
-         bt::stage_floats(kWChunk);
+__device__ __forceinline__ void block_column_sums(float (&acc)[RowMap<C>::NG][4], float* red,
+                                                  float* __restrict__ part) {
+  using RM = RowMap<C>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q = lane % RM::L;
+#pragma unroll
+  for (int i = 0; i < RM::NG; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = acc[i][e];
+#pragma unroll
+      for (int o = RM::L; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane < RM::L) red[warp * C + 4 * (q + RM::L * i) + e] = v;
+    }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += bt::kThreads) {
+    float s = 0.f;
+    for (int w = 0; w < 8; ++w) s += red[w * C + c];
+    part[c] = s;
+  }
+}
+
+// Before the products: each row's clamped norm rn, g = round_T(rmsnorm(x)
+// gamma) and d_y = round_T(dout * output mask) as bf16 operands (parts `lo`
+// apart), and the block's column sums of the unrounded d_y (db2).
+template <int C, typename T>
+__global__ void __launch_bounds__(bt::kThreads)
+    ff_bwd_pre_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                      const T* __restrict__ dout, float* __restrict__ rn, bf16* __restrict__ g,
+                      bf16* __restrict__ dy, int64_t lo, float* __restrict__ db2p, int64_t rows,
+                      bt::Dropout drop) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  using RM = RowMap<C>;
+  __shared__ float red[8 * C];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q = lane % RM::L;
+  const float sc = sqrtf((float)C);
+  float acc[RM::NG][4] = {};
+  for (int rr = warp * RM::RPW + lane / RM::L; rr < kTM; rr += 8 * RM::RPW) {
+    const int64_t r = (int64_t)blockIdx.x * kTM + rr;
+    const bool ok = r < rows;
+    float xv[RM::NG][4];
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < RM::NG; ++i) {
+      if (ok)
+        load4(x + r * C + 4 * (q + RM::L * i), xv[i]);
+      else
+        xv[i][0] = xv[i][1] = xv[i][2] = xv[i][3] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ss += xv[i][e] * xv[i][e];
+    }
+#pragma unroll
+    for (int o = RM::L / 2; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (!ok) continue;
+    const float nrm = fmaxf(sqrtf(ss), 1e-12f);
+    if (q == 0) rn[r] = nrm;
+#pragma unroll
+    for (int i = 0; i < RM::NG; ++i) {
+      const int col = 4 * (q + RM::L * i);
+      float gv[4], dv[4], f[4];
+      load4(dout + r * C + col, dv);
+      bt::keep4(drop, bt::kSiteFFOut, 0, 0, (uint32_t)r, col >> 2, f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        gv[e] = xv[i][e] / nrm * sc * gamma[col + e];
+        dv[e] *= f[e];
+        acc[i][e] += dv[e];
+      }
+      store4<SPLIT>(g + r * C + col, lo, gv);
+      store4<SPLIT>(dy + r * C + col, lo, dv);
+    }
+  }
+  block_column_sums<C>(acc, red, db2p + blockIdx.x * (int64_t)C);
+}
+
+// After d_g = d_pre1 W1: dx = dout + (w - n (n . w)) / rn with w = d_g gamma
+// sqrt(C) and n = x / rn, and the block's column sums of d_g n sqrt(C)
+// (dgamma).
+template <int C, typename T>
+__global__ void __launch_bounds__(bt::kThreads)
+    ff_bwd_post_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                       const T* __restrict__ dout, const float* __restrict__ rn,
+                       const float* __restrict__ dg, T* __restrict__ dx, float* __restrict__ dgp,
+                       int64_t rows) {
+  using RM = RowMap<C>;
+  __shared__ float red[8 * C];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q = lane % RM::L;
+  const float sc = sqrtf((float)C);
+  float acc[RM::NG][4] = {};
+  for (int rr = warp * RM::RPW + lane / RM::L; rr < kTM; rr += 8 * RM::RPW) {
+    const int64_t r = (int64_t)blockIdx.x * kTM + rr;
+    const bool ok = r < rows;
+    const float nrm = ok ? rn[r] : 1.f;
+    float n[RM::NG][4], d[RM::NG][4];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < RM::NG; ++i) {
+      const int col = 4 * (q + RM::L * i);
+      if (ok) {
+        load4(x + r * C + col, n[i]);
+        load4(dg + r * C + col, d[i]);
+      } else {
+        n[i][0] = n[i][1] = n[i][2] = n[i][3] = 0.f;
+        d[i][0] = d[i][1] = d[i][2] = d[i][3] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        n[i][e] /= nrm;
+        s += n[i][e] * d[i][e] * gamma[col + e] * sc;
+        acc[i][e] += d[i][e] * n[i][e] * sc;
+      }
+    }
+#pragma unroll
+    for (int o = RM::L / 2; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (!ok) continue;
+#pragma unroll
+    for (int i = 0; i < RM::NG; ++i) {
+      const int col = 4 * (q + RM::L * i);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int64_t at = r * C + col + e;
+        const float w = d[i][e] * gamma[col + e] * sc;
+        dx[at] = bt::from_f<T>(bt::to_f(dout[at]) + (w - n[i][e] * s) / nrm);
+      }
+    }
+  }
+  block_column_sums<C>(acc, red, dgp + blockIdx.x * (int64_t)C);
+}
+
+// The weights as bf16 operands (parts `lo` apart): w1 (M, C) as it is and
+// transposed to (C, M), w2 (C, M) as it is.
+template <typename T>
+__global__ void __launch_bounds__(bt::kThreads)
+    ff_bwd_weights_kernel(const T* __restrict__ w1, const T* __restrict__ w2,
+                          bf16* __restrict__ w1s, bf16* __restrict__ w1t, bf16* __restrict__ w2s,
+                          int64_t lo, int M, int C) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  const int64_t i = (int64_t)blockIdx.x * bt::kThreads + threadIdx.x;
+  if (i >= (int64_t)M * C) return;
+  const int64_t j = i / C, c = i % C;
+  const float a = bt::to_f(w1[i]), b = bt::to_f(w2[i]);
+  const bf16 ah = __float2bfloat16(a), bh = __float2bfloat16(b);
+  w1s[i] = ah;
+  w1t[c * M + j] = ah;
+  w2s[i] = bh;
+  if constexpr (SPLIT) {
+    const bf16 al = __float2bfloat16(a - __bfloat162float(ah));
+    w1s[lo + i] = al;
+    w1t[lo + c * M + j] = al;
+    w2s[lo + i] = __float2bfloat16(b - __bfloat162float(bh));
+  }
+}
+
+// The backward's fixed-order sums of its partials, in one launch: job j
+// sums parts[j] float32 partials of n[j] values (part[j][p n[j] + i], n[j]
+// a multiple of 4) into out[j]; blocks first[j] .. first[j + 1] - 1 take
+// its 128-value slices.
+struct SumJobs {
+  static constexpr int kJobs = 5;  // db2, dgamma, db1, dW1, dW2
+  const float* part[kJobs];
+  float* out[kJobs];
+  int parts[kJobs];
+  int64_t n[kJobs];
+  unsigned first[kJobs + 1];
+};
+
+// Lane l of warp w sums values 4 l .. 4 l + 3 of the block's slice over
+// parts w, w + 8, ..., then warp 0 adds the 8 warps' sums in order.
+__global__ void __launch_bounds__(bt::kThreads) column_sums_kernel(SumJobs s) {
+  __shared__ float4 red[8][32];
+  int j = 0;
+  while (blockIdx.x >= s.first[j + 1]) ++j;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t n = s.n[j], i = ((int64_t)(blockIdx.x - s.first[j]) * 32 + lane) * 4;
+  const float* part = s.part[j];
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i < n)
+    for (int p = warp; p < s.parts[j]; p += 8) {
+      const float4 v = *reinterpret_cast<const float4*>(part + p * n + i);
+      sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
+    }
+  red[warp][lane] = sum;
+  __syncthreads();
+  if (warp == 0 && i < n) {
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w = 0; w < 8; ++w) {
+      const float4 v = red[w][lane];
+      t.x += v.x, t.y += v.y, t.z += v.z, t.w += v.w;
+    }
+    *reinterpret_cast<float4*>(s.out[j] + i) = t;
+  }
+}
+
+// The backward's scratch, section by section in this order, each starting
+// on a multiple of kAlign bytes (built on a null base, it gives the size
+// alone: bt_ff_train_bwd_scratch):
+// bf16 operands (P = 2 parts in float32, 1 in bf16) g, d_y (P rows C each),
+// d_pre1, h1d (P rows M), W1, W1^T, W2 (P M C); float32 row norms (rows),
+// d_g (rows C), db2 and dgamma partials (tiles C each), db1 partials (tiles
+// M), dW1 and dW2 partials (groups M C each).
+struct Layout {
+  bf16 *g, *dy, *dp, *h1d, *w1, *w1t, *w2;
+  float *rn, *dg, *db2p, *dgp, *db1p, *dw1p, *dw2p;
+  size_t bytes;
+
+  Layout(void* base, bool split, int64_t rows, int C, int M, int groups) {
+    const int64_t P = split ? 2 : 1, tiles = (rows + kTM - 1) / kTM;
+    const uintptr_t at = reinterpret_cast<uintptr_t>(base);
+    bytes = 0;
+    auto take = [&](int64_t n, size_t size) {
+      void* p = reinterpret_cast<void*>(at + bytes);
+      bytes += (n * size + kAlign - 1) / kAlign * kAlign;
+      return p;
+    };
+    g = (bf16*)take(P * rows * C, 2);
+    dy = (bf16*)take(P * rows * C, 2);
+    dp = (bf16*)take(P * rows * M, 2);
+    h1d = (bf16*)take(P * rows * M, 2);
+    w1 = (bf16*)take(P * M * C, 2);
+    w1t = (bf16*)take(P * M * C, 2);
+    w2 = (bf16*)take(P * M * C, 2);
+    rn = (float*)take(rows, 4);
+    dg = (float*)take(rows * C, 4);
+    db2p = (float*)take(tiles * C, 4);
+    dgp = (float*)take(tiles * C, 4);
+    db1p = (float*)take(tiles * M, 4);
+    dw1p = (float*)take((int64_t)groups * M * C, 4);
+    dw2p = (float*)take((int64_t)groups * M * C, 4);
+  }
+};
+
+// Columns (of C) per block of the d_g and weight-gradient products.
+int product_n(int C) { return C <= 64 ? 64 : 128; }
+
+// Row groups of the weight-gradient products: ceil(rows / group_rows).
+int64_t row_groups(int64_t rows, int64_t group_rows) {
+  return (rows + group_rows - 1) / group_rows;
+}
+
+// d_g = d_pre1 W1 and the weight-gradient products, for a tile width BN.
+template <int BN, bool SPLIT>
+cudaError_t launch_products(const Layout& s, int64_t rows, int C, int M, int groups,
+                            int64_t group_rows, cudaStream_t stream) {
+  const int64_t rlo = rows * C, hlo = rows * M, wlo = (int64_t)M * C;
+  const unsigned ntiles = (unsigned)((C + BN - 1) / BN), rtiles = (unsigned)((rows + kTM - 1) / kTM);
+  cudaError_t err;
+  auto dg_kernel = ff_product_kernel<false, BN, SPLIT>;
+  const size_t smem1 = product_smem<false, BN, SPLIT>();
+  if ((err = bt::allow_smem(dg_kernel, smem1)) != cudaSuccess) return err;
+  dg_kernel<<<dim3(ntiles, rtiles, 1), bt::kThreads, smem1, stream>>>(
+      Operand{s.dp, M, hlo}, Operand{s.w1, C, wlo}, s.dg, C, 0, 0, rows, C, M, M);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  auto wg_kernel = ff_product_kernel<true, BN, SPLIT>;
+  const size_t smem2 = product_smem<true, BN, SPLIT>();
+  if ((err = bt::allow_smem(wg_kernel, smem2)) != cudaSuccess) return err;
+  const dim3 grid(ntiles, (unsigned)((M + kTM - 1) / kTM), (unsigned)groups);
+  // dW1[j][c] = sum_r d_pre1[r][j] g[r][c]
+  wg_kernel<<<grid, bt::kThreads, smem2, stream>>>(Operand{s.dp, M, hlo}, Operand{s.g, C, rlo},
+                                                    s.dw1p, C, wlo, 0, M, C, rows, group_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // dW2[c][j] = sum_r h1d[r][j] d_y[r][c], stored transposed
+  wg_kernel<<<grid, bt::kThreads, smem2, stream>>>(Operand{s.h1d, M, hlo}, Operand{s.dy, C, rlo},
+                                                    s.dw2p, M, wlo, 1, M, C, rows, group_rows);
+  return cudaGetLastError();
 }
 
 template <int C, typename T>
-__global__ void __launch_bounds__(bt::kThreads)
-    ff_wgrad_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                    const T* __restrict__ w1, const float* __restrict__ b1,
-                    const T* __restrict__ w2, const T* __restrict__ dout,
-                    float* __restrict__ dw1p, float* __restrict__ dw2p,
-                    float* __restrict__ db1p, int64_t rows, int M, int tiles_per_group,
-                    bt::Dropout drop) {
-  constexpr int ld = bt::tile_ld(C), cl = kWChunk + 1, NI = C / 32;
-  extern __shared__ float smem[];
-  float* gt = smem;
-  float* dy = gt + bt::kRows * ld;
-  float* dp = dy + bt::kRows * ld;  // round_T(d_pre1) for this chunk
-  float* dpf = dp + bt::kRows * cl;  // d_pre1 in float32 (db1)
-  float* hd = dpf + bt::kRows * cl;  // round_T(dropped h1)
-  float* ws = hd + bt::kRows * cl;
-  const int tid = threadIdx.x, cp = tid & 15, rg = tid >> 4;
-  const int j0 = blockIdx.x * kWChunk, g = blockIdx.y;
-  const int64_t tiles = (rows + bt::kRows - 1) / bt::kRows;
-  const int64_t t_end = min((int64_t)(g + 1) * tiles_per_group, tiles);
+cudaError_t launch_bwd(const void* x, const void* gamma, const void* w1, const void* b1,
+                       const void* w2, const void* dout, void* dx, void* dgamma, void* dw1,
+                       void* db1, void* dw2, void* db2, void* scratch, int64_t scratch_bytes,
+                       int64_t rows, int M, int64_t group_rows, bt::Dropout drop,
+                       cudaStream_t stream) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  const int groups = (int)row_groups(rows, group_rows);
+  const Layout s(scratch, SPLIT, rows, C, M, groups);
+  if ((int64_t)s.bytes > scratch_bytes) return cudaErrorInvalidValue;
+  const int64_t tiles = (rows + kTM - 1) / kTM, rlo = rows * C, hlo = rows * M;
+  const int64_t wlo = (int64_t)M * C;
+  cudaError_t err;
 
-  float acc1[4][NI], acc2[4][NI];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int i = 0; i < NI; ++i) acc1[a][i] = acc2[a][i] = 0.f;
-  float db1 = 0.f;
+  ff_bwd_weights_kernel<T><<<(unsigned)((wlo + bt::kThreads - 1) / bt::kThreads), bt::kThreads,
+                             0, stream>>>((const T*)w1, (const T*)w2, s.w1, s.w1t, s.w2, wlo, M,
+                                          C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ff_bwd_pre_kernel<C, T><<<(unsigned)tiles, bt::kThreads, 0, stream>>>(
+      (const T*)x, (const float*)gamma, (const T*)dout, s.rn, s.g, s.dy, rlo, s.db2p, rows, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  for (int64_t t = (int64_t)g * tiles_per_group; t < t_end; ++t) {
-    const int64_t row0 = t * bt::kRows;
-    const int nrows = bt::tile_rows(rows, row0);
-    bt::load_rows<C, T>(x, gt, row0, nrows);
-    bt::rms_rows<C, true, T>(gt, gt, ld, gamma);
-    bt::load_dy<C, T>(dout, dy, row0, nrows, drop, nullptr);
-    float hacc[2][kWChunk / 16], dacc[2][kWChunk / 16];
-    bt::zero(hacc);
-    bt::zero(dacc);
-    bt::mm_acc<kWChunk, T>(hacc, gt, ld, w1, C, j0, C, ws);
-    bt::mm_acc_t<kWChunk, T>(dacc, dy, ld, w2, M, j0, C, ws);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = rg + 16 * i, c0 = j0 + 2 * cp;
-      float f[4];
-      bt::keep4(drop, bt::kSiteFFHidden, 0, 0, (uint32_t)(row0 + r), c0 >> 2, f);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = r < nrows;
-        const float pre = hacc[i][e] + b1[c0 + e], fe = f[(c0 & 3) + e];
-        const float d = ok ? dacc[i][e] * fe * bt::gelu_grad(pre) : 0.f;
-        hd[r * cl + 2 * cp + e] = ok ? bt::round_to<T>(bt::gelu_exact(pre) * fe) : 0.f;
-        dpf[r * cl + 2 * cp + e] = d;
-        dp[r * cl + 2 * cp + e] = bt::round_to<T>(d);
-      }
-    }
-    __syncthreads();
-    bt::outer_acc<NI>(acc1, dp, cl, gt, ld);  // dW1[j][c] += d_pre1[r][j] g[r][c]
-    bt::outer_acc<NI>(acc2, hd, cl, dy, ld);  // dW2[c][j] += d_y[r][c] h1[r][j]
-    if (tid < kWChunk)
-      for (int r = 0; r < bt::kRows; ++r) db1 += dpf[r * cl + tid];
-    __syncthreads();
-  }
+  auto hidden = ff_hidden_kernel<SPLIT>;
+  const size_t smem = product_smem<false, kHidN, SPLIT>();
+  if ((err = bt::allow_smem(hidden, smem)) != cudaSuccess) return err;
+  hidden<<<dim3((unsigned)(M / kHidN), (unsigned)tiles), bt::kThreads, smem, stream>>>(
+      Operand{s.g, C, rlo}, Operand{s.w1t, M, wlo}, Operand{s.dy, C, rlo}, Operand{s.w2, M, wlo},
+      (const float*)b1, s.dp, s.h1d, hlo, s.db1p, rows, M, C, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const int lane = tid & 31, l0 = 4 * (tid >> 5);
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int j = j0 + l0 + a, c = lane + 32 * i;
-      dw1p[(size_t)g * M * C + (size_t)j * C + c] = acc1[a][i];
-      dw2p[(size_t)g * C * M + (size_t)c * M + j] = acc2[a][i];
-    }
-  if (tid < kWChunk) db1p[(size_t)g * M + j0 + tid] = db1;
+  err = product_n(C) == 64
+            ? launch_products<64, SPLIT>(s, rows, C, M, groups, group_rows, stream)
+            : launch_products<128, SPLIT>(s, rows, C, M, groups, group_rows, stream);
+  if (err != cudaSuccess) return err;
+  ff_bwd_post_kernel<C, T><<<(unsigned)tiles, bt::kThreads, 0, stream>>>(
+      (const T*)x, (const float*)gamma, (const T*)dout, s.rn, s.dg, (T*)dx, s.dgp, rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  SumJobs sums{{s.db2p, s.dgp, s.db1p, s.dw1p, s.dw2p},
+               {(float*)db2, (float*)dgamma, (float*)db1, (float*)dw1, (float*)dw2},
+               {(int)tiles, (int)tiles, (int)tiles, groups, groups},
+               {C, C, M, wlo, wlo},
+               {0}};
+  for (int j = 0; j < SumJobs::kJobs; ++j)
+    sums.first[j + 1] = sums.first[j] + (unsigned)((sums.n[j] + 127) / 128);
+  column_sums_kernel<<<sums.first[SumJobs::kJobs], bt::kThreads, 0, stream>>>(sums);
+  return cudaGetLastError();
 }
 
 template <int C, typename T>
@@ -276,46 +743,6 @@ cudaError_t launch_fwd(const void* x, const void* gamma, const void* w1, const v
       (const T*)x, (const float*)gamma, (const T*)w1, (const float*)b1, (const T*)w2,
       (const float*)b2, (T*)out, rows, M, drop);
   return cudaGetLastError();
-}
-
-template <int C, typename T>
-cudaError_t launch_bwd(const void* x, const void* gamma, const void* w1, const void* b1,
-                       const void* w2, const void* dout, void* dx, void* dgamma, void* dw1,
-                       void* db1, void* dw2, void* db2, void* scratch, int64_t rows, int M,
-                       int groups, bt::Dropout drop, cudaStream_t stream) {
-  const int64_t tiles = (rows + bt::kRows - 1) / bt::kRows;
-  float* db2p = (float*)scratch;
-  float* dgp = db2p + tiles * C;
-  float* dw1p = dgp + tiles * C;
-  float* dw2p = dw1p + (int64_t)groups * M * C;
-  float* db1p = dw2p + (int64_t)groups * M * C;
-
-  const size_t smem1 = sizeof(float) * rows_smem_floats<C>();
-  auto k1 = ff_bwd_rows_kernel<C, T>;
-  cudaError_t err = bt::allow_smem(k1, smem1);
-  if (err != cudaSuccess) return err;
-  k1<<<(unsigned)tiles, bt::kThreads, smem1, stream>>>(
-      (const T*)x, (const float*)gamma, (const T*)w1, (const float*)b1, (const T*)w2,
-      (const T*)dout, (T*)dx, db2p, dgp, rows, M, drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const size_t smem2 = sizeof(float) * wgrad_smem_floats<C>();
-  auto k2 = ff_wgrad_kernel<C, T>;
-  if ((err = bt::allow_smem(k2, smem2)) != cudaSuccess) return err;
-  const int tpg = (int)((tiles + groups - 1) / groups);
-  k2<<<dim3(M / kWChunk, groups), bt::kThreads, smem2, stream>>>(
-      (const T*)x, (const float*)gamma, (const T*)w1, (const float*)b1, (const T*)w2,
-      (const T*)dout, dw1p, dw2p, db1p, rows, M, tpg, drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  if ((err = bt::sum_partials(db2p, (float*)db2, (int)tiles, C, stream)) != cudaSuccess) return err;
-  if ((err = bt::sum_partials(dgp, (float*)dgamma, (int)tiles, C, stream)) != cudaSuccess)
-    return err;
-  if ((err = bt::sum_partials(dw1p, (float*)dw1, groups, (int64_t)M * C, stream)) != cudaSuccess)
-    return err;
-  if ((err = bt::sum_partials(dw2p, (float*)dw2, groups, (int64_t)M * C, stream)) != cudaSuccess)
-    return err;
-  return bt::sum_partials(db1p, (float*)db1, groups, M, stream);
 }
 
 #define BT_FF_SWITCH(CALL)                          \
@@ -341,11 +768,12 @@ cudaError_t dispatch_fwd(int C, const void* x, const void* gamma, const void* w1
 template <typename T>
 cudaError_t dispatch_bwd(int C, const void* x, const void* gamma, const void* w1, const void* b1,
                          const void* w2, const void* dout, void* dx, void* dgamma, void* dw1,
-                         void* db1, void* dw2, void* db2, void* scratch, int64_t rows, int M,
-                         int groups, bt::Dropout drop, cudaStream_t s) {
+                         void* db1, void* dw2, void* db2, void* scratch, int64_t scratch_bytes,
+                         int64_t rows, int M, int64_t group_rows, bt::Dropout drop,
+                         cudaStream_t s) {
 #define BT_CALL(CC)                                                                         \
-  launch_bwd<CC, T>(x, gamma, w1, b1, w2, dout, dx, dgamma, dw1, db1, dw2, db2, scratch, rows, \
-                    M, groups, drop, s)
+  launch_bwd<CC, T>(x, gamma, w1, b1, w2, dout, dx, dgamma, dw1, db1, dw2, db2, scratch,     \
+                    scratch_bytes, rows, M, group_rows, drop, s)
   BT_FF_SWITCH(BT_CALL)
 #undef BT_CALL
 }
@@ -369,24 +797,45 @@ extern "C" int bt_ff_train_fwd(int dtype, int C, const void* x, const void* gamm
                    : cudaErrorInvalidValue);
 }
 
+// Output tiles of one weight-gradient product of bt_ff_train_bwd ((M, C) in
+// blocks of kTM x product_n(C)), the blocks of each row group.
+extern "C" int bt_ff_wgrad_tiles(int C, int M, int* tiles) {
+  if (C <= 0 || M % kHidN) return (int)cudaErrorInvalidValue;
+  *tiles = (M + kTM - 1) / kTM * ((C + product_n(C) - 1) / product_n(C));
+  return 0;
+}
+
+// Bytes of bt_ff_train_bwd's scratch for these arguments, in *bytes.
+extern "C" int bt_ff_train_bwd_scratch(int dtype, int C, long long rows, int M,
+                                       long long group_rows, long long* bytes) {
+  if ((dtype != 0 && dtype != 1) || rows < 0 || group_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  *bytes = (long long)Layout(nullptr, dtype == 0, rows, C, M, (int)row_groups(rows, group_rows))
+               .bytes;
+  return 0;
+}
+
 // As bt_ff_train_fwd, plus dout and dx (rows, C) in the dtype and float32
 // gradients dgamma (C), dw1 (M, C), db1 (M), dw2 (C, M), db2 (C). scratch:
-// 2 * ceil(rows / 32) * C + groups * (2 * M * C + M) floats;
-// 1 <= groups <= ceil(rows / 32) row-tile groups for the weight gradients.
+// scratch_bytes bytes, at least bt_ff_train_bwd_scratch's; the weight-gradient
+// products take the rows in groups of group_rows >= 1 (ops/fused_ff.py:
+// ff_wgrad_split).
 extern "C" int bt_ff_train_bwd(int dtype, int C, const void* x, const void* gamma,
                                const void* w1, const void* b1, const void* w2, const void* dout,
                                void* dx, void* dgamma, void* dw1, void* db1, void* dw2, void* db2,
-                               void* scratch, long long rows, int M, int groups, unsigned seed,
-                               unsigned salt, unsigned thr, float scale, int on, void* stream) {
+                               void* scratch, long long scratch_bytes, long long rows, int M,
+                               long long group_rows, unsigned seed, unsigned salt, unsigned thr,
+                               float scale, int on, void* stream) {
   if (rows <= 0) return 0;
-  if (M % bt::kHid || groups < 1) return (int)cudaErrorInvalidValue;
+  if (M % kHidN || group_rows < 1) return (int)cudaErrorInvalidValue;
   const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0
                    ? dispatch_bwd<float>(C, x, gamma, w1, b1, w2, dout, dx, dgamma, dw1, db1, dw2,
-                                         db2, scratch, rows, M, groups, d, s)
+                                         db2, scratch, scratch_bytes, rows, M, group_rows, d, s)
                : dtype == 1
                    ? dispatch_bwd<__nv_bfloat16>(C, x, gamma, w1, b1, w2, dout, dx, dgamma, dw1,
-                                                 db1, dw2, db2, scratch, rows, M, groups, d, s)
+                                                 db1, dw2, db2, scratch, scratch_bytes, rows, M,
+                                                 group_rows, d, s)
                    : cudaErrorInvalidValue);
 }

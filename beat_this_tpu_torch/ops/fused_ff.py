@@ -12,6 +12,7 @@ only the inputs are saved between the passes.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -124,6 +125,37 @@ def wgrad_groups(blocks: int, rows: int) -> int:
     return max(1, min(groups, tiles))
 
 
+FF_MIN_GROUP_ROWS = 256  # the fewest rows a group of B9's weight-gradient products takes
+
+
+def ff_wgrad_split(rows: int, tiles: int) -> int:
+    """Rows per group of B9's weight-gradient products dW1 = d_pre1^T g and
+    dW2 = d_y^T h1d over `rows` rows, from the shape alone. The kernel cuts
+    the rows into ceil(rows / group rows) groups of `tiles` blocks each (the
+    output tiles of one product, `ff_bwd_plan`): enough groups for about two
+    blocks per SM (C 512: 64 tiles x 5 groups; C 32: 1 tile x 264 groups
+    over 384000 rows), each of at least FF_MIN_GROUP_ROWS rows. Each group
+    adds one float32 partial of each weight gradient to the scratch, summed
+    in a fixed order, so a given shape gives the same bits on every run."""
+    target = -(-2 * CARD_SMS // tiles)
+    return max(FF_MIN_GROUP_ROWS, -(-rows // target))
+
+
+def ff_bwd_plan(rows: int, c: int, m: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(rows per weight-gradient group, scratch bytes) of B9 over `rows`
+    rows of width `c`, hidden width `m`, in `dtype`; the kernel library
+    gives the tile count and lays out the scratch (csrc/fused_ff_train.cu:
+    bt_ff_wgrad_tiles, bt_ff_train_bwd_scratch)."""
+    lib = _build.load_library()
+    code = dtype_code(dtype)
+    tiles, nbytes = ctypes.c_int(), ctypes.c_longlong()
+    _build.check(lib.bt_ff_wgrad_tiles(c, m, ctypes.byref(tiles)), "bt_ff_wgrad_tiles")
+    group_rows = ff_wgrad_split(rows, tiles.value)
+    _build.check(lib.bt_ff_train_bwd_scratch(code, c, rows, m, group_rows, ctypes.byref(nbytes)),
+                 "bt_ff_train_bwd_scratch")
+    return group_rows, nbytes.value
+
+
 def ff_train_branch(x32: torch.Tensor, ff: FeedForward, dtype: torch.dtype,
                     dropout_rate: float, seed: Optional[int], salt: int) -> torch.Tensor:
     """The dropped feed-forward branch on the float32 (or float64) rows
@@ -186,22 +218,21 @@ def ff_train_bwd(x, gamma, w1, b1, w2, dout, dropout_rate, seed):
     m = w1.shape[0]
     code = _check_cuda("fused_ff_train", x, c)
     lib = _build.load_library()
-    tiles = -(-rows // ROW_TILE)
-    groups = wgrad_groups(m // 32, rows)
+    group_rows, nbytes = ff_bwd_plan(rows, c, m, x.dtype)
     dev = x.device
     params = [f32(gamma), kernel_weight(w1, x.dtype), f32(b1), kernel_weight(w2, x.dtype)]
     dout = dout.to(x.dtype).contiguous()
     dx = torch.empty_like(x)
     grads = [torch.empty(shape, dtype=torch.float32, device=dev)
              for shape in ((c,), (m, c), (m,), (c, m), (c,))]
-    scratch = torch.empty(2 * tiles * c + groups * (2 * m * c + m), dtype=torch.float32,
-                          device=dev)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         _build.check(
             lib.bt_ff_train_bwd(
                 code, c, x.data_ptr(), *(p.data_ptr() for p in params), dout.data_ptr(),
-                dx.data_ptr(), *(g.data_ptr() for g in grads), scratch.data_ptr(), rows, m,
-                groups, *drop.kernel_args(dropout_rate, seed, drop.SALT_FF), stream_of(x),
+                dx.data_ptr(), *(g.data_ptr() for g in grads), scratch.data_ptr(), nbytes,
+                rows, m, group_rows, *drop.kernel_args(dropout_rate, seed, drop.SALT_FF),
+                stream_of(x),
             ),
             "bt_ff_train_bwd",
         )

@@ -9,7 +9,8 @@ x 1500 frames, 2 microbatches, the default dropout of
 `python -m beat_this_tpu_torch.train`), then runs one more `train_step` under
 `torch.profiler` and prints, beside the card's `nvidia-smi` name and power
 limit: the step's wall time (host clock around a synchronized step), the
-device's summed kernel time and busy share (kernel time over wall), and the
+device's summed kernel time and busy share (kernel time over wall), the
+step's peak device memory (`torch.cuda.max_memory_allocated`), and the
 kernels by device time, grouped by the port's kernel families (B4/B5
 `fused_time_train.cu`, B6 `fused_freq.cu`, B7 `fused_freq_train.cu`, B8/B9
 `fused_ff_train.cu`, the shared partial sums; at `--head-dim 16`, where the
@@ -45,9 +46,12 @@ FAMILIES = (
     ("attn_bwd_post", "B5 attn_bwd_post"),
     ("attn_wgrad", "B5 attn_wgrad"),
     ("ff_train_fwd", "B8 ff_train_fwd"),
-    ("ff_bwd_rows", "B9 ff_bwd_rows"),
-    ("ff_wgrad", "B9 ff_wgrad"),
-    ("sum_partials", "B5/B7/B9 sum_partials"),
+    ("ff_hidden_kernel", "B9 hidden (pre1, d_h1)"),
+    ("ff_product_kernel<false", "B9 d_g"),
+    ("ff_product_kernel<true", "B9 dW1, dW2"),
+    ("ff_bwd_", "B9 row passes, weight operands"),
+    ("column_sums", "B9 column_sums"),
+    ("sum_partials", "B5/B7 sum_partials"),
     ("rotate_kernel", "B10/B11 rotate (bf16 pre-pass)"),
     ("flash_fwd", "B10 flash_fwd"),
     ("flash_dq", "B11 flash_dq"),
@@ -117,11 +121,13 @@ def main(argv=None) -> dict:
     for _ in range(WARMUP):
         train_step(model, opt, sched, batch, gen, tc)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         train_step(model, opt, sched, batch, gen, tc)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     by_name: dict[str, float] = defaultdict(float)
     for evt in prof.events():
@@ -137,12 +143,14 @@ def main(argv=None) -> dict:
     print(f"[profile] {smi}")
     print(f"[profile] one train_step, {config} config, {args.precision}, full width, batch "
           f"{BATCH} x {LENGTH}, {ACCUM} microbatches: wall {1e3 * wall:.1f} ms, device kernel "
-          f"time {device_ms:.1f} ms, busy share {device_ms / (1e3 * wall):.3f}")
+          f"time {device_ms:.1f} ms, busy share {device_ms / (1e3 * wall):.3f}, peak device "
+          f"memory {peak_gib:.2f} GiB")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {fam}: {ms:.1f} ms ({ms / device_ms:.1%})")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
         print(f"[profile]   kernel {name[:90]}: {ms:.2f} ms")
-    return {"wall_ms": 1e3 * wall, "device_ms": device_ms, "families": dict(by_family)}
+    return {"wall_ms": 1e3 * wall, "device_ms": device_ms, "peak_gib": peak_gib,
+            "families": dict(by_family)}
 
 
 if __name__ == "__main__":

@@ -9,11 +9,15 @@ non-zero without the final `"ok": true` line:
 1. environment: GPU name and power limit, torch / CUDA / nvcc versions;
 2. build: compiles the CUDA kernels from this checkout's sources, and
    checks with `cuobjdump -sass` that every bfloat16 instantiation of the
-   flash kernels (forward, dq, dk/dv) holds tensor-core HMMA instructions;
+   flash kernels (forward, dq, dk/dv), and every instantiation of the
+   feed-forward training backward's product kernels (bfloat16 and the
+   float32 split products), holds tensor-core HMMA instructions;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes, in float32 (TF32 off, relative max
    deviation <= 1e-3) and bfloat16 (< 2.5e-2), with median times and the
-   least time the card could take (`bound`). The six training kernels
+   least time the card could take (`bound`); the feed-forward training
+   backward is timed by its device time (torch.profiler's kernel sum), as
+   the host's launches take about as long. The six training kernels
    compare the output and every gradient, with the same seed on both
    sides: the attention branch and the feed-forward (forward and backward)
    at a main layer's shape (8 x 1500 x 512, 16 heads; dropout 0 and 0.2)
@@ -169,11 +173,21 @@ ABLATE_BATCH = 16
 ABLATE_FLASH = (512, 1536, 32)
 # bfloat16 instantiations of the tensor-core flash kernels in the library
 FLASH_TC_KERNELS = {"flash_fwd_kernel": 8, "flash_dq_kernel": 2, "flash_dkv_kernel": 2}
+# instantiations of the feed-forward training backward's product kernels,
+# each on the tensor cores in both dtypes (float32 as split bf16 products)
+FF_TC_KERNELS = {"ff_hidden_kernel": 2, "ff_product_kernel": 8}
 DEVICE = "cuda"
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): float32 outside
-# the tensor cores, bfloat16 on them, and the HBM3 rate
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+# the tensor cores, bfloat16 on them, float32 as three bfloat16 products of
+# split operands on them, and the HBM3 rate
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "f32 split": 989e12 / 3}
 PEAK_BYTES = 3.35e12
+# kernels whose float32 products run as split bfloat16 products (their
+# float32 bound takes that rate), and kernels short enough that phase 3
+# times their backward by its device time (torch.profiler's kernel sum)
+# rather than by events around the host's call
+SPLIT_F32 = {"fused_ff_train_bwd"}
+DEVICE_TIMED = {"fused_ff_train_bwd"}
 
 
 def train_counters() -> dict:
@@ -321,6 +335,12 @@ def phase_build() -> None:
         check(len(found) == expect and all(n > 0 for n in found.values()),
               f"{kernel}: {len(found)} bfloat16 instantiations (expected {expect}), HMMA "
               f"counts {found}")
+    for kernel, expect in FF_TC_KERNELS.items():
+        found = {name: n for name, n in counts.items() if kernel in name}
+        print(f"[build] HMMA per instantiation of {kernel}: "
+              + ", ".join(f"{name} {n}" for name, n in sorted(found.items())))
+        check(len(found) == expect and all(n > 0 for n in found.values()),
+              f"{kernel}: {len(found)} instantiations (expected {expect}), HMMA counts {found}")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -777,6 +797,28 @@ def fwd_bwd_ms(fn, x, params, cot, reps: int) -> tuple[float, float]:
     return fwd, bwd
 
 
+def bwd_device_ms(fn, x, params, cot, reps: int) -> float:
+    """Device time in ms of one backward on a retained graph: the kernel
+    time torch.profiler sums over `reps` backwards after one warm-up,
+    divided by `reps`; the host's launch and autograd time is not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    xg = x.detach().clone().requires_grad_(True)
+    out = fn(xg)
+    inputs, cot = [xg] + params, cot.to(out.dtype)
+    torch.autograd.grad(out, inputs, cot, retain_graph=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.autograd.grad(out, inputs, cot, retain_graph=True)
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "torch.profiler recorded no device time")
+    return us / 1e3 / reps
+
+
 def train_cases(dev, dtype, dt: str):
     """Phase 3's training cases in `dtype`: (kernel names, description,
     parameters, kernel, plain version, input shape, gradient names, rate,
@@ -853,16 +895,24 @@ def phase_train_kernels(smi: str) -> dict:
             del got, want
             ms = fwd_bwd_ms(kernel, x, params, cot, 10)
             plain_ms = fwd_bwd_ms(plain, x, params, cot, 5)
+            by_device = names[1] in DEVICE_TIMED
+            events_ms = (ms[1], plain_ms[1])
+            if by_device:
+                ms = (ms[0], bwd_device_ms(kernel, x, params, cot, 10))
+                plain_ms = (plain_ms[0], bwd_device_ms(plain, x, params, cot, 5))
             torch.cuda.empty_cache()
             worst = max(devs.values())
             ok = finite and (worst <= limit if dtype == torch.float32 else worst < limit)
-            bounds = [bound(*w, dt) for w in work]
+            bounds = [bound(*w, "f32 split" if dt == "f32" and name in SPLIT_F32 else dt)
+                      for w, name in zip(work, names)]
             print(f"[train-kernels] {names[0][:-4]} {dt} {desc}: rel max dev "
                   + " ".join(f"{g} {v:.2e}" for g, v in devs.items())
                   + f" (limit {limit:g}); fwd kernel {ms[0]:.3f} ms plain {plain_ms[0]:.3f} ms "
                   f"bound {bounds[0][0]:.3f} ms ({bounds[0][1]}), bwd kernel {ms[1]:.3f} ms "
-                  f"plain {plain_ms[1]:.3f} ms bound {bounds[1][0]:.3f} ms ({bounds[1][1]}) "
-                  f"[{smi}] {'ok' if ok else 'FAIL'}", flush=True)
+                  f"plain {plain_ms[1]:.3f} ms bound {bounds[1][0]:.3f} ms ({bounds[1][1]})"
+                  + (f" (device time; events around the call: kernel {events_ms[0]:.3f} ms "
+                     f"plain {events_ms[1]:.3f} ms)" if by_device else "")
+                  + f" [{smi}] {'ok' if ok else 'FAIL'}", flush=True)
             check(ok, f"{names[0]} {dt} {desc}: deviation {worst:.3e} over {limit:g}"
                       f" or non-finite ({devs})")
             for k, name in enumerate(names):
@@ -870,6 +920,10 @@ def phase_train_kernels(smi: str) -> dict:
                     "case": f"{dt} {desc}", "rel_max_dev": worst, "max_abs_err": abs_err,
                     "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bounds[k][0],
                     "bound_by": bounds[k][1]})
+                if k == 1 and by_device:
+                    results[name][-1].update(
+                        {"timed_by": "device", "events_ms": events_ms[0],
+                         "plain_events_ms": events_ms[1]})
     return results
 
 

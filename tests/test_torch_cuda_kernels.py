@@ -4,17 +4,21 @@ not a multiple of the 32-row tile, sequence lengths that are not a multiple
 of the attention tiles, every supported width; the training kernels with
 dropout off and on (the same Philox masks on both sides), output and every
 gradient, also at the frontend's widths over enough rows that the
-weight-gradient launches take more than two row-tile groups; the attention
-kernels on (entries, seq, head_dim) at ragged lengths, head widths 16 and
-32, with and without rotation tables, output and dq, dk, dv. Needs a CUDA
-device and nvcc; skips without one. Run on the GPU machine with
+weight-gradient launches take more than two row-tile groups, and the
+feed-forward backward at C 512 over ragged rows split into several row
+groups; the attention kernels on (entries, seq, head_dim) at ragged
+lengths, head widths 16 and 32, with and without rotation tables, output
+and dq, dk, dv. Needs a CUDA device and nvcc; skips without one. Run on
+the GPU machine with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 (the repository's conftest.py imports JAX, which that machine lacks).
 Tolerances: float32 relative max deviation 1e-5 (TF32 off; only the order
 of float32 sums differs), 1e-4 for the training kernels' gradients (sums
-over every row, in another order), bfloat16 < 2.5e-2 (the two sides round
+over every row, in another order; the feed-forward backward's float32
+products, three bf16 products of split operands each, hold about 1e-5),
+bfloat16 < 2.5e-2 (the two sides round
 intermediates to bfloat16 at different places). The ablation kernels of
 `beat_this_tpu_torch/bench/` (every stage, mode, variant and pass) and the
 DBN decoder on the card against the CPU are held here too."""
@@ -151,6 +155,63 @@ def test_fused_ff_train(device, dtype, tol, rate, c, rows):
         before[0] + 1, before[1] + 1)
 
 
+def _ff_wgrad_groups(rows, c, dtype):
+    """Row groups of B9's weight-gradient products at this shape."""
+    group_rows, _ = ff_ops.ff_bwd_plan(rows, c, 4 * c, dtype)
+    return -(-rows // group_rows)
+
+
+@pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("rows", [1000, 1537])
+def test_fused_ff_train_row_groups(device, dtype, tol, rate, rows):
+    """B9 at C 512 over ragged rows that its weight-gradient products split
+    into several row groups (the last one short), one launch each way."""
+    c = 512
+    assert _ff_wgrad_groups(rows, c, dtype) > 2
+    _, ff = _block(c, c // 32, rows, device)
+    ff.requires_grad_(True)
+    x = _x((rows, c), dtype, device, rows)
+    before = (ff_ops.ff_train_fwd.launches, ff_ops.ff_train_bwd.launches)
+    _compare_train(lambda t: ff_ops.fused_ff_train(t, ff, rate, 8),
+                   lambda t: ff_ops.fused_ff_train_ref(t, ff, rate, 8),
+                   x, list(ff.parameters()), tol, rows)
+    assert (ff_ops.ff_train_fwd.launches, ff_ops.ff_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype,parts,limit", [(torch.float32, 2, 4e8),
+                                                (torch.bfloat16, 1, 2.5e8)])
+def test_ff_bwd_scratch_holds_the_stash(device, dtype, parts, limit):
+    """B9's scratch at the main shape (12000 rows, C 512) as the library
+    lays it out: at least the stash d_pre1 and h1d (12000 x 2048 bf16
+    values each, hi and lo parts in float32), under `limit` bytes in all;
+    and the kernel refuses a scratch one byte short."""
+    rows, c = 12000, 512
+    group_rows, nbytes = ff_ops.ff_bwd_plan(rows, c, 4 * c, dtype)
+    assert parts * 2 * rows * 4 * c * 2 < nbytes < limit
+    _, ff = _block(c, c // 32, rows, device)
+    gamma, w1, b1, w2 = (p.detach().to(t).contiguous() for p, t in zip(
+        ff.parameters(), (torch.float32, dtype, torch.float32, dtype)))
+    x, dout = _x((rows, c), dtype, device, 1), _x((rows, c), dtype, device, 2)
+    dx = torch.empty_like(x)
+    grads = [torch.empty(shape, dtype=torch.float32, device=device)
+             for shape in ((c,), (4 * c, c), (4 * c,), (c, 4 * c), (c,))]
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    lib = ff_ops._build.load_library()
+
+    def launch(size):
+        return lib.bt_ff_train_bwd(
+            ff_ops.dtype_code(dtype), c, x.data_ptr(), gamma.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), dout.data_ptr(),
+            dx.data_ptr(), *(g.data_ptr() for g in grads), scratch.data_ptr(), size, rows,
+            4 * c, group_rows, 0, 0, 0, 1.0, 0, ff_ops.stream_of(x))
+
+    assert launch(nbytes - 1) != 0
+    assert launch(nbytes) == 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("heads,n,items", [(1, 77, 3), (2, 130, 2), (4, 64, 1), (16, 200, 1),
@@ -237,7 +298,8 @@ def test_training_kernels_at_frontend_widths(device, dtype, tol, heads):
     groups from the shape, dropout 0.1."""
     c, n, items = heads * 32, 600, 16
     rows = items * n
-    assert ff_ops.wgrad_groups(4 * c // 32, rows) > 2
+    assert ff_ops.wgrad_groups(4 * c // 32, rows) > 2  # B5
+    assert _ff_wgrad_groups(rows, c, dtype) > 2  # B9
     attn, ff = _block(c, heads, rows + c, device)
     attn.requires_grad_(True)
     ff.requires_grad_(True)
