@@ -45,8 +45,7 @@
 // frontend's C 32-128 the bytes of the scratch operands bound it.
 #include <type_traits>
 
-#include "common.cuh"
-#include "mma.cuh"
+#include "tc_product.cuh"
 
 namespace bt {
 namespace {
@@ -91,162 +90,9 @@ __global__ void __launch_bounds__(bt::kThreads)
 
 // -- backward ------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
+using namespace mm;
 
-constexpr int kTM = 128;    // rows of a product block (M side); rows of a row-pass block
-constexpr int kTK = 32;     // depth of a staged tile
-constexpr int kStages = 3;  // staged tiles in flight (cp.async ring)
 constexpr int kHidN = 64;   // hidden units per block of the hidden pass
-constexpr int kAlign = 256; // scratch sections start on multiples of this many bytes
-
-// A bf16 matrix operand with row stride `ld`; its lo part (value - hi,
-// rounded to bf16) lies `lo` elements after the hi part (split products).
-struct Operand {
-  const bf16* p;
-  int64_t ld, lo;
-};
-
-// bf16 elements of one staged tile. A is staged [m][k] (k contiguous) or,
-// with AM, [k][m]; B always [k][n]. The 8-element pad puts the 8 rows an
-// ldmatrix reads in 8 different bank groups.
-template <bool AM> __host__ __device__ constexpr int a_tile() {
-  return AM ? kTK * (kTM + 8) : kTM * (kTK + 8);
-}
-template <int BN> __host__ __device__ constexpr int b_tile() { return kTK * (BN + 8); }
-template <bool AM, int BN, bool SPLIT> __host__ __device__ constexpr int stage_elems() {
-  return (SPLIT ? 2 : 1) * (a_tile<AM>() + b_tile<BN>());
-}
-template <bool AM, int BN, bool SPLIT> constexpr size_t product_smem() {
-  return sizeof(bf16) * kStages * stage_elems<AM, BN, SPLIT>();
-}
-
-// Stage depth [k0, k0 + kTK) of A's rows [m0, m0 + kTM) and of B's columns
-// [n0, n0 + BN) into `st` by cp.async, zeros at m >= m_end, n >= n_end or
-// k >= k_end. Bounds along a contiguous axis are multiples of 8.
-template <bool AM, int BN, bool SPLIT>
-__device__ __forceinline__ void stage(bf16* st, const Operand& A, const Operand& B, int64_t m0,
-                                      int n0, int64_t k0, int64_t m_end, int n_end,
-                                      int64_t k_end) {
-  constexpr int P = SPLIT ? 2 : 1;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    bf16* as = st + p * a_tile<AM>();
-    const bf16* ap = A.p + p * A.lo;
-    if constexpr (AM) {
-      constexpr int CH = kTM / 8;
-      for (int e = threadIdx.x; e < kTK * CH; e += bt::kThreads) {
-        const int r = e / CH, c = e % CH;
-        const int64_t k = k0 + r, m = m0 + 8 * c;
-        const bool ok = k < k_end && m < m_end;
-        bt::cp_async16(as + r * (kTM + 8) + 8 * c, ap + (ok ? k * A.ld + m : 0), ok);
-      }
-    } else {
-      constexpr int CH = kTK / 8;
-      for (int e = threadIdx.x; e < kTM * CH; e += bt::kThreads) {
-        const int r = e / CH, c = e % CH;
-        const int64_t m = m0 + r, k = k0 + 8 * c;
-        const bool ok = m < m_end && k < k_end;
-        bt::cp_async16(as + r * (kTK + 8) + 8 * c, ap + (ok ? m * A.ld + k : 0), ok);
-      }
-    }
-  }
-  bf16* bs = st + P * a_tile<AM>();
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    constexpr int CH = BN / 8;
-    const bf16* bp = B.p + p * B.lo;
-    for (int e = threadIdx.x; e < kTK * CH; e += bt::kThreads) {
-      const int r = e / CH, c = e % CH;
-      const int64_t k = k0 + r;
-      const int n = n0 + 8 * c;
-      const bool ok = k < k_end && n < n_end;
-      bt::cp_async16(bs + p * b_tile<BN>() + r * (BN + 8) + 8 * c, bp + (ok ? k * B.ld + n : 0),
-                     ok);
-    }
-  }
-}
-
-// acc += the block's staged A tile times its B tile. The 8 warps are 4 (m)
-// x 2 (n): warp w owns rows 32 (w % 4) .. + 31 and columns BN / 2 (w / 4)
-// .. + BN / 2 - 1; acc[mi][j] is the C fragment of rows 16 mi .. + 15 and
-// columns 8 j .. + 7 of that.
-template <bool AM, int BN, bool SPLIT>
-__device__ __forceinline__ void mma_stage(float (&acc)[2][BN / 16][4], const bf16* st) {
-  constexpr int P = SPLIT ? 2 : 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = 32 * (warp & 3), wn = (BN / 2) * (warp >> 2);
-  const bf16* bs = st + P * a_tile<AM>();
-#pragma unroll
-  for (int kk = 0; kk < kTK / 16; ++kk) {
-    uint32_t a[P][2][4];
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const bf16* as = st + p * a_tile<AM>();
-        if constexpr (AM)
-          bt::ldsm_x4_t(a[p][mi], as + (16 * kk + (lane & 7) + 8 * (lane >> 4)) * (kTM + 8) +
-                                      wm + 16 * mi + 8 * ((lane >> 3) & 1));
-        else
-          bt::ldsm_x4(a[p][mi],
-                      as + (wm + 16 * mi + (lane & 15)) * (kTK + 8) + 16 * kk + 8 * (lane >> 4));
-      }
-#pragma unroll
-    for (int nb = 0; nb < BN / 32; ++nb) {
-      uint32_t b[P][4];
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-        bt::ldsm_x4_t(b[p], bs + p * b_tile<BN>() +
-                                (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * (BN + 8) + wn +
-                                16 * nb + 8 * (lane >> 4));
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float(&c)[4] = acc[mi][2 * nb + h];
-          if constexpr (SPLIT) {
-            bt::mma_bf16(c, a[1][mi], b[0][2 * h], b[0][2 * h + 1]);
-            bt::mma_bf16(c, a[0][mi], b[1][2 * h], b[1][2 * h + 1]);
-          }
-          bt::mma_bf16(c, a[0][mi], b[0][2 * h], b[0][2 * h + 1]);
-        }
-    }
-  }
-}
-
-// acc = A[m0 .. m0 + kTM) B[:, n0 .. n0 + BN) over depth [k_begin, k_end),
-// through a kStages-deep cp.async ring in `smem`. Ends with a barrier, so
-// `smem` is free again.
-template <bool AM, int BN, bool SPLIT>
-__device__ __forceinline__ void product(float (&acc)[2][BN / 16][4], const Operand& A,
-                                        const Operand& B, int64_t m0, int n0, int64_t k_begin,
-                                        int64_t k_end, int64_t m_end, int n_end, bf16* smem) {
-  constexpr int S = stage_elems<AM, BN, SPLIT>();
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
-  const int nk = k_end > k_begin ? (int)((k_end - k_begin + kTK - 1) / kTK) : 0;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk)
-      stage<AM, BN, SPLIT>(smem + s * S, A, B, m0, n0, k_begin + (int64_t)s * kTK, m_end, n_end,
-                           k_end);
-    bt::cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    bt::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nx = kt + kStages - 1;
-    if (nx < nk)
-      stage<AM, BN, SPLIT>(smem + (nx % kStages) * S, A, B, m0, n0, k_begin + (int64_t)nx * kTK,
-                           m_end, n_end, k_end);
-    bt::cp_async_commit();
-    mma_stage<AM, BN, SPLIT>(acc, smem + (kt % kStages) * S);
-  }
-  bt::cp_async_wait<0>();
-  __syncthreads();
-}
 
 // out (+ blockIdx.z * out_step) = A B over the depth slice [z k_per,
 // min((z + 1) k_per, k_end)) of z = blockIdx.z, for A (m_end x K) and B
@@ -263,71 +109,7 @@ __global__ void __launch_bounds__(bt::kThreads)
   float acc[2][BN / 16][4];
   product<AM, BN, SPLIT>(acc, A, B, m0, n0, k0, min(k0 + k_per, k_end), m_end, n_end,
                          reinterpret_cast<bf16*>(smem_b));
-  out += blockIdx.z * out_step;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = 32 * (warp & 3), wn = (BN / 2) * (warp >> 2);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int64_t m = m0 + wm + 16 * mi + (lane >> 2) + 8 * h;
-        const int n = n0 + wn + 8 * j + 2 * (lane & 3);
-        if (m >= m_end || n >= n_end) continue;
-        const float v0 = acc[mi][j][2 * h], v1 = acc[mi][j][2 * h + 1];
-        if (trans_out) {
-          out[n * ldo + m] = v0;
-          out[(n + 1) * ldo + m] = v1;
-        } else {
-          *reinterpret_cast<float2*>(out + m * ldo + n) = make_float2(v0, v1);
-        }
-      }
-}
-
-// v0, v1 as bf16 at p[0], p[1] (round to nearest even, which is round_T for
-// bf16); with SPLIT also their remainders v - hi at p[lo], p[lo + 1].
-template <bool SPLIT>
-__device__ __forceinline__ void store2(bf16* p, int64_t lo, float v0, float v1) {
-  const uint32_t hi = bt::pack_bf16(v0, v1);
-  *reinterpret_cast<uint32_t*>(p) = hi;
-  if constexpr (SPLIT) {
-    const float2 h = bt::unpack_bf16(hi);
-    *reinterpret_cast<uint32_t*>(p + lo) = bt::pack_bf16(v0 - h.x, v1 - h.y);
-  }
-}
-
-template <bool SPLIT>
-__device__ __forceinline__ void store4(bf16* p, int64_t lo, const float (&v)[4]) {
-  store2<SPLIT>(p, lo, v[0], v[1]);
-  store2<SPLIT>(p + 2, lo, v[2], v[3]);
-}
-
-// Keep factors of the FF hidden site for this lane's columns col8 + 2t,
-// col8 + 2t + 1 (t = lane % 4) in rows `row` (f[0]) and row + 8 (f[1]). A
-// 4-column Philox group spans lanes t = 2u and 2u + 1: the even lane draws
-// row `row`'s group, the odd lane row + 8's, and they trade by one shuffle,
-// so every group is drawn once. Every lane of the warp must call it.
-__device__ __forceinline__ void hidden_keep(const bt::Dropout& d, int64_t row, int col8,
-                                            float (&f)[2][2]) {
-  if (!d.on) {
-    f[0][0] = f[0][1] = f[1][0] = f[1][1] = 1.f;
-    return;
-  }
-  const int t = threadIdx.x & 3, odd = t & 1;
-  const uint4 b = bt::philox4x32_10(
-      make_uint4((uint32_t)(col8 >> 2) + (t >> 1), (uint32_t)(row + 8 * odd), 0u,
-                 bt::kSiteFFHidden << 16),
-      d.seed, d.salt);
-  const uint32_t mine = (uint32_t)(b.x < d.thr) | ((uint32_t)(b.y < d.thr) << 1) |
-                        ((uint32_t)(b.z < d.thr) << 2) | ((uint32_t)(b.w < d.thr) << 3);
-  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
-  const uint32_t r0 = odd ? other : mine, r1 = odd ? mine : other;
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    f[0][e] = (r0 >> (2 * odd + e)) & 1u ? d.scale : 0.f;
-    f[1][e] = (r1 >> (2 * odd + e)) & 1u ? d.scale : 0.f;
-  }
+  store_product<BN>(acc, out + blockIdx.z * out_step, ldo, trans_out, m0, n0, m_end, n_end);
 }
 
 // The hidden pass over rows [m0, m0 + kTM) and hidden units [n0, n0 +
@@ -359,7 +141,7 @@ __global__ void __launch_bounds__(bt::kThreads)
       const int64_t row = m0 + wm + 16 * mi + (lane >> 2);
       const int col = n0 + wn + 8 * j + 2 * (lane & 3);
       float f[2][2];
-      hidden_keep(drop, row, n0 + wn + 8 * j, f);
+      row_keep(drop, bt::kSiteFFHidden, row, n0 + wn + 8 * j, f);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int64_t r = row + 8 * h;
@@ -567,44 +349,10 @@ __global__ void __launch_bounds__(bt::kThreads)
   }
 }
 
-// The backward's fixed-order sums of its partials, in one launch: job j
-// sums parts[j] float32 partials of n[j] values (part[j][p n[j] + i], n[j]
-// a multiple of 4) into out[j]; blocks first[j] .. first[j + 1] - 1 take
-// its 128-value slices.
-struct SumJobs {
-  static constexpr int kJobs = 5;  // db2, dgamma, db1, dW1, dW2
-  const float* part[kJobs];
-  float* out[kJobs];
-  int parts[kJobs];
-  int64_t n[kJobs];
-  unsigned first[kJobs + 1];
-};
-
-// Lane l of warp w sums values 4 l .. 4 l + 3 of the block's slice over
-// parts w, w + 8, ..., then warp 0 adds the 8 warps' sums in order.
-__global__ void __launch_bounds__(bt::kThreads) column_sums_kernel(SumJobs s) {
-  __shared__ float4 red[8][32];
-  int j = 0;
-  while (blockIdx.x >= s.first[j + 1]) ++j;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t n = s.n[j], i = ((int64_t)(blockIdx.x - s.first[j]) * 32 + lane) * 4;
-  const float* part = s.part[j];
-  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (i < n)
-    for (int p = warp; p < s.parts[j]; p += 8) {
-      const float4 v = *reinterpret_cast<const float4*>(part + p * n + i);
-      sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
-    }
-  red[warp][lane] = sum;
-  __syncthreads();
-  if (warp == 0 && i < n) {
-    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int w = 0; w < 8; ++w) {
-      const float4 v = red[w][lane];
-      t.x += v.x, t.y += v.y, t.z += v.z, t.w += v.w;
-    }
-    *reinterpret_cast<float4*>(s.out[j] + i) = t;
-  }
+// The backward's five fixed-order sums (db2, dgamma, db1, dW1, dW2), in one
+// launch.
+__global__ void __launch_bounds__(bt::kThreads) column_sums_kernel(SumJobs<5> s) {
+  column_sums(s);
 }
 
 // The backward's scratch, section by section in this order, each starting
@@ -621,37 +369,24 @@ struct Layout {
 
   Layout(void* base, bool split, int64_t rows, int C, int M, int groups) {
     const int64_t P = split ? 2 : 1, tiles = (rows + kTM - 1) / kTM;
-    const uintptr_t at = reinterpret_cast<uintptr_t>(base);
-    bytes = 0;
-    auto take = [&](int64_t n, size_t size) {
-      void* p = reinterpret_cast<void*>(at + bytes);
-      bytes += (n * size + kAlign - 1) / kAlign * kAlign;
-      return p;
-    };
-    g = (bf16*)take(P * rows * C, 2);
-    dy = (bf16*)take(P * rows * C, 2);
-    dp = (bf16*)take(P * rows * M, 2);
-    h1d = (bf16*)take(P * rows * M, 2);
-    w1 = (bf16*)take(P * M * C, 2);
-    w1t = (bf16*)take(P * M * C, 2);
-    w2 = (bf16*)take(P * M * C, 2);
-    rn = (float*)take(rows, 4);
-    dg = (float*)take(rows * C, 4);
-    db2p = (float*)take(tiles * C, 4);
-    dgp = (float*)take(tiles * C, 4);
-    db1p = (float*)take(tiles * M, 4);
-    dw1p = (float*)take((int64_t)groups * M * C, 4);
-    dw2p = (float*)take((int64_t)groups * M * C, 4);
+    Carver c(base);
+    g = c.take<bf16>(P * rows * C);
+    dy = c.take<bf16>(P * rows * C);
+    dp = c.take<bf16>(P * rows * M);
+    h1d = c.take<bf16>(P * rows * M);
+    w1 = c.take<bf16>(P * M * C);
+    w1t = c.take<bf16>(P * M * C);
+    w2 = c.take<bf16>(P * M * C);
+    rn = c.take<float>(rows);
+    dg = c.take<float>(rows * C);
+    db2p = c.take<float>(tiles * C);
+    dgp = c.take<float>(tiles * C);
+    db1p = c.take<float>(tiles * M);
+    dw1p = c.take<float>((int64_t)groups * M * C);
+    dw2p = c.take<float>((int64_t)groups * M * C);
+    bytes = c.bytes;
   }
 };
-
-// Columns (of C) per block of the d_g and weight-gradient products.
-int product_n(int C) { return C <= 64 ? 64 : 128; }
-
-// Row groups of the weight-gradient products: ceil(rows / group_rows).
-int64_t row_groups(int64_t rows, int64_t group_rows) {
-  return (rows + group_rows - 1) / group_rows;
-}
 
 // d_g = d_pre1 W1 and the weight-gradient products, for a tile width BN.
 template <int BN, bool SPLIT>
@@ -719,14 +454,12 @@ cudaError_t launch_bwd(const void* x, const void* gamma, const void* w1, const v
       (const T*)x, (const float*)gamma, (const T*)dout, s.rn, s.dg, (T*)dx, s.dgp, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  SumJobs sums{{s.db2p, s.dgp, s.db1p, s.dw1p, s.dw2p},
-               {(float*)db2, (float*)dgamma, (float*)db1, (float*)dw1, (float*)dw2},
-               {(int)tiles, (int)tiles, (int)tiles, groups, groups},
-               {C, C, M, wlo, wlo},
-               {0}};
-  for (int j = 0; j < SumJobs::kJobs; ++j)
-    sums.first[j + 1] = sums.first[j] + (unsigned)((sums.n[j] + 127) / 128);
-  column_sums_kernel<<<sums.first[SumJobs::kJobs], bt::kThreads, 0, stream>>>(sums);
+  SumJobs<5> sums{{s.db2p, s.dgp, s.db1p, s.dw1p, s.dw2p},
+                  {(float*)db2, (float*)dgamma, (float*)db1, (float*)dw1, (float*)dw2},
+                  {(int)tiles, (int)tiles, (int)tiles, groups, groups},
+                  {C, C, M, wlo, wlo},
+                  {0}};
+  column_sums_kernel<<<sums.finish(), bt::kThreads, 0, stream>>>(sums);
   return cudaGetLastError();
 }
 

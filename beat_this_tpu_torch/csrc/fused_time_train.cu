@@ -4,399 +4,670 @@
 // head, and the dropout masks drawn from Philox (philox.cuh) by element
 // coordinates, so the backward regenerates the forward's masks.
 //
-// Replaces beat_this_tpu/ops/fused_time.py:_attn_train_kernel (forward,
+// Replaces beat_this_tpu/ops/fused_time.py:_attn_train_kernel (forward, B4,
 // reached through _fused_time_attn_train) and :_attn_train_bwd_kernel
-// (backward, through _fused_time_attn_train_bwd). The TPU kernels hold whole
-// (n, n) score tiles per head and accumulate across a sequential
-// (items, head_groups) grid. A block here has 227 KB of shared memory and
-// blocks run in parallel, so the branch is split into launches with O(n C)
-// intermediates in device memory and never an (n, n) tensor:
+// (backward, B5, through _fused_time_attn_train_bwd). The TPU kernels hold
+// whole (n, n) score tiles per head and accumulate across a sequential
+// (items, head_groups) grid. Here blocks run in parallel, so the branch is
+// split into launches with O(n C) intermediates in device memory and never
+// an (n, n) tensor. Every product runs on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, float32 accumulators): the attention core on the
+// 4-warp tile of attn_tc.cuh (64 rows a block, 64-row tiles of the other
+// side), the projections and weight gradients on the staged 128-row product
+// of tc_product.cuh. float32 runs every product as three bf16 products of
+// split operands (hi and lo parts, both bf16), about 16 significant bits.
 //
-// forward
+// forward (B4)
 //   1. time_qkv (time_qkv.cuh): norm, q/k/v, RoPE, gates, as at eval.
-//   2. attn_fwd: per (item * head, 128 queries), online-softmax attention
-//      over 64-key tiles, one query per thread. The probability mask scales
-//      the unnormalized p before the PV product while the row sum l stays
-//      undropped (torch's dropout of the normalized probabilities). Saves
-//      the row max m and sum l and the normalized, ungated output o.
-//   3. attn_out: per 32-row tile, round_T(o * gate) times W_out, then the
-//      output mask.
-// backward
-//   a. bwd_pre:  per 32-row tile, d_branch = dout * output mask, d_go =
-//      d_branch W_out, the gate pullback d_z, and per (row, head) dO / l and
+//   2. operands: W_out^T as a bf16 operand (float32: also q, k, v split).
+//   3. attn_fwd: per (item * head, 64 queries), two walks over 64-key
+//      tiles: S = Q K^T and each row's maximum m, then p = exp2(S s - m)
+//      (s = 32^-0.5 log2(e) on the float32 product, not on a rounded q),
+//      the probability mask, round_T(p f) repacked into A fragments and
+//      O += P V; l sums the undropped p. p is rounded against its row's
+//      final maximum, as in the plain version. Writes the normalized,
+//      ungated o (float32), m, l and round_T(o * gate) as an operand.
+//   4. attn_out: round_T(o * gate) W_out^T, then the output mask.
+// backward (B5)
+//   a. operands (float32 only): W_out, W_qkv, q, k, v split.
+//   b. pre:   d_branch = round_T(dout * output mask) and round_T(o * gate)
+//             as operands.
+//   c. d_go = d_branch W_out, whose epilogue writes round_T(dO / l) (dO =
+//      d_go gate) per (item, head) as an operand, the gate pullback d_z and
 //      delta = rowsum(dO / l * o).
-//   b. bwd_dq:   per (item * head, 128 queries), a flash backward over key
-//      tiles: ds = p (dp * mask - delta), dq = ds k, then the inverse RoPE.
-//   c. bwd_dkv:  per (item * head, 128 keys), the same over query tiles:
-//      dv = (p * mask)^T dO / l, dk = ds^T q, inverse RoPE (dk and dv reduce
-//      over queries, so they get their own key-major pass, not atomics).
-//   d. bwd_post: per 32-row tile, d_gn = dq|dk|dv W_qkv + d_z W_g, then the
-//      RMSNorm backward for dx, and per-tile partials of dgamma, dW_g, db_g.
-//   e. wgrad:    per (32 output rows of W_qkv or W_out, group of row
-//      tiles), dW_qkv = d_qkv^T g and dW_out = d_branch^T (o * gate) over the
-//      group's rows; one partial per group.
-//   f. sum_partials: fixed-order sums of the partials (two runs give the
-//      same bits).
+//   d. dq:    per (item * head, 64 queries) over key tiles: ds =
+//      round_T(p (dp f - delta)), dp = (dO / l) V^T, dq = ds K, then the
+//      inverse RoPE times 32^-0.5; round_T(d_q) as an operand.
+//   e. dkv:   per (item * head, 64 keys) over query tiles (dk and dv reduce
+//      over queries, so they get their own key-major pass, not atomics):
+//      dv = round_T(p f)^T dO / l, dk = ds^T Q (the unscaled q).
+//   f. d_gn = [d_q | d_k | d_v] W_qkv (float32, scratch).
+//   g. post:  per 32 rows, + d_z W_g and the RMSNorm backward for dx, the
+//      per-tile partials of dgamma, dW_g and db_g, and g = round_T(rmsnorm(x)
+//      gamma) as an operand.
+//   h. dW_qkv = d_qkv^T g and dW_out = d_branch^T round_T(o * gate), over
+//      groups of rows (one float32 partial per group), in one launch.
+//   i. the partials summed in a fixed order, in one launch (two runs give
+//      the same bits; no float atomics).
+// The scratch layouts live only here (FwdLayout, BwdLayout); the wrapper
+// asks bt_attn_train_fwd_scratch / bt_attn_train_bwd_scratch for the sizes.
 //
 // Bound on the H100: arithmetic. Attention costs 4 n^2 32 multiply-adds per
-// (item, head) in the forward and about 2.5 times that in the backward,
-// against O(n 32) bytes. Products are float32 FMAs on the SIMT cores;
-// bfloat16 values are widened on load and rounded where the TPU kernel
-// rounds (g, q/k/v, the dropped probabilities, the gated output, d_branch,
-// dO / l, ds, and d_q/d_k/d_v before the weight products).
+// (item, head) forward and about 2.5 times that backward, the projections
+// 8 C^2 per row forward and twice that backward, against O(n C) bytes.
+// bfloat16 values are rounded where the TPU kernel rounds (g, q/k/v, the
+// dropped probabilities, the gated output, d_branch, dO / l, ds, and
+// d_q/d_k/d_v before the weight products).
+#include <algorithm>
+#include <type_traits>
+
+#include "attn_tc.cuh"
+#include "tc_product.cuh"
 #include "time_qkv.cuh"
 
 namespace {
 
-constexpr float kScale = 0.17677669529663688f;            // 32^-0.5
-constexpr float kQScale = kScale * 1.4426950408889634f;   // 32^-0.5 * log2(e)
-constexpr int kDQ = kQTile / 2;  // queries per staged tile in the key-major pass
-constexpr int kWChunk = 32;      // output rows per weight-gradient block
+using mm::Operand;
+using bf16 = __nv_bfloat16;
+
+constexpr int kHD = bt::kHeadDim;                          // 32
+constexpr float kScale = 0.17677669529663688f;             // 32^-0.5
+constexpr float kQScale = kScale * 1.4426950408889634f;    // 32^-0.5 * log2(e)
+
+// -- operands -------------------------------------------------------------------
+
+// One conversion of a (rows, cols) matrix of T into bf16 operand parts
+// (hi, and with SPLIT lo = round(v - hi) `lo` elements after it), as it is
+// or transposed to (cols, rows).
+struct ConvJob {
+  const void* src;
+  bf16* dst;
+  int64_t rows, cols, lo;
+  int trans;
+};
+
+// Up to five conversions in one launch: blocks first[j] .. first[j + 1] - 1
+// take job j, two elements a thread.
+struct ConvJobs {
+  static constexpr int kMax = 5;
+  ConvJob job[kMax];
+  int count = 0;
+  unsigned first[kMax + 1] = {0};
+
+  void add(const void* src, bf16* dst, int64_t rows, int64_t cols, int trans) {
+    job[count] = ConvJob{src, dst, rows, cols, rows * cols, trans};
+    const int64_t pairs = rows * cols / 2;
+    first[count + 1] = first[count] + (unsigned)((pairs + bt::kThreads - 1) / bt::kThreads);
+    ++count;
+  }
+  unsigned blocks() const { return first[count]; }
+};
+
+template <bool SPLIT>
+__device__ __forceinline__ void store1(bf16* p, int64_t lo, float v) {
+  const bf16 hi = __float2bfloat16(v);
+  *p = hi;
+  if constexpr (SPLIT) p[lo] = __float2bfloat16(v - __bfloat162float(hi));
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kQTile)
-    attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    float* __restrict__ o, float* __restrict__ mrow, float* __restrict__ lrow,
-                    int n, int H, bt::Dropout drop) {
-  __shared__ float ks[kKTile][bt::kHeadDim];
-  __shared__ float vs[kKTile][bt::kHeadDim];
-  const int bh = blockIdx.x, item = bh / H, h = bh % H;
-  const int t = blockIdx.y * kQTile + threadIdx.x;
-  const size_t base = (size_t)bh * n * bt::kHeadDim;
-  float qr[bt::kHeadDim], acc[bt::kHeadDim];
-#pragma unroll
-  for (int d = 0; d < bt::kHeadDim; ++d) {
-    qr[d] = t < n ? bt::to_f(q[base + (size_t)t * bt::kHeadDim + d]) * kQScale : 0.f;
-    acc[d] = 0.f;
+__global__ void __launch_bounds__(bt::kThreads) attn_operands_kernel(ConvJobs s) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  int j = 0;
+  while (blockIdx.x >= s.first[j + 1]) ++j;
+  const ConvJob& jb = s.job[j];
+  const int64_t i = 2 * ((int64_t)(blockIdx.x - s.first[j]) * bt::kThreads + threadIdx.x);
+  if (i >= jb.rows * jb.cols) return;
+  const T* src = static_cast<const T*>(jb.src);
+  const float v0 = bt::to_f(src[i]), v1 = bt::to_f(src[i + 1]);
+  if (!jb.trans) {
+    mm::store2<SPLIT>(jb.dst + i, jb.lo, v0, v1);
+    return;
   }
-  float m = -INFINITY, l = 0.f;
-  for (int k0 = 0; k0 < n; k0 += kKTile) {
-    for (int e = threadIdx.x; e < kKTile * bt::kHeadDim; e += kQTile) {
-      const int r = e / bt::kHeadDim, d = e % bt::kHeadDim;
-      const bool ok = k0 + r < n;
-      ks[r][d] = ok ? bt::to_f(k[base + (size_t)(k0 + r) * bt::kHeadDim + d]) : 0.f;
-      vs[r][d] = ok ? bt::to_f(v[base + (size_t)(k0 + r) * bt::kHeadDim + d]) : 0.f;
-    }
-    __syncthreads();
-    const int kn = min(kKTile, n - k0);
-    float s[kKTile];
-    float mt = m;
+  const int64_t r = i / jb.cols, c = i % jb.cols;  // cols is even: c + 1 is in row r
+  store1<SPLIT>(jb.dst + c * jb.rows + r, jb.lo, v0);
+  store1<SPLIT>(jb.dst + (c + 1) * jb.rows + r, jb.lo, v1);
+}
+
+// -- the attention core ----------------------------------------------------------
+
+namespace tc {
+
+// Rows [r0, r0 + kTile) of the (n, 32) matrix `src` into the P tiles `tl`,
+// one per operand part (`lo` elements apart).
+template <int P>
+__device__ __forceinline__ void stage_parts(Tile<kHD>* tl, const bf16* __restrict__ src,
+                                            int64_t lo, int r0, int n) {
 #pragma unroll
-    for (int j = 0; j < kKTile; ++j) {
-      float a = 0.f;
+  for (int p = 0; p < P; ++p) stage<kHD>(tl[p], src + p * lo, r0, n);
+}
+
+template <int P>
+__device__ __forceinline__ void load_parts(uint32_t (&a)[P][kHD / 16][4],
+                                           const bf16* __restrict__ src, int64_t lo, int row0,
+                                           int n) {
 #pragma unroll
-      for (int d = 0; d < bt::kHeadDim; ++d) a += qr[d] * ks[j][d];
-      s[j] = j < kn ? a : -INFINITY;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float corr = exp2f(m - mt);
-    l *= corr;
+  for (int p = 0; p < P; ++p) load_a<kHD>(a[p], src + p * lo, row0, n);
+}
+
+// s = the warp's 16 rows (parts a) times the tile's 64 rows (parts tl),
+// transposed; split: a_lo t_hi + a_hi t_lo + a_hi t_hi.
+template <int P>
+__device__ __forceinline__ void scores(float (&s)[8][4], const uint32_t (&a)[P][kHD / 16][4],
+                                       const Tile<kHD>* tl) {
+  zero_frags(s);
+  if constexpr (P == 2) {
+    product_nt_acc<kHD>(s, a[1], tl[0]);
+    product_nt_acc<kHD>(s, a[0], tl[1]);
+  }
+  product_nt_acc<kHD>(s, a[0], tl[0]);
+}
+
+// acc += the 16 x 64 matrix (parts pa) times the tile (parts tl).
+template <int P>
+__device__ __forceinline__ void accumulate(float (&acc)[kHD / 8][4], const uint32_t (&pa)[P][4][4],
+                                           const Tile<kHD>* tl) {
+  if constexpr (P == 2) {
+    product_nn<kHD>(acc, pa[1], tl[0]);
+    product_nn<kHD>(acc, pa[0], tl[1]);
+  }
+  product_nn<kHD>(acc, pa[0], tl[0]);
+}
+
+// The A fragments of the C fragments s as bf16 parts: round(s), and with
+// two parts also round(s - round(s)).
+template <int P>
+__device__ __forceinline__ void to_parts(uint32_t (&pa)[P][4][4], const float (&s)[8][4]) {
+  to_a(pa[0], s);
+  if constexpr (P == 2) {
 #pragma unroll
-    for (int d = 0; d < bt::kHeadDim; ++d) acc[d] *= corr;
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int jg = 0; jg < kKTile / 4; ++jg) {
-      float f[4];
-      bt::keep4(drop, bt::kSiteAttnProbs, item, h, t, (k0 >> 2) + jg, f);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[4 * jg + e] - mt);
-        l += p;
-        const float a = bt::round_to<T>(p * f[e]);
-#pragma unroll
-        for (int d = 0; d < bt::kHeadDim; ++d) acc[d] += a * vs[4 * jg + e][d];
+      for (int r = 0; r < 4; ++r) {
+        const float* x = &s[2 * kk + (r >> 1)][2 * (r & 1)];
+        const float2 h = bt::unpack_bf16(pa[0][kk][r]);
+        pa[1][kk][r] = bt::pack_bf16(x[0] - h.x, x[1] - h.y);
       }
-    }
-    m = mt;
-    __syncthreads();
   }
-  if (t >= n) return;
-  mrow[(size_t)bh * n + t] = m;
-  lrow[(size_t)bh * n + t] = l;
-  float* dst = o + ((size_t)item * n + t) * (H * bt::kHeadDim) + h * bt::kHeadDim;
-#pragma unroll
-  for (int d = 0; d < bt::kHeadDim; ++d) dst[d] = acc[d] / l;
 }
 
-// Tile of round_T(o * gate), zero past nrows. Ends with a barrier.
-template <int C, typename T>
-__device__ __forceinline__ void load_gated(const float* __restrict__ o,
-                                           const float* __restrict__ gates, float* dst,
-                                           int64_t row0, int nrows) {
-  constexpr int H = C / bt::kHeadDim;
-  for (int e = threadIdx.x; e < bt::kRows * C; e += bt::kThreads) {
-    const int r = e / C, c = e % C;
-    dst[r * bt::tile_ld(C) + c] =
-        r < nrows ? bt::round_to<T>(o[(row0 + r) * C + c] *
-                                    gates[(row0 + r) * H + c / bt::kHeadDim])
-                  : 0.f;
-  }
-  __syncthreads();
+// Bytes of dynamic shared memory of the forward and dq (K and V rings) and
+// of dkv (Q and dO rings, the rows' m and delta, two mask tables).
+template <int P> constexpr size_t fwd_smem() { return 2 * kStages * P * sizeof(Tile<kHD>); }
+template <int P> constexpr size_t dkv_smem() {
+  return fwd_smem<P>() + 2 * kStages * kTile * sizeof(float) + 2 * kTile * (kRows / 4);
 }
 
-template <int C, typename T>
-__global__ void __launch_bounds__(bt::kThreads)
-    attn_out_kernel(const float* __restrict__ o, const float* __restrict__ gates,
-                    const T* __restrict__ wout, T* __restrict__ out, int64_t rows,
+// q, k, v: (items * H, n, 32) operands (parts `lo` apart); o (items, n, C)
+// float32; go (items, n, C) operand (parts go_lo apart); m, l (items * H, n).
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+    attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, int64_t lo, const float* __restrict__ gates,
+                    float* __restrict__ o, bf16* __restrict__ go, int64_t go_lo,
+                    float* __restrict__ mrow, float* __restrict__ lrow, int n, int H,
                     bt::Dropout drop) {
-  constexpr int ld = bt::tile_ld(C), NT = qkv_cols<C>();
-  extern __shared__ float smem[];
-  float* a = smem;
-  float* ws = a + bt::kRows * ld;
-  const int tid = threadIdx.x, cp = tid & 15, rg = tid >> 4;
-  const int64_t row0 = (int64_t)blockIdx.x * bt::kRows;
-  const int nrows = bt::tile_rows(rows, row0);
-  load_gated<C, T>(o, gates, a, row0, nrows);
-  for (int n0 = 0; n0 < C; n0 += NT) {
-    float acc[2][NT / 16];
-    bt::zero(acc);
-    bt::mm_acc<NT, T>(acc, a, ld, wout, C, n0, C, ws);
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  Tile<kHD>* ks = reinterpret_cast<Tile<kHD>*>(smem_b);
+  Tile<kHD>* vs = ks + kStages * P;
+  const int bh = blockIdx.x, item = bh / H, h = bh % H;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * kRows + 16 * (threadIdx.x >> 5);
+  const size_t base = (size_t)bh * n * kHD;
+  const int tiles = (n + kTile - 1) / kTile;
+  uint32_t qa[P][kHD / 16][4];
+  load_parts<P>(qa, q + base, lo, row0, n);
+
+  // walk 1: each query's maximum score
+  float smax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = rg + 16 * i;
-      if (r >= nrows) continue;
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < tiles) stage_parts<P>(ks + st * P, k + base, lo, st * kTile, n);
+    bt::cp_async_commit();
+  }
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * kTile;
+    bt::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + kStages - 1 < tiles)
+      stage_parts<P>(ks + ((it + kStages - 1) % kStages) * P, k + base, lo,
+                     k0 + (kStages - 1) * kTile, n);
+    bt::cp_async_commit();
+    float s[8][4];
+    scores<P>(s, qa, ks + (it % kStages) * P);
 #pragma unroll
-      for (int j = 0; j < NT / 32; ++j) {
-        const int c0 = n0 + 2 * cp + 32 * j;
-        float f[4];
-        bt::keep4(drop, bt::kSiteAttnOut, 0, 0, (uint32_t)(row0 + r), c0 >> 2, f);
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          out[(row0 + r) * C + c0 + e] = bt::from_f<T>(acc[i][2 * j + e] * f[(c0 & 3) + e]);
+      for (int e = 0; e < 2; ++e)
+        if (k0 + 8 * j + 2 * t + e < n) {
+          smax[0] = fmaxf(smax[0], s[j][e]);
+          smax[1] = fmaxf(smax[1], s[j][2 + e]);
+        }
+  }
+  // scaling is monotonic, so this is the maximum of the scaled scores
+  const float m[2] = {quad_max(smax[0]) * kQScale, quad_max(smax[1]) * kQScale};
+  bt::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the buffers walk 2 restages
+
+  // walk 2: p, l and O += P V
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < tiles) {
+      stage_parts<P>(ks + st * P, k + base, lo, st * kTile, n);
+      stage_parts<P>(vs + st * P, v + base, lo, st * kTile, n);
+    }
+    bt::cp_async_commit();
+  }
+  float acc[kHD / 8][4] = {};
+  float l[2] = {0.f, 0.f};
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * kTile, buf = it % kStages;
+    bt::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + kStages - 1 < tiles) {
+      const int nb = (it + kStages - 1) % kStages;
+      stage_parts<P>(ks + nb * P, k + base, lo, k0 + (kStages - 1) * kTile, n);
+      stage_parts<P>(vs + nb * P, v + base, lo, k0 + (kStages - 1) * kTile, n);
+    }
+    bt::cp_async_commit();
+    float s[8][4];
+    scores<P>(s, qa, ks + buf * P);
+    uint32_t bits[2] = {0u, 0u};
+    if (drop.on) keep_bits(drop, item, h, row0 + g, k0, bits);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = k0 + 8 * j + 2 * t + e < n;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float p = in ? fast_exp2(s[j][2 * hh + e] * kQScale - m[hh]) : 0.f;
+          l[hh] += p;
+          s[j][2 * hh + e] = drop.on ? p * keep_factor(drop, bits[hh], 2 * j + e) : p;
+        }
       }
+    uint32_t pa[P][4][4];
+    to_parts<P>(pa, s);
+    accumulate<P>(acc, pa, vs + buf * P);
+  }
+  const float lt[2] = {quad_sum(l[0]), quad_sum(l[1])};
+  const int C = H * kHD;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + g + 8 * hh;
+    if (r >= n) continue;
+    const int64_t row = (int64_t)item * n + r;
+    if (t == 0) {
+      mrow[(size_t)bh * n + r] = m[hh];
+      lrow[(size_t)bh * n + r] = lt[hh];
+    }
+    const float gate = gates[row * H + h];
+#pragma unroll
+    for (int c = 0; c < kHD / 8; ++c) {
+      const int64_t at = row * C + h * kHD + 8 * c + 2 * t;
+      const float v0 = acc[c][2 * hh] / lt[hh], v1 = acc[c][2 * hh + 1] / lt[hh];
+      *reinterpret_cast<float2*>(o + at) = make_float2(v0, v1);
+      mm::store2<P == 2>(go + at, go_lo, v0 * gate, v1 * gate);
     }
   }
 }
 
-template <int C, typename T>
+// g (the rotation pair i = 4c + t of position r, channels 8c + 2t, +1)
+// pulled back through the rotation, times 32^-0.5, stored as operand parts.
+template <int P>
+__device__ __forceinline__ void store_rope_inv(bf16* dst, int64_t lo, float a, float b,
+                                               const float* __restrict__ cosv,
+                                               const float* __restrict__ sinv, size_t at) {
+  const float cs = cosv[at], sn = sinv[at];
+  mm::store2<P == 2>(dst, lo, (a * cs + b * sn) * kScale, (b * cs - a * sn) * kScale);
+}
+
+// dol: round_T(dO / l) as (items * H, n, 32) operands (parts `lo` apart, as
+// q, k, v); dqkv: (items, n, 3C) operand (parts dlo apart).
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+    attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dol, int64_t lo,
+                   const float* __restrict__ mrow, const float* __restrict__ delta,
+                   const float* __restrict__ cosv, const float* __restrict__ sinv,
+                   bf16* __restrict__ dqkv, int64_t dlo, int n, int H, bt::Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  Tile<kHD>* ks = reinterpret_cast<Tile<kHD>*>(smem_b);
+  Tile<kHD>* vs = ks + kStages * P;
+  const int bh = blockIdx.x, item = bh / H, h = bh % H;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * kRows + 16 * (threadIdx.x >> 5);
+  const size_t base = (size_t)bh * n * kHD;
+  const int tiles = (n + kTile - 1) / kTile;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < tiles) {
+      stage_parts<P>(ks + st * P, k + base, lo, st * kTile, n);
+      stage_parts<P>(vs + st * P, v + base, lo, st * kTile, n);
+    }
+    bt::cp_async_commit();
+  }
+  uint32_t qa[P][kHD / 16][4], da[P][kHD / 16][4];
+  load_parts<P>(qa, q + base, lo, row0, n);
+  load_parts<P>(da, dol + base, lo, row0, n);
+  float m[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + g + 8 * hh;
+    m[hh] = r < n ? mrow[(size_t)bh * n + r] : 0.f;
+    dl[hh] = r < n ? delta[(size_t)bh * n + r] : 0.f;
+  }
+  float acc[kHD / 8][4] = {};
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * kTile, buf = it % kStages;
+    bt::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + kStages - 1 < tiles) {
+      const int nb = (it + kStages - 1) % kStages;
+      stage_parts<P>(ks + nb * P, k + base, lo, k0 + (kStages - 1) * kTile, n);
+      stage_parts<P>(vs + nb * P, v + base, lo, k0 + (kStages - 1) * kTile, n);
+    }
+    bt::cp_async_commit();
+    float s[8][4], dp[8][4];
+    scores<P>(s, qa, ks + buf * P);
+    scores<P>(dp, da, vs + buf * P);
+    uint32_t bits[2] = {0u, 0u};
+    if (drop.on) keep_bits(drop, item, h, row0 + g, k0, bits);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 2 * hh + e;
+          const float p =
+              k0 + 8 * j + 2 * t + e < n ? fast_exp2(s[j][x] * kQScale - m[hh]) : 0.f;
+          const float f = drop.on ? keep_factor(drop, bits[hh], 2 * j + e) : 1.f;
+          s[j][x] = p * (dp[j][x] * f - dl[hh]);  // dS, rounded by to_parts
+        }
+    uint32_t pa[P][4][4];
+    to_parts<P>(pa, s);
+    accumulate<P>(acc, pa, ks + buf * P);
+  }
+  const int C = H * kHD;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + g + 8 * hh;
+    if (r >= n) continue;
+    bf16* dst = dqkv + ((int64_t)item * n + r) * 3 * C + h * kHD;
+#pragma unroll
+    for (int c = 0; c < kHD / 8; ++c)
+      store_rope_inv<P>(dst + 8 * c + 2 * t, dlo, acc[c][2 * hh], acc[c][2 * hh + 1], cosv, sinv,
+                        (size_t)r * (kHD / 2) + 4 * c + t);
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+    attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dol, int64_t lo,
+                    const float* __restrict__ mrow, const float* __restrict__ delta,
+                    const float* __restrict__ cosv, const float* __restrict__ sinv,
+                    bf16* __restrict__ dqkv, int64_t dlo, int n, int H, bt::Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  Tile<kHD>* qs = reinterpret_cast<Tile<kHD>*>(smem_b);  // q, unscaled
+  Tile<kHD>* dos = qs + kStages * P;                     // round_T(dO / l)
+  float* lss = reinterpret_cast<float*>(dos + kStages * P);  // [kStages][kTile] m
+  float* dls = lss + kStages * kTile;                         // [kStages][kTile] delta
+  // mask bits of 4 keys per byte, by tile parity
+  auto* keepb = reinterpret_cast<uint8_t(*)[kTile][kRows / 4]>(dls + kStages * kTile);
+  const int bh = blockIdx.x, item = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int kb0 = blockIdx.y * kRows, row0 = kb0 + 16 * warp;
+  const size_t base = (size_t)bh * n * kHD;
+  const float* mr = mrow + (size_t)bh * n;
+  const float* dr = delta + (size_t)bh * n;
+  const int tiles = (n + kTile - 1) / kTile;
+  // stages tile `st` (queries st * kTile ...) into buffer st % kStages
+  auto stage_tile = [&](int st) {
+    const int b = st % kStages, q0 = st * kTile;
+    stage_parts<P>(qs + b * P, q + base, lo, q0, n);
+    stage_parts<P>(dos + b * P, dol + base, lo, q0, n);
+    for (int i = threadIdx.x; i < kTile; i += kThreads) {
+      lss[b * kTile + i] = q0 + i < n ? mr[q0 + i] : 0.f;
+      dls[b * kTile + i] = q0 + i < n ? dr[q0 + i] : 0.f;
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < tiles) stage_tile(st);
+    bt::cp_async_commit();
+  }
+  if (drop.on) keep_table(keepb[0], drop, item, h, kb0, 0);
+  uint32_t ka[P][kHD / 16][4], va[P][kHD / 16][4];
+  load_parts<P>(ka, k + base, lo, row0, n);
+  load_parts<P>(va, v + base, lo, row0, n);
+  float dk[kHD / 8][4] = {}, dv[kHD / 8][4] = {};
+  for (int it = 0; it < tiles; ++it) {
+    const int q0 = it * kTile, buf = it % kStages;
+    bt::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it + kStages - 1 < tiles) stage_tile(it + kStages - 1);
+    bt::cp_async_commit();
+    // the next tile's bits into the table the previous tile used
+    if (drop.on && it + 1 < tiles) keep_table(keepb[(it + 1) & 1], drop, item, h, kb0, q0 + kTile);
+    float s[8][4], dp[8][4];
+    scores<P>(s, ka, qs + buf * P);    // S^T: the warp's 16 keys x 64 queries
+    scores<P>(dp, va, dos + buf * P);  // dP^T
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = 8 * j + 2 * t + e;
+        const bool in = q0 + qi < n;
+        const float lq = lss[buf * kTile + qi], dq = dls[buf * kTile + qi];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int x = 2 * hh + e, kl = 16 * warp + g + 8 * hh;
+          const float p = in ? fast_exp2(s[j][x] * kQScale - lq) : 0.f;
+          const float f = !drop.on                                          ? 1.f
+                          : ((keepb[it & 1][qi][kl >> 2] >> (kl & 3)) & 1) ? drop.scale
+                                                                            : 0.f;
+          s[j][x] = p * f;                     // P^T f, rounded by to_parts
+          dp[j][x] = p * (dp[j][x] * f - dq);  // dS^T, rounded by to_parts
+        }
+      }
+    uint32_t pa[P][4][4];
+    to_parts<P>(pa, s);
+    accumulate<P>(dv, pa, dos + buf * P);
+    to_parts<P>(pa, dp);
+    accumulate<P>(dk, pa, qs + buf * P);
+  }
+  const int C = H * kHD;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + g + 8 * hh;
+    if (r >= n) continue;
+    bf16* dst = dqkv + ((int64_t)item * n + r) * 3 * C + h * kHD;
+#pragma unroll
+    for (int c = 0; c < kHD / 8; ++c) {
+      store_rope_inv<P>(dst + C + 8 * c + 2 * t, dlo, dk[c][2 * hh], dk[c][2 * hh + 1], cosv,
+                        sinv, (size_t)r * (kHD / 2) + 4 * c + t);
+      mm::store2<P == 2>(dst + 2 * C + 8 * c + 2 * t, dlo, dv[c][2 * hh], dv[c][2 * hh + 1]);
+    }
+  }
+}
+
+}  // namespace tc
+
+// -- the row passes and the products ---------------------------------------------
+
+using mm::kTM;
+
+// round_T(o * gate) (items, n, C) and, in the backward, d_branch =
+// round_T(dout * output mask) as operands (parts `lo` apart), four columns a
+// thread and step.
+template <typename T>
 __global__ void __launch_bounds__(bt::kThreads)
     attn_bwd_pre_kernel(const T* __restrict__ dout, const float* __restrict__ o,
-                        const float* __restrict__ gates, const float* __restrict__ lrow,
-                        const T* __restrict__ wout, T* __restrict__ dbb,
-                        float* __restrict__ dO, float* __restrict__ dz,
-                        float* __restrict__ delta, int64_t rows, int n, bt::Dropout drop) {
-  constexpr int H = C / bt::kHeadDim, ld = bt::tile_ld(C), NT = qkv_cols<C>();
-  extern __shared__ float smem[];
-  float* a = smem;
-  float* ws = a + bt::kRows * ld;
-  const int tid = threadIdx.x, cp = tid & 15, rg = tid >> 4;
-  const int64_t row0 = (int64_t)blockIdx.x * bt::kRows;
-  const int nrows = bt::tile_rows(rows, row0);
-
-  for (int e = tid; e < bt::kRows * C; e += bt::kThreads) {
-    const int r = e / C, c = e % C;
-    float val = 0.f;
-    if (r < nrows) {
-      const int64_t at = (row0 + r) * C + c;
-      val = bt::round_to<T>(bt::to_f(dout[at]) *
-                            bt::keep1(drop, bt::kSiteAttnOut, 0, 0, (uint32_t)(row0 + r), c));
-      dbb[at] = bt::from_f<T>(val);
+                        const float* __restrict__ gates, bf16* __restrict__ dbr,
+                        bf16* __restrict__ go, int64_t lo, int64_t rows, int C, bt::Dropout drop) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  const int H = C / kHD;
+  const int64_t quads = rows * C / 4;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < quads;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t r = e / (C / 4);
+    const int c = 4 * (int)(e % (C / 4));
+    float f[4];
+    bt::keep4(drop, bt::kSiteAttnOut, 0, 0, (uint32_t)r, c >> 2, f);
+    const float gate = gates[r * H + c / kHD];
+    const int64_t at = r * C + c;
+    float d[4], gv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      d[i] = bt::to_f(dout[at + i]) * f[i];
+      gv[i] = o[at + i] * gate;
     }
-    a[r * ld + c] = val;
+    mm::store4<SPLIT>(dbr + at, lo, d);
+    mm::store4<SPLIT>(go + at, lo, gv);
   }
-  __syncthreads();
+}
 
-  for (int n0 = 0; n0 < C; n0 += NT) {
-    float acc[2][NT / 16];
-    bt::zero(acc);
-    bt::mm_acc_t<NT, T>(acc, a, ld, wout, C, n0, C, ws);  // d_go = d_branch W_out
+// The forward's out projection: out = round_T(o * gate) W_out^T (A: the
+// gated rows, B: W_out^T, both operands) times the output keep factors.
+template <int BN, typename T>
+__global__ void __launch_bounds__(bt::kThreads)
+    attn_out_kernel(Operand A, Operand B, T* __restrict__ out, int64_t rows, int C,
+                    bt::Dropout drop) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int64_t m0 = (int64_t)blockIdx.y * kTM;
+  const int n0 = blockIdx.x * BN;
+  float acc[2][BN / 16][4];
+  mm::product<false, BN, SPLIT>(acc, A, B, m0, n0, 0, C, rows, C,
+                                reinterpret_cast<bf16*>(smem_b));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = 32 * (warp & 3), wn = (BN / 2) * (warp >> 2);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = rg + 16 * i;
-      const bool ok = r < nrows;
-      const int64_t row = row0 + r, item = row / n;
-      const int t = (int)(row % n);
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int j = 0; j < NT / 32; ++j) {
-        const int h = (n0 + 32 * j) / bt::kHeadDim;
-        const size_t bht = ((size_t)item * H + h) * n + t;
-        const float gate = ok ? gates[row * H + h] : 0.f;
+    for (int j = 0; j < BN / 16; ++j) {
+      const int64_t row = m0 + wm + 16 * mi + (lane >> 2);
+      const int col8 = n0 + wn + 8 * j, col = col8 + 2 * (lane & 3);
+      float f[2][2];
+      mm::row_keep(drop, bt::kSiteAttnOut, row, col8, f);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int64_t r = row + 8 * hh;
+        if (r >= rows || col >= C) continue;
+        out[r * C + col] = bt::from_f<T>(acc[mi][j][2 * hh] * f[hh][0]);
+        out[r * C + col + 1] = bt::from_f<T>(acc[mi][j][2 * hh + 1] * f[hh][1]);
+      }
+    }
+}
+
+// d_go = d_branch W_out (A: d_branch, B: W_out, both operands), and from it
+// per (row, head): round_T(dO / l) with dO = d_go gate into dol ((items *
+// H, n, 32) operand, parts `lo` apart), d_z = zo gate (1 - gate) and delta
+// = zo gate / l, zo = sum over the head's channels of d_go o. A warp's BN / 2
+// columns are whole heads.
+template <int BN, bool SPLIT>
+__global__ void __launch_bounds__(bt::kThreads)
+    attn_dgo_kernel(Operand A, Operand B, const float* __restrict__ o,
+                    const float* __restrict__ gates, const float* __restrict__ lrow,
+                    bf16* __restrict__ dol, int64_t lo, float* __restrict__ dz,
+                    float* __restrict__ delta, int64_t rows, int n, int C) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int64_t m0 = (int64_t)blockIdx.y * kTM;
+  const int n0 = blockIdx.x * BN;
+  float acc[2][BN / 16][4];
+  mm::product<false, BN, SPLIT>(acc, A, B, m0, n0, 0, C, rows, C,
+                                reinterpret_cast<bf16*>(smem_b));
+  const int H = C / kHD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int wm = 32 * (warp & 3), wn = (BN / 2) * (warp >> 2);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int64_t row = m0 + wm + 16 * mi + g + 8 * hh;
+      const bool rok = row < rows;
+      const int64_t item = rok ? row / n : 0;
+      const int tt = rok ? (int)(row % n) : 0;
+#pragma unroll
+      for (int hw = 0; hw < BN / 64; ++hw) {
+        const int c0 = n0 + wn + kHD * hw, head = c0 / kHD;
+        const bool ok = rok && c0 < C;
+        const float gate = ok ? gates[row * H + head] : 0.f;
+        const size_t bht = ((size_t)item * H + head) * n + tt;
         const float l = ok ? lrow[bht] : 1.f;
         float zo = 0.f;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int d = 2 * cp + e;
-          const float dgo = acc[i][2 * j + e];
-          zo += dgo * (ok ? o[row * C + n0 + 32 * j + d] : 0.f);
-          if (ok) dO[bht * bt::kHeadDim + d] = dgo * gate / l;
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * hw + jj, d = 8 * jj + 2 * t;
+          const float a0 = acc[mi][j][2 * hh], a1 = acc[mi][j][2 * hh + 1];
+          if (ok) {
+            const float2 ov = *reinterpret_cast<const float2*>(o + row * C + c0 + d);
+            zo += a0 * ov.x + a1 * ov.y;
+            mm::store2<SPLIT>(dol + bht * kHD + d, lo, a0 * gate / l, a1 * gate / l);
+          }
         }
-#pragma unroll
-        for (int off = 8; off; off >>= 1) zo += __shfl_xor_sync(0xffffffffu, zo, off);
-        if (ok && cp == 0) {
-          dz[row * H + h] = zo * gate * (1.f - gate);
+        zo = tc::quad_sum(zo);
+        if (ok && t == 0) {
+          dz[row * H + head] = zo * gate * (1.f - gate);
           delta[bht] = zo * gate / l;
         }
       }
     }
-  }
 }
 
-// Inverse RoPE (the transpose of the rotation) of interleaved pairs at
-// position t, times the softmax scale, stored to dst[0..31] as T.
-template <typename T>
-__device__ __forceinline__ void store_rope_inv(const float (&g)[bt::kHeadDim],
-                                               const float* __restrict__ cosv,
-                                               const float* __restrict__ sinv, int t, T* dst) {
-#pragma unroll
-  for (int d = 0; d < bt::kHeadDim; d += 2) {
-    const float cs = cosv[t * (bt::kHeadDim / 2) + d / 2];
-    const float sn = sinv[t * (bt::kHeadDim / 2) + d / 2];
-    dst[d] = bt::from_f<T>((g[d] * cs + g[d + 1] * sn) * kScale);
-    dst[d + 1] = bt::from_f<T>((g[d + 1] * cs - g[d] * sn) * kScale);
-  }
-}
+// One product of attn_product_kernel: out (+ z out_step for depth slice z =
+// blockIdx.z) = A B over rows [0, m_end) and columns [0, n_end), depth
+// [z k_per, min((z + 1) k_per, k_end)); m tiles of kTM rows.
+struct ProductJob {
+  Operand A, B;
+  float* out;
+  int64_t ldo, out_step, m_end;
+  int n_end;
+  int64_t k_end, k_per;
+  unsigned mtiles;
+};
 
-template <typename T>
-__global__ void __launch_bounds__(kQTile)
-    attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const float* __restrict__ dO,
-                       const float* __restrict__ mrow, const float* __restrict__ delta,
-                       const float* __restrict__ cosv, const float* __restrict__ sinv,
-                       T* __restrict__ dqkv, int n, int H, bt::Dropout drop) {
-  __shared__ float ks[kKTile][bt::kHeadDim];
-  __shared__ float vs[kKTile][bt::kHeadDim];
-  const int bh = blockIdx.x, item = bh / H, h = bh % H;
-  const int t = blockIdx.y * kQTile + threadIdx.x;
-  const bool ok = t < n;
-  const size_t base = (size_t)bh * n * bt::kHeadDim;
-  float qr[bt::kHeadDim], dol[bt::kHeadDim], dq[bt::kHeadDim];
-#pragma unroll
-  for (int d = 0; d < bt::kHeadDim; ++d) {
-    qr[d] = ok ? bt::to_f(q[base + (size_t)t * bt::kHeadDim + d]) * kQScale : 0.f;
-    dol[d] = ok ? bt::round_to<T>(dO[base + (size_t)t * bt::kHeadDim + d]) : 0.f;
-    dq[d] = 0.f;
-  }
-  const float m = ok ? mrow[(size_t)bh * n + t] : 0.f;
-  const float dl = ok ? delta[(size_t)bh * n + t] : 0.f;
-  for (int k0 = 0; k0 < n; k0 += kKTile) {
-    for (int e = threadIdx.x; e < kKTile * bt::kHeadDim; e += kQTile) {
-      const int r = e / bt::kHeadDim, d = e % bt::kHeadDim;
-      const bool in = k0 + r < n;
-      ks[r][d] = in ? bt::to_f(k[base + (size_t)(k0 + r) * bt::kHeadDim + d]) : 0.f;
-      vs[r][d] = in ? bt::to_f(v[base + (size_t)(k0 + r) * bt::kHeadDim + d]) : 0.f;
-    }
-    __syncthreads();
-    const int kn = min(kKTile, n - k0);
-    for (int jg = 0; jg < kKTile / 4; ++jg) {
-      float f[4];
-      bt::keep4(drop, bt::kSiteAttnProbs, item, h, t, (k0 >> 2) + jg, f);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 4 * jg + e;
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int d = 0; d < bt::kHeadDim; ++d) {
-          s += qr[d] * ks[j][d];
-          dp += dol[d] * vs[j][d];
-        }
-        const float p = j < kn ? exp2f(s - m) : 0.f;
-        const float ds = bt::round_to<T>(p * (dp * f[e] - dl));
-#pragma unroll
-        for (int d = 0; d < bt::kHeadDim; ++d) dq[d] += ds * ks[j][d];
-      }
-    }
-    __syncthreads();
-  }
-  if (!ok) return;
-  const int C = H * bt::kHeadDim;
-  store_rope_inv<T>(dq, cosv, sinv, t, dqkv + ((size_t)item * n + t) * 3 * C + h * bt::kHeadDim);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kQTile)
-    attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const float* __restrict__ dO,
-                        const float* __restrict__ mrow, const float* __restrict__ delta,
-                        const float* __restrict__ cosv, const float* __restrict__ sinv,
-                        T* __restrict__ dqkv, int n, int H, bt::Dropout drop) {
-  __shared__ float qs[kDQ][bt::kHeadDim];   // q * scale * log2(e), as the forward scores
-  __shared__ float qu[kDQ][bt::kHeadDim];   // q
-  __shared__ float dos[kDQ][bt::kHeadDim];  // round_T(dO / l)
-  __shared__ float ms[kDQ], dls[kDQ];
-  __shared__ uint8_t keepb[kDQ][kQTile / 4];  // mask bits of 4 keys per byte
-  const int bh = blockIdx.x, item = bh / H, h = bh % H, tl = threadIdx.x;
-  const int kb0 = blockIdx.y * kQTile, j = kb0 + tl;
-  const bool ok = j < n;
-  const size_t base = (size_t)bh * n * bt::kHeadDim;
-  float kr[bt::kHeadDim], vr[bt::kHeadDim], dk[bt::kHeadDim], dv[bt::kHeadDim];
-#pragma unroll
-  for (int d = 0; d < bt::kHeadDim; ++d) {
-    kr[d] = ok ? bt::to_f(k[base + (size_t)j * bt::kHeadDim + d]) : 0.f;
-    vr[d] = ok ? bt::to_f(v[base + (size_t)j * bt::kHeadDim + d]) : 0.f;
-    dk[d] = dv[d] = 0.f;
-  }
-  for (int q0 = 0; q0 < n; q0 += kDQ) {
-    for (int e = tl; e < kDQ * bt::kHeadDim; e += kQTile) {
-      const int i = e / bt::kHeadDim, d = e % bt::kHeadDim;
-      const bool in = q0 + i < n;
-      const size_t at = base + (size_t)(q0 + i) * bt::kHeadDim + d;
-      const float qv = in ? bt::to_f(q[at]) : 0.f;
-      qu[i][d] = qv;
-      qs[i][d] = qv * kQScale;
-      dos[i][d] = in ? bt::round_to<T>(dO[at]) : 0.f;
-    }
-    for (int i = tl; i < kDQ; i += kQTile) {
-      const bool in = q0 + i < n;
-      ms[i] = in ? mrow[(size_t)bh * n + q0 + i] : 0.f;
-      dls[i] = in ? delta[(size_t)bh * n + q0 + i] : 0.f;
-    }
-    if (drop.on) {
-      for (int g = tl; g < kDQ * (kQTile / 4); g += kQTile) {
-        const int i = g / (kQTile / 4), kg = g % (kQTile / 4);
-        const uint4 b = bt::philox4x32_10(
-            make_uint4((kb0 >> 2) + kg, q0 + i, item, (bt::kSiteAttnProbs << 16) | h), drop.seed,
-            drop.salt);
-        keepb[i][kg] = (uint8_t)((b.x < drop.thr) | ((b.y < drop.thr) << 1) |
-                                 ((b.z < drop.thr) << 2) | ((b.w < drop.thr) << 3));
-      }
-    }
-    __syncthreads();
-    const int qn = min(kDQ, n - q0);
-    for (int i = 0; i < qn; ++i) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < bt::kHeadDim; ++d) {
-        s += qs[i][d] * kr[d];
-        dp += dos[i][d] * vr[d];
-      }
-      const float f = !drop.on ? 1.f : ((keepb[i][tl >> 2] >> (tl & 3)) & 1) ? drop.scale : 0.f;
-      const float p = exp2f(s - ms[i]);
-      const float a = bt::round_to<T>(p * f);
-      const float ds = bt::round_to<T>(p * (dp * f - dls[i]));
-#pragma unroll
-      for (int d = 0; d < bt::kHeadDim; ++d) {
-        dv[d] += a * dos[i][d];
-        dk[d] += ds * qu[i][d];
-      }
-    }
-    __syncthreads();
-  }
-  if (!ok) return;
-  const int C = H * bt::kHeadDim;
-  T* row = dqkv + ((size_t)item * n + j) * 3 * C + h * bt::kHeadDim;
-  store_rope_inv<T>(dk, cosv, sinv, j, row + C);
-#pragma unroll
-  for (int d = 0; d < bt::kHeadDim; ++d) row[2 * C + d] = bt::from_f<T>(dv[d]);
+// Two products in one launch: the first job's m tiles, then the second's,
+// along blockIdx.y (d_gn: one job; the weight gradients dW_qkv and dW_out).
+template <bool AM, int BN, bool SPLIT>
+__global__ void __launch_bounds__(bt::kThreads)
+    attn_product_kernel(ProductJob j0, ProductJob j1) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const bool second = blockIdx.y >= j0.mtiles;
+  const ProductJob jb = second ? j1 : j0;
+  const int64_t m0 = (int64_t)(blockIdx.y - (second ? j0.mtiles : 0u)) * kTM;
+  const int64_t k0 = (int64_t)blockIdx.z * jb.k_per;
+  const int n0 = blockIdx.x * BN;
+  float acc[2][BN / 16][4];
+  mm::product<AM, BN, SPLIT>(acc, jb.A, jb.B, m0, n0, k0, min(k0 + jb.k_per, jb.k_end), jb.m_end,
+                             jb.n_end, reinterpret_cast<bf16*>(smem_b));
+  mm::store_product<BN>(acc, jb.out + blockIdx.z * jb.out_step, jb.ldo, 0, m0, n0, jb.m_end,
+                        jb.n_end);
 }
 
 template <int C>
 __host__ __device__ constexpr int post_smem_floats() {
-  return 2 * bt::kRows * bt::tile_ld(C) + bt::stage_floats(C) +
-         bt::kRows * (C / bt::kHeadDim) + bt::kRows;
+  return 2 * bt::kRows * bt::tile_ld(C) + bt::kRows * (C / kHD) + bt::kRows;
 }
 
+// Per 32 rows: d_gn (float32, from the product) + d_z W_g, the RMSNorm
+// backward for dx, the tile's partials of dgamma, dW_g and db_g, and g =
+// round_T(rmsnorm(x) gamma) as an operand (parts glo apart).
 template <int C, typename T>
 __global__ void __launch_bounds__(bt::kThreads)
     attn_bwd_post_kernel(const T* __restrict__ x, const float* __restrict__ agamma,
-                         const T* __restrict__ wqkv, const float* __restrict__ wg,
-                         const T* __restrict__ dqkv, const float* __restrict__ dz,
-                         T* __restrict__ dx, float* __restrict__ dgp, float* __restrict__ dwgp,
+                         const float* __restrict__ wg, const float* __restrict__ dgn,
+                         const float* __restrict__ dz, T* __restrict__ dx, bf16* __restrict__ gop,
+                         int64_t glo, float* __restrict__ dgp, float* __restrict__ dwgp,
                          float* __restrict__ dgbp, int64_t rows) {
-  constexpr int H = C / bt::kHeadDim, ld = bt::tile_ld(C);
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int H = C / kHD, ld = bt::tile_ld(C);
   extern __shared__ float smem[];
   float* t1 = smem;                 // x, then the float32 normed rows gn
-  float* t2 = t1 + bt::kRows * ld;  // one of d_q / d_k / d_v, then dgamma's products
-  float* ws = t2 + bt::kRows * ld;
-  float* dzs = ws + bt::stage_floats(C);
+  float* t2 = t1 + bt::kRows * ld;  // dgamma's products
+  float* dzs = t2 + bt::kRows * ld;
   float* rn = dzs + bt::kRows * H;
   const int tid = threadIdx.x, cp = tid & 15, rg = tid >> 4;
   const int warp = tid >> 5, lane = tid & 31;
@@ -405,14 +676,16 @@ __global__ void __launch_bounds__(bt::kThreads)
   const float sc = sqrtf((float)C);
 
   float acc[2][C / 16];
-  bt::zero(acc);
-  for (int sec = 0; sec < 3; ++sec) {
-    for (int e = tid; e < bt::kRows * C; e += bt::kThreads) {
-      const int r = e / C, c = e % C;
-      t2[r * ld + c] = r < nrows ? bt::to_f(dqkv[(row0 + r) * 3 * C + sec * C + c]) : 0.f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = rg + 16 * i;
+#pragma unroll
+    for (int j = 0; j < C / 32; ++j) {
+      float2 v = make_float2(0.f, 0.f);
+      if (r < nrows) v = *reinterpret_cast<const float2*>(dgn + (row0 + r) * C + 2 * cp + 32 * j);
+      acc[i][2 * j] = v.x;
+      acc[i][2 * j + 1] = v.y;
     }
-    __syncthreads();
-    bt::mm_acc_t<C, T>(acc, t2, ld, wqkv + (size_t)sec * C * C, C, 0, C, ws);
   }
   for (int e = tid; e < bt::kRows * H; e += bt::kThreads) {
     const int r = e / H;
@@ -473,6 +746,11 @@ __global__ void __launch_bounds__(bt::kThreads)
     t1[r * ld + c] = t1[r * ld + c] / rn[r] * sc * agamma[c];
   }
   __syncthreads();
+  for (int e = tid; e < bt::kRows * (C / 2); e += bt::kThreads) {
+    const int r = e / (C / 2), c = 2 * (e % (C / 2));
+    if (r < nrows)
+      mm::store2<SPLIT>(gop + (row0 + r) * C + c, glo, t1[r * ld + c], t1[r * ld + c + 1]);
+  }
   for (int e = tid; e < H * C; e += bt::kThreads) {
     const int h = e / C, c = e % C;
     float sum = 0.f;
@@ -486,70 +764,87 @@ __global__ void __launch_bounds__(bt::kThreads)
   }
 }
 
-template <int C>
-__host__ __device__ constexpr int wgrad_smem_floats() {
-  return bt::kRows * bt::tile_ld(C) + bt::kRows * (kWChunk + 1);
+// The backward's four fixed-order sums (dgamma, dW_g, db_g, [dW_qkv;
+// dW_out]), in one launch.
+__global__ void __launch_bounds__(bt::kThreads) attn_bwd_sums_kernel(mm::SumJobs<4> s) {
+  mm::column_sums(s);
 }
 
-// Block (cb, g): output rows cb * 32 .. cb * 32 + 31 of the stacked
-// [dW_qkv (3C, C); dW_out (C, C)] over row-tile group g.
-template <int C, typename T>
-__global__ void __launch_bounds__(bt::kThreads)
-    attn_wgrad_kernel(const T* __restrict__ x, const float* __restrict__ agamma,
-                      const T* __restrict__ dqkv, const float* __restrict__ o,
-                      const float* __restrict__ gates, const T* __restrict__ dbb,
-                      float* __restrict__ wp, int64_t rows, int tiles_per_group) {
-  constexpr int ld = bt::tile_ld(C), cl = kWChunk + 1, NI = C / 32;
-  extern __shared__ float smem[];
-  float* R = smem;
-  float* L = R + bt::kRows * ld;
-  const int tid = threadIdx.x, cb = blockIdx.x, g = blockIdx.y;
-  const bool is_qkv = cb < 3 * C / kWChunk;
-  const int64_t tiles = (rows + bt::kRows - 1) / bt::kRows;
-  const int64_t t_end = min((int64_t)(g + 1) * tiles_per_group, tiles);
-  float acc[4][NI];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int i = 0; i < NI; ++i) acc[a][i] = 0.f;
+// -- scratch layouts and launches ---------------------------------------------
 
-  for (int64_t t = (int64_t)g * tiles_per_group; t < t_end; ++t) {
-    const int64_t row0 = t * bt::kRows;
-    const int nrows = bt::tile_rows(rows, row0);
-    if (is_qkv) {
-      bt::load_rows<C, T>(x, R, row0, nrows);
-      bt::rms_rows<C, true, T>(R, R, ld, agamma);
-    } else {
-      load_gated<C, T>(o, gates, R, row0, nrows);
-    }
-    for (int e = tid; e < bt::kRows * kWChunk; e += bt::kThreads) {
-      const int r = e / kWChunk, l = e % kWChunk;
-      float val = 0.f;
-      if (r < nrows)
-        val = bt::to_f(is_qkv ? dqkv[(row0 + r) * 3 * C + cb * kWChunk + l]
-                              : dbb[(row0 + r) * C + (cb - 3 * C / kWChunk) * kWChunk + l]);
-      L[r * cl + l] = val;
-    }
-    __syncthreads();
-    bt::outer_acc<NI>(acc, L, cl, R, ld);
-    __syncthreads();
+// The forward's scratch (on a null base: its size alone), bf16 operands of
+// P = 2 parts in float32, 1 in bf16: W_out^T (P C C), round_T(o * gate)
+// (P rows C); in float32 also q, k, v split (2 rows C each).
+struct FwdLayout {
+  bf16 *wt, *go, *q, *k, *v;
+  size_t bytes;
+
+  FwdLayout(void* base, bool split, int64_t rows, int C) {
+    const int64_t P = split ? 2 : 1, S = split ? 2 : 0;
+    mm::Carver c(base);
+    wt = c.take<bf16>(P * C * C);
+    go = c.take<bf16>(P * rows * C);
+    q = c.take<bf16>(S * rows * C);
+    k = c.take<bf16>(S * rows * C);
+    v = c.take<bf16>(S * rows * C);
+    bytes = c.bytes;
   }
-  const int lane = tid & 31, l0 = 4 * (tid >> 5);
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-      wp[(size_t)g * 4 * C * C + (size_t)(cb * kWChunk + l0 + a) * C + lane + 32 * i] =
-          acc[a][i];
+};
+
+// The backward's scratch, section by section: in float32 only, W_out,
+// W_qkv, q, k, v split (2 parts); bf16 operands (P parts) d_branch,
+// round_T(o * gate), round_T(dO / l), g (rows C each), d_q | d_k | d_v (rows
+// 3C); float32 d_z, delta (rows H each), d_gn (rows C); the partials of
+// dgamma (tiles C), dW_g (tiles H C), db_g (tiles H) per 32-row tile and of
+// [dW_qkv; dW_out] (groups 4C C).
+struct BwdLayout {
+  bf16 *wout, *wqkv, *q, *k, *v, *dbr, *go, *dol, *g, *dqkv;
+  float *dz, *delta, *dgn, *dgp, *dwgp, *dgbp, *dwp;
+  size_t bytes;
+
+  BwdLayout(void* base, bool split, int64_t rows, int C, int64_t groups) {
+    const int64_t P = split ? 2 : 1, S = split ? 2 : 0, H = C / kHD;
+    const int64_t tiles = (rows + bt::kRows - 1) / bt::kRows;
+    mm::Carver c(base);
+    wout = c.take<bf16>(S * C * C);
+    wqkv = c.take<bf16>(S * 3 * C * C);
+    q = c.take<bf16>(S * rows * C);
+    k = c.take<bf16>(S * rows * C);
+    v = c.take<bf16>(S * rows * C);
+    dbr = c.take<bf16>(P * rows * C);
+    go = c.take<bf16>(P * rows * C);
+    dol = c.take<bf16>(P * rows * C);
+    g = c.take<bf16>(P * rows * C);
+    dqkv = c.take<bf16>(P * rows * 3 * C);
+    dz = c.take<float>(rows * H);
+    delta = c.take<float>(rows * H);
+    dgn = c.take<float>(rows * C);
+    dgp = c.take<float>(tiles * C);
+    dwgp = c.take<float>(tiles * H * C);
+    dgbp = c.take<float>(tiles * H);
+    dwp = c.take<float>(groups * 4 * C * C);
+    bytes = c.bytes;
+  }
+};
+
+// Output tiles of the weight-gradient launch per row group: dW_qkv (3C, C)
+// and dW_out (C, C) in blocks of kTM x product_n(C).
+inline int wgrad_tiles(int C) {
+  const int bn = mm::product_n(C);
+  return (C + bn - 1) / bn * ((3 * C + kTM - 1) / kTM + (C + kTM - 1) / kTM);
 }
 
 template <int C, typename T>
 cudaError_t launch_fwd(const void* x, const void* agamma, const void* wqkv, const void* wg,
                        const void* gb, const void* wout, const void* cosv, const void* sinv,
                        void* q, void* k, void* v, void* gates, void* o, void* mrow, void* lrow,
-                       void* out, int items, int n, bt::Dropout drop, cudaStream_t stream) {
-  constexpr int H = C / bt::kHeadDim, ld = bt::tile_ld(C);
-  const int64_t rows = (int64_t)items * n;
+                       void* out, void* scratch, int64_t scratch_bytes, int items, int n,
+                       bt::Dropout drop, cudaStream_t stream) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int H = C / kHD, ld = bt::tile_ld(C), P = SPLIT ? 2 : 1, BN = mm::product_n(C);
+  const int64_t rows = (int64_t)items * n, rlo = rows * C;
+  const FwdLayout s(scratch, SPLIT, rows, C);
+  if ((int64_t)s.bytes > scratch_bytes) return cudaErrorInvalidValue;
   const unsigned tiles = (unsigned)((rows + bt::kRows - 1) / bt::kRows);
 
   const size_t smem_qkv = sizeof(float) * (bt::kRows * ld + bt::stage_floats(qkv_cols<C>()));
@@ -561,17 +856,32 @@ cudaError_t launch_fwd(const void* x, const void* agamma, const void* wqkv, cons
       (const float*)cosv, (const float*)sinv, (T*)q, (T*)k, (T*)v, (float*)gates, rows, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const dim3 grid(items * H, (n + kQTile - 1) / kQTile);
-  attn_fwd_kernel<T><<<grid, kQTile, 0, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                                  (float*)o, (float*)mrow, (float*)lrow, n, H,
-                                                  drop);
+  ConvJobs conv;
+  conv.add(wout, s.wt, C, C, 1);
+  if (SPLIT) {
+    conv.add(q, s.q, rows, C, 0);
+    conv.add(k, s.k, rows, C, 0);
+    conv.add(v, s.v, rows, C, 0);
+  }
+  attn_operands_kernel<T><<<conv.blocks(), bt::kThreads, 0, stream>>>(conv);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const size_t smem_out = sizeof(float) * (bt::kRows * ld + bt::stage_floats(qkv_cols<C>()));
-  auto k3 = attn_out_kernel<C, T>;
-  if ((err = bt::allow_smem(k3, smem_out)) != cudaSuccess) return err;
-  k3<<<tiles, bt::kThreads, smem_out, stream>>>((const float*)o, (const float*)gates,
-                                                (const T*)wout, (T*)out, rows, drop);
+  const bf16* qo = SPLIT ? s.q : (const bf16*)q;
+  const bf16* ko = SPLIT ? s.k : (const bf16*)k;
+  const bf16* vo = SPLIT ? s.v : (const bf16*)v;
+  auto ka = tc::attn_fwd_kernel<P>;
+  if ((err = bt::allow_smem(ka, tc::fwd_smem<P>())) != cudaSuccess) return err;
+  ka<<<dim3(items * H, (n + tc::kRows - 1) / tc::kRows), tc::kThreads, tc::fwd_smem<P>(),
+       stream>>>(qo, ko, vo, rlo, (const float*)gates, (float*)o, s.go, rlo, (float*)mrow,
+                 (float*)lrow, n, H, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  auto kb = attn_out_kernel<BN, T>;
+  const size_t smem_out = mm::product_smem<false, BN, SPLIT>();
+  if ((err = bt::allow_smem(kb, smem_out)) != cudaSuccess) return err;
+  kb<<<dim3((C + BN - 1) / BN, (unsigned)((rows + kTM - 1) / kTM)), bt::kThreads, smem_out,
+       stream>>>(Operand{s.go, C, rlo}, Operand{s.wt, C, (int64_t)C * C}, (T*)out, rows, C,
+                 drop);
   return cudaGetLastError();
 }
 
@@ -579,62 +889,107 @@ template <int C, typename T>
 cudaError_t launch_bwd(const void* x, const void* agamma, const void* wqkv, const void* wg,
                        const void* wout, const void* cosv, const void* sinv, const void* q,
                        const void* k, const void* v, const void* gates, const void* o,
-                       const void* mrow, const void* lrow, const void* dout, void* dbb,
-                       void* dO, void* dz, void* delta, void* dqkv, void* dx, void* dgamma,
-                       void* dw, void* dwg, void* dgb, void* scratch, int items, int n,
-                       int groups, bt::Dropout drop, cudaStream_t stream) {
-  constexpr int H = C / bt::kHeadDim, ld = bt::tile_ld(C);
-  const int64_t rows = (int64_t)items * n;
+                       const void* mrow, const void* lrow, const void* dout, void* dx,
+                       void* dgamma, void* dw, void* dwg, void* dgb, void* scratch,
+                       int64_t scratch_bytes, int items, int n, int64_t group_rows,
+                       bt::Dropout drop, cudaStream_t stream) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int H = C / kHD, P = SPLIT ? 2 : 1, BN = mm::product_n(C);
+  const int64_t rows = (int64_t)items * n, rlo = rows * C;
+  const int64_t groups = mm::row_groups(rows, group_rows);
+  const BwdLayout s(scratch, SPLIT, rows, C, groups);
+  if ((int64_t)s.bytes > scratch_bytes) return cudaErrorInvalidValue;
   const int64_t tiles = (rows + bt::kRows - 1) / bt::kRows;
-  float* dgp = (float*)scratch;
-  float* dwgp = dgp + tiles * C;
-  float* dgbp = dwgp + tiles * H * C;
-  float* wp = dgbp + tiles * H;
+  const unsigned mtiles = (unsigned)((rows + kTM - 1) / kTM), ntiles = (C + BN - 1) / BN;
+  cudaError_t err;
 
-  const size_t smem_pre = sizeof(float) * (bt::kRows * ld + bt::stage_floats(qkv_cols<C>()));
-  auto ka = attn_bwd_pre_kernel<C, T>;
-  cudaError_t err = bt::allow_smem(ka, smem_pre);
-  if (err != cudaSuccess) return err;
-  ka<<<(unsigned)tiles, bt::kThreads, smem_pre, stream>>>(
-      (const T*)dout, (const float*)o, (const float*)gates, (const float*)lrow,
-      (const T*)wout, (T*)dbb, (float*)dO, (float*)dz, (float*)delta, rows, n, drop);
+  // a. operands: the bf16 weights and q, k, v are their own operands
+  if (SPLIT) {
+    ConvJobs conv;
+    conv.add(wout, s.wout, C, C, 0);
+    conv.add(wqkv, s.wqkv, 3 * C, C, 0);
+    conv.add(q, s.q, rows, C, 0);
+    conv.add(k, s.k, rows, C, 0);
+    conv.add(v, s.v, rows, C, 0);
+    attn_operands_kernel<T><<<conv.blocks(), bt::kThreads, 0, stream>>>(conv);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const Operand wout_op{SPLIT ? s.wout : (const bf16*)wout, C, (int64_t)C * C};
+  const Operand wqkv_op{SPLIT ? s.wqkv : (const bf16*)wqkv, C, (int64_t)3 * C * C};
+  const bf16* qo = SPLIT ? s.q : (const bf16*)q;
+  const bf16* ko = SPLIT ? s.k : (const bf16*)k;
+  const bf16* vo = SPLIT ? s.v : (const bf16*)v;
+
+  // b. d_branch and the gated rows as operands
+  const int64_t quads = rlo / 4;
+  const unsigned pre_blocks =
+      (unsigned)std::min<int64_t>((quads + bt::kThreads - 1) / bt::kThreads, 132 * 16);
+  attn_bwd_pre_kernel<T><<<pre_blocks, bt::kThreads, 0, stream>>>(
+      (const T*)dout, (const float*)o, (const float*)gates, s.dbr, s.go, rlo, rows, C, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const dim3 grid(items * H, (n + kQTile - 1) / kQTile);
-  attn_bwd_dq_kernel<T><<<grid, kQTile, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)dO, (const float*)mrow,
-      (const float*)delta, (const float*)cosv, (const float*)sinv, (T*)dqkv, n, H, drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<T><<<grid, kQTile, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)dO, (const float*)mrow,
-      (const float*)delta, (const float*)cosv, (const float*)sinv, (T*)dqkv, n, H, drop);
+  // c. d_go = d_branch W_out and its epilogue
+  auto kc = attn_dgo_kernel<BN, SPLIT>;
+  const size_t smem_nn = mm::product_smem<false, BN, SPLIT>();
+  if ((err = bt::allow_smem(kc, smem_nn)) != cudaSuccess) return err;
+  kc<<<dim3(ntiles, mtiles), bt::kThreads, smem_nn, stream>>>(
+      Operand{s.dbr, C, rlo}, wout_op, (const float*)o, (const float*)gates, (const float*)lrow,
+      s.dol, rlo, s.dz, s.delta, rows, n, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
+  // d, e. the attention core
+  const dim3 agrid(items * H, (n + tc::kRows - 1) / tc::kRows);
+  auto kd = tc::attn_dq_kernel<P>;
+  if ((err = bt::allow_smem(kd, tc::fwd_smem<P>())) != cudaSuccess) return err;
+  kd<<<agrid, tc::kThreads, tc::fwd_smem<P>(), stream>>>(
+      qo, ko, vo, s.dol, rlo, (const float*)mrow, s.delta, (const float*)cosv,
+      (const float*)sinv, s.dqkv, 3 * rlo, n, H, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  auto ke = tc::attn_dkv_kernel<P>;
+  if ((err = bt::allow_smem(ke, tc::dkv_smem<P>())) != cudaSuccess) return err;
+  ke<<<agrid, tc::kThreads, tc::dkv_smem<P>(), stream>>>(
+      qo, ko, vo, s.dol, rlo, (const float*)mrow, s.delta, (const float*)cosv,
+      (const float*)sinv, s.dqkv, 3 * rlo, n, H, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // f. d_gn = d_qkv W_qkv
+  const ProductJob dgn{Operand{s.dqkv, 3 * C, 3 * rlo}, wqkv_op, s.dgn, C, 0, rows, C,
+                       3 * C, 3 * C, mtiles};
+  auto kf = attn_product_kernel<false, BN, SPLIT>;
+  if ((err = bt::allow_smem(kf, smem_nn)) != cudaSuccess) return err;
+  kf<<<dim3(ntiles, mtiles), bt::kThreads, smem_nn, stream>>>(dgn, dgn);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // g. the row epilogue
   const size_t smem_post = sizeof(float) * post_smem_floats<C>();
-  auto kd = attn_bwd_post_kernel<C, T>;
-  if ((err = bt::allow_smem(kd, smem_post)) != cudaSuccess) return err;
-  kd<<<(unsigned)tiles, bt::kThreads, smem_post, stream>>>(
-      (const T*)x, (const float*)agamma, (const T*)wqkv, (const float*)wg, (const T*)dqkv,
-      (const float*)dz, (T*)dx, dgp, dwgp, dgbp, rows);
+  auto kg = attn_bwd_post_kernel<C, T>;
+  if ((err = bt::allow_smem(kg, smem_post)) != cudaSuccess) return err;
+  kg<<<(unsigned)tiles, bt::kThreads, smem_post, stream>>>(
+      (const T*)x, (const float*)agamma, (const float*)wg, s.dgn, s.dz, (T*)dx, s.g, rlo, s.dgp,
+      s.dwgp, s.dgbp, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const size_t smem_w = sizeof(float) * wgrad_smem_floats<C>();
-  auto ke = attn_wgrad_kernel<C, T>;
-  if ((err = bt::allow_smem(ke, smem_w)) != cudaSuccess) return err;
-  const int tpg = (int)((tiles + groups - 1) / groups);
-  ke<<<dim3(4 * C / kWChunk, groups), bt::kThreads, smem_w, stream>>>(
-      (const T*)x, (const float*)agamma, (const T*)dqkv, (const float*)o, (const float*)gates,
-      (const T*)dbb, wp, rows, tpg);
+  // h. dW_qkv = d_qkv^T g and dW_out = d_branch^T round_T(o * gate)
+  const int64_t wstep = (int64_t)4 * C * C;
+  const ProductJob wq{Operand{s.dqkv, 3 * C, 3 * rlo}, Operand{s.g, C, rlo}, s.dwp, C, wstep,
+                      3 * C, C, rows, group_rows, (unsigned)((3 * C + kTM - 1) / kTM)};
+  const ProductJob wo{Operand{s.dbr, C, rlo}, Operand{s.go, C, rlo}, s.dwp + 3 * C * C, C, wstep,
+                      C, C, rows, group_rows, (unsigned)((C + kTM - 1) / kTM)};
+  auto kh = attn_product_kernel<true, BN, SPLIT>;
+  const size_t smem_tn = mm::product_smem<true, BN, SPLIT>();
+  if ((err = bt::allow_smem(kh, smem_tn)) != cudaSuccess) return err;
+  kh<<<dim3(ntiles, wq.mtiles + wo.mtiles, (unsigned)groups), bt::kThreads, smem_tn, stream>>>(
+      wq, wo);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  if ((err = bt::sum_partials(dgp, (float*)dgamma, (int)tiles, C, stream)) != cudaSuccess)
-    return err;
-  if ((err = bt::sum_partials(dwgp, (float*)dwg, (int)tiles, (int64_t)H * C, stream)) !=
-      cudaSuccess)
-    return err;
-  if ((err = bt::sum_partials(dgbp, (float*)dgb, (int)tiles, H, stream)) != cudaSuccess)
-    return err;
-  return bt::sum_partials(wp, (float*)dw, groups, (int64_t)4 * C * C, stream);
+  // i. the fixed-order sums
+  mm::SumJobs<4> sums{{s.dgp, s.dwgp, s.dgbp, s.dwp},
+                      {(float*)dgamma, (float*)dwg, (float*)dgb, (float*)dw},
+                      {(int)tiles, (int)tiles, (int)tiles, (int)groups},
+                      {C, (int64_t)H * C, H, wstep},
+                      {0}};
+  attn_bwd_sums_kernel<<<sums.finish(), bt::kThreads, 0, stream>>>(sums);
+  return cudaGetLastError();
 }
 
 #define BT_TIME_SWITCH(CALL)                 \
@@ -648,15 +1003,19 @@ cudaError_t launch_bwd(const void* x, const void* agamma, const void* wqkv, cons
     default: return cudaErrorInvalidValue;   \
   }
 
+bool supported(int C) {
+  return C == 32 || C == 64 || C == 128 || C == 256 || C == 384 || C == 512;
+}
+
 template <typename T>
 cudaError_t dispatch_fwd(int C, const void* x, const void* agamma, const void* wqkv,
                          const void* wg, const void* gb, const void* wout, const void* cosv,
                          const void* sinv, void* q, void* k, void* v, void* gates, void* o,
-                         void* mrow, void* lrow, void* out, int items, int n, bt::Dropout drop,
-                         cudaStream_t s) {
+                         void* mrow, void* lrow, void* out, void* scratch, int64_t scratch_bytes,
+                         int items, int n, bt::Dropout drop, cudaStream_t s) {
 #define BT_CALL(CC)                                                                          \
   launch_fwd<CC, T>(x, agamma, wqkv, wg, gb, wout, cosv, sinv, q, k, v, gates, o, mrow, lrow, \
-                    out, items, n, drop, s)
+                    out, scratch, scratch_bytes, items, n, drop, s)
   BT_TIME_SWITCH(BT_CALL)
 #undef BT_CALL
 }
@@ -666,69 +1025,96 @@ cudaError_t dispatch_bwd(int C, const void* x, const void* agamma, const void* w
                          const void* wg, const void* wout, const void* cosv, const void* sinv,
                          const void* q, const void* k, const void* v, const void* gates,
                          const void* o, const void* mrow, const void* lrow, const void* dout,
-                         void* dbb, void* dO, void* dz, void* delta, void* dqkv, void* dx,
-                         void* dgamma, void* dw, void* dwg, void* dgb, void* scratch, int items,
-                         int n, int groups, bt::Dropout drop, cudaStream_t s) {
-#define BT_CALL(CC)                                                                          \
+                         void* dx, void* dgamma, void* dw, void* dwg, void* dgb, void* scratch,
+                         int64_t scratch_bytes, int items, int n, int64_t group_rows,
+                         bt::Dropout drop, cudaStream_t s) {
+#define BT_CALL(CC)                                                                         \
   launch_bwd<CC, T>(x, agamma, wqkv, wg, wout, cosv, sinv, q, k, v, gates, o, mrow, lrow,   \
-                    dout, dbb, dO, dz, delta, dqkv, dx, dgamma, dw, dwg, dgb, scratch, items, \
-                    n, groups, drop, s)
+                    dout, dx, dgamma, dw, dwg, dgb, scratch, scratch_bytes, items, n,        \
+                    group_rows, drop, s)
   BT_TIME_SWITCH(BT_CALL)
 #undef BT_CALL
 }
 
 }  // namespace
 
+// Bytes of bt_attn_train_fwd's scratch over rows = items * n rows, in *bytes.
+extern "C" int bt_attn_train_fwd_scratch(int dtype, int C, long long rows, long long* bytes) {
+  if ((dtype != 0 && dtype != 1) || !supported(C) || rows < 0) return (int)cudaErrorInvalidValue;
+  *bytes = (long long)FwdLayout(nullptr, dtype == 0, rows, C).bytes;
+  return 0;
+}
+
 // dtype: 0 float32, 1 bfloat16 for x (items, n, C), wqkv (3C, C), wout (C, C),
 // out (items, n, C) and the saved q, k, v (items, C/32, n, 32); agamma, wg
 // (C/32, C), gb, cos/sin (n, 16), gates (items * n, C/32), o (items, n, C),
-// mrow and lrow (items * C/32, n) are float32. Dropout: keep iff the Philox
-// bits < thr, kept values times scale; on == 0 turns it off.
+// mrow and lrow (items * C/32, n) are float32. scratch: scratch_bytes bytes,
+// at least bt_attn_train_fwd_scratch's. Dropout: keep iff the Philox bits <
+// thr, kept values times scale; on == 0 turns it off.
 extern "C" int bt_attn_train_fwd(int dtype, int C, const void* x, const void* agamma,
                                  const void* wqkv, const void* wg, const void* gb,
                                  const void* wout, const void* cosv, const void* sinv, void* q,
                                  void* k, void* v, void* gates, void* o, void* mrow, void* lrow,
-                                 void* out, int items, int n, unsigned seed, unsigned salt,
-                                 unsigned thr, float scale, int on, void* stream) {
+                                 void* out, void* scratch, long long scratch_bytes, int items,
+                                 int n, unsigned seed, unsigned salt, unsigned thr, float scale,
+                                 int on, void* stream) {
   if (items <= 0 || n <= 0) return 0;
   const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0 ? dispatch_fwd<float>(C, x, agamma, wqkv, wg, gb, wout, cosv, sinv, q,
-                                                k, v, gates, o, mrow, lrow, out, items, n, d, s)
+                                                k, v, gates, o, mrow, lrow, out, scratch,
+                                                scratch_bytes, items, n, d, s)
                : dtype == 1
                    ? dispatch_fwd<__nv_bfloat16>(C, x, agamma, wqkv, wg, gb, wout, cosv, sinv, q,
-                                                 k, v, gates, o, mrow, lrow, out, items, n, d, s)
+                                                 k, v, gates, o, mrow, lrow, out, scratch,
+                                                 scratch_bytes, items, n, d, s)
                    : cudaErrorInvalidValue);
 }
 
+// Output tiles of bt_attn_train_bwd's weight-gradient launch per row group.
+extern "C" int bt_attn_wgrad_tiles(int C, int* tiles) {
+  if (!supported(C)) return (int)cudaErrorInvalidValue;
+  *tiles = wgrad_tiles(C);
+  return 0;
+}
+
+// Bytes of bt_attn_train_bwd's scratch for these arguments, in *bytes.
+extern "C" int bt_attn_train_bwd_scratch(int dtype, int C, long long rows, long long group_rows,
+                                         long long* bytes) {
+  if ((dtype != 0 && dtype != 1) || !supported(C) || rows < 0 || group_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  *bytes = (long long)BwdLayout(nullptr, dtype == 0, rows, C, mm::row_groups(rows, group_rows))
+               .bytes;
+  return 0;
+}
+
 // The forward's inputs and saved tensors plus dout (items, n, C) in the
-// dtype; scratch outputs dbb (items, n, C) and dqkv (items, n, 3C) in the
-// dtype, dO (items, C/32, n, 32), dz (items * n, C/32) and delta
-// (items * C/32, n) in float32; results dx (items, n, C) in the dtype and
-// float32 dgamma (C), dw (4C, C) = [dW_qkv; dW_out], dwg (C/32, C), dgb
-// (C/32). scratch: ceil(items * n / 32) * (C + C/32 * (C + 1)) +
-// groups * 4 * C * C floats; 1 <= groups <= ceil(items * n / 32).
+// dtype; results dx (items, n, C) in the dtype and float32 dgamma (C), dw
+// (4C, C) = [dW_qkv; dW_out], dwg (C/32, C), dgb (C/32). scratch:
+// scratch_bytes bytes, at least bt_attn_train_bwd_scratch's; the
+// weight-gradient products take the rows in groups of group_rows >= 1
+// (ops/fused_ff.py:ff_wgrad_split over bt_attn_wgrad_tiles).
 extern "C" int bt_attn_train_bwd(int dtype, int C, const void* x, const void* agamma,
                                  const void* wqkv, const void* wg, const void* wout,
                                  const void* cosv, const void* sinv, const void* q, const void* k,
                                  const void* v, const void* gates, const void* o,
-                                 const void* mrow, const void* lrow, const void* dout, void* dbb,
-                                 void* dO, void* dz, void* delta, void* dqkv, void* dx,
+                                 const void* mrow, const void* lrow, const void* dout, void* dx,
                                  void* dgamma, void* dw, void* dwg, void* dgb, void* scratch,
-                                 int items, int n, int groups, unsigned seed, unsigned salt,
-                                 unsigned thr, float scale, int on, void* stream) {
+                                 long long scratch_bytes, int items, int n, long long group_rows,
+                                 unsigned seed, unsigned salt, unsigned thr, float scale, int on,
+                                 void* stream) {
   if (items <= 0 || n <= 0) return 0;
-  if (groups < 1) return (int)cudaErrorInvalidValue;
+  if (group_rows < 1) return (int)cudaErrorInvalidValue;
   const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0
                    ? dispatch_bwd<float>(C, x, agamma, wqkv, wg, wout, cosv, sinv, q, k, v, gates,
-                                         o, mrow, lrow, dout, dbb, dO, dz, delta, dqkv, dx,
-                                         dgamma, dw, dwg, dgb, scratch, items, n, groups, d, s)
+                                         o, mrow, lrow, dout, dx, dgamma, dw, dwg, dgb, scratch,
+                                         scratch_bytes, items, n, group_rows, d, s)
                : dtype == 1
                    ? dispatch_bwd<__nv_bfloat16>(C, x, agamma, wqkv, wg, wout, cosv, sinv, q, k,
-                                                 v, gates, o, mrow, lrow, dout, dbb, dO, dz,
-                                                 delta, dqkv, dx, dgamma, dw, dwg, dgb, scratch,
-                                                 items, n, groups, d, s)
+                                                 v, gates, o, mrow, lrow, dout, dx, dgamma, dw,
+                                                 dwg, dgb, scratch, scratch_bytes, items, n,
+                                                 group_rows, d, s)
                    : cudaErrorInvalidValue);
 }

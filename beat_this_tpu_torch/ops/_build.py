@@ -43,8 +43,11 @@ _SIGNATURES = {
     "bt_ff_train_bwd": [_I, _I] + [_P] * 13 + [_L, _L, _I, _L] + _DROP + [_P],
     "bt_ff_train_bwd_scratch": [_I, _I, _L, _I, _L, ctypes.POINTER(_L)],
     "bt_ff_wgrad_tiles": [_I, _I, ctypes.POINTER(_I)],
-    "bt_attn_train_fwd": [_I, _I] + [_P] * 16 + [_I, _I] + _DROP + [_P],
-    "bt_attn_train_bwd": [_I, _I] + [_P] * 26 + [_I, _I, _I] + _DROP + [_P],
+    "bt_attn_train_fwd": [_I, _I] + [_P] * 17 + [_L, _I, _I] + _DROP + [_P],
+    "bt_attn_train_fwd_scratch": [_I, _I, _L, ctypes.POINTER(_L)],
+    "bt_attn_train_bwd": [_I, _I] + [_P] * 21 + [_L, _I, _I, _L] + _DROP + [_P],
+    "bt_attn_train_bwd_scratch": [_I, _I, _L, _L, ctypes.POINTER(_L)],
+    "bt_attn_wgrad_tiles": [_I, ctypes.POINTER(_I)],
     "bt_freq_train_fwd": [_I, _I] + [_P] * 14 + [_L, _I, _I] + _DROP + [_P],
     "bt_freq_train_bwd": [_I, _I] + [_P] * 26 + [_L, _I, _I, _I] + _DROP + [_P],
     "bt_flash_fwd": [_I, _I] + [_P] * 7 + [_I, _I, _I] + _DROP + [_P, _P],

@@ -105,24 +105,19 @@ def fused_ff(x: torch.Tensor, ff: FeedForward) -> torch.Tensor:
 fused_ff.launches = 0
 
 
-WGRAD_GROUPS = 2  # the fewest row-tile groups of a weight-gradient launch
 CARD_SMS = 132  # streaming multiprocessors of the H100 SXM
 ROW_TILE = 32  # rows per block of the row-tile kernels (csrc/common.cuh kRows)
 
 
 def wgrad_groups(blocks: int, rows: int) -> int:
     """Row-tile groups of a weight-gradient launch with `blocks` blocks per
-    group over `rows` rows, from the shape alone. WGRAD_GROUPS where that
-    grid already covers the card's SMs about once (within a tenth: C 512,
-    64 x 2 = 128 blocks); otherwise enough groups for about two blocks per
-    SM (C 32: 4 x 66 = 264). Never more than one group per row tile. Each
-    group adds one weight-sized float32 partial to the scratch, summed in a
-    fixed order, so a given shape gives the same bits on every run."""
+    group over `rows` rows, from the shape alone (B7's weight gradients:
+    one block per head): enough groups for about two blocks per SM (1, 2, 4
+    heads: 264, 132, 66 groups), never more than one group per row tile.
+    Each group adds one weight-sized float32 partial to the scratch, summed
+    in a fixed order, so a given shape gives the same bits on every run."""
     tiles = -(-rows // ROW_TILE)
-    groups = WGRAD_GROUPS
-    if 10 * blocks * WGRAD_GROUPS < 9 * CARD_SMS:
-        groups = -(-2 * CARD_SMS // blocks)
-    return max(1, min(groups, tiles))
+    return max(1, min(-(-2 * CARD_SMS // blocks), tiles))
 
 
 FF_MIN_GROUP_ROWS = 256  # the fewest rows a group of B9's weight-gradient products takes

@@ -10,13 +10,16 @@ version `fused_time_roformer_ref`, the composable path.
 `fused_time_attention_train` is the training twin of the attention branch
 (fused_time.py:fused_time_attention_train): dropout on the attention
 probabilities and after the out projection from a Philox seed
-(`ops/dropout.py`), and a flash-style backward (`csrc/fused_time_train.cu`).
-It saves O(n C) tensors between the passes (q, k, v, gates, the normalized
-attention output and each row's softmax max and sum), never an (n, n) one.
+(`ops/dropout.py`), and a flash-style backward (`csrc/fused_time_train.cu`),
+every product on the tensor cores (float32 as split bf16 products). It
+saves O(n C) tensors between the passes (q, k, v, gates, the normalized
+attention output and each row's softmax max and sum), never an (n, n) one;
+each pass asks the kernel library for its scratch size.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -38,14 +41,13 @@ from beat_this_tpu_torch.ops import _build
 from beat_this_tpu_torch.ops import dropout as drop
 from beat_this_tpu_torch.ops.rotary import apply_rope
 from beat_this_tpu_torch.ops.fused_ff import (
-    ROW_TILE,
     SUPPORTED_DIMS,
     dtype_code,
     f32,
     ff_params,
+    ff_wgrad_split,
     kernel_weight,
     stream_of,
-    wgrad_groups,
 )
 
 
@@ -164,6 +166,33 @@ def fused_time_attention_train_ref(x, attn: Attention, rope_cos, rope_sin, heads
     return out.to(dtype)
 
 
+def attn_fwd_scratch(rows: int, c: int, dtype: torch.dtype) -> int:
+    """Bytes of B4's scratch over `rows` rows of width `c` in `dtype`, as
+    the kernel library lays it out (csrc/fused_time_train.cu:
+    bt_attn_train_fwd_scratch)."""
+    lib = _build.load_library()
+    nbytes = ctypes.c_longlong()
+    _build.check(lib.bt_attn_train_fwd_scratch(dtype_code(dtype), c, rows, ctypes.byref(nbytes)),
+                 "bt_attn_train_fwd_scratch")
+    return nbytes.value
+
+
+def attn_bwd_plan(rows: int, c: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(rows per weight-gradient group, scratch bytes) of B5 over `rows`
+    rows of width `c` in `dtype`: the library gives the output tiles of its
+    weight-gradient launch per group and lays out the scratch
+    (bt_attn_wgrad_tiles, bt_attn_train_bwd_scratch); the groups follow
+    B9's rule (`ff_wgrad_split`)."""
+    lib = _build.load_library()
+    tiles, nbytes = ctypes.c_int(), ctypes.c_longlong()
+    _build.check(lib.bt_attn_wgrad_tiles(c, ctypes.byref(tiles)), "bt_attn_wgrad_tiles")
+    group_rows = ff_wgrad_split(rows, tiles.value)
+    _build.check(lib.bt_attn_train_bwd_scratch(dtype_code(dtype), c, rows, group_rows,
+                                               ctypes.byref(nbytes)),
+                 "bt_attn_train_bwd_scratch")
+    return group_rows, nbytes.value
+
+
 def attn_train_fwd(x, gamma, wqkv, wg, gb, wout, cos, sin, heads, dropout_rate, seed):
     """Launch the training forward on x (items, n, C); returns the branch
     and the tensors the backward reads (q, k, v, gates, o, row max, row sum)."""
@@ -179,12 +208,14 @@ def attn_train_fwd(x, gamma, wqkv, wg, gb, wout, cos, sin, heads, dropout_rate, 
               torch.empty((items * heads, n), dtype=torch.float32, device=dev),
               torch.empty((items * heads, n), dtype=torch.float32, device=dev)]
     out = torch.empty_like(x)
+    nbytes = attn_fwd_scratch(items * n, c, dtype)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         _build.check(
             lib.bt_attn_train_fwd(
                 code, c, x.data_ptr(), *(p.data_ptr() for p in params),
-                *(t.data_ptr() for t in saved), out.data_ptr(), items, n,
-                *drop.kernel_args(dropout_rate, seed, drop.SALT_ATTN), stream_of(x),
+                *(t.data_ptr() for t in saved), out.data_ptr(), scratch.data_ptr(), nbytes,
+                items, n, *drop.kernel_args(dropout_rate, seed, drop.SALT_ATTN), stream_of(x),
             ),
             "bt_attn_train_fwd",
         )
@@ -200,30 +231,22 @@ def attn_train_bwd(x, gamma, wqkv, wg, wout, cos, sin, saved, dout, heads, dropo
     items, n, c = x.shape
     lib = _build.load_library()
     dev, dtype = x.device, x.dtype
-    rows = items * n
-    tiles = -(-rows // ROW_TILE)
-    groups = wgrad_groups(4 * c // 32, rows)
+    group_rows, nbytes = attn_bwd_plan(items * n, c, dtype)
     params = [f32(gamma), kernel_weight(wqkv, dtype), f32(wg), kernel_weight(wout, dtype),
               cos, sin]
     dout = dout.to(dtype).contiguous()
-    work = [torch.empty((items, n, c), dtype=dtype, device=dev),  # d_branch
-            torch.empty((items, heads, n, HEAD_DIM), dtype=torch.float32, device=dev),  # dO / l
-            torch.empty((rows, heads), dtype=torch.float32, device=dev),  # d_z
-            torch.empty((items * heads, n), dtype=torch.float32, device=dev),  # delta
-            torch.empty((items, n, 3 * c), dtype=dtype, device=dev)]  # d_q | d_k | d_v
     dx = torch.empty_like(x)
     grads = [torch.empty(shape, dtype=torch.float32, device=dev)
              for shape in ((c,), (4 * c, c), (heads, c), (heads,))]
-    scratch = torch.empty(tiles * (c + heads * (c + 1)) + groups * 4 * c * c,
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         _build.check(
             lib.bt_attn_train_bwd(
                 code, c, x.data_ptr(), *(p.data_ptr() for p in params),
-                *(t.data_ptr() for t in saved), dout.data_ptr(),
-                *(t.data_ptr() for t in work), dx.data_ptr(), *(g.data_ptr() for g in grads),
-                scratch.data_ptr(), items, n, groups,
-                *drop.kernel_args(dropout_rate, seed, drop.SALT_ATTN), stream_of(x),
+                *(t.data_ptr() for t in saved), dout.data_ptr(), dx.data_ptr(),
+                *(g.data_ptr() for g in grads), scratch.data_ptr(), nbytes, items, n,
+                group_rows, *drop.kernel_args(dropout_rate, seed, drop.SALT_ATTN),
+                stream_of(x),
             ),
             "bt_attn_train_bwd",
         )

@@ -38,20 +38,24 @@ FAMILIES = (
     ("atb_kernel", "B7 atb (weight gradients)"),
     ("fused_freq_kernel", "B6 fused_freq (train fwd)"),
     ("time_qkv", "B4 time_qkv"),
-    ("attn_fwd", "B4 attn_fwd"),
-    ("attn_out", "B4 attn_out"),
-    ("attn_bwd_pre", "B5 attn_bwd_pre"),
-    ("attn_bwd_dq", "B5 attn_bwd_dq"),
-    ("attn_bwd_dkv", "B5 attn_bwd_dkv"),
-    ("attn_bwd_post", "B5 attn_bwd_post"),
-    ("attn_wgrad", "B5 attn_wgrad"),
+    ("attn_operands", "B4/B5 operands (W_out^T; f32 split q, k, v, weights)"),
+    ("attn_fwd_kernel", "B4 attn_fwd"),
+    ("attn_out_kernel", "B4 attn_out"),
+    ("attn_bwd_pre", "B5 pre (d_branch, gated rows)"),
+    ("attn_dgo", "B5 d_go"),
+    ("attn_dq_kernel", "B5 dq"),
+    ("attn_dkv_kernel", "B5 dkv"),
+    ("attn_product_kernel<false", "B5 d_gn"),
+    ("attn_product_kernel<true", "B5 dW_qkv, dW_out"),
+    ("attn_bwd_post", "B5 post"),
+    ("attn_bwd_sums", "B5 sums"),
     ("ff_train_fwd", "B8 ff_train_fwd"),
     ("ff_hidden_kernel", "B9 hidden (pre1, d_h1)"),
     ("ff_product_kernel<false", "B9 d_g"),
     ("ff_product_kernel<true", "B9 dW1, dW2"),
     ("ff_bwd_", "B9 row passes, weight operands"),
     ("column_sums", "B9 column_sums"),
-    ("sum_partials", "B5/B7 sum_partials"),
+    ("sum_partials", "B7 sum_partials"),
     ("rotate_kernel", "B10/B11 rotate (bf16 pre-pass)"),
     ("flash_fwd", "B10 flash_fwd"),
     ("flash_dq", "B11 flash_dq"),

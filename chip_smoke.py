@@ -10,17 +10,20 @@ non-zero without the final `"ok": true` line:
 2. build: compiles the CUDA kernels from this checkout's sources, and
    checks with `cuobjdump -sass` that every bfloat16 instantiation of the
    flash kernels (forward, dq, dk/dv), and every instantiation of the
-   feed-forward training backward's product kernels (bfloat16 and the
-   float32 split products), holds tensor-core HMMA instructions;
+   feed-forward training backward's product kernels and of the time-axis
+   attention branch's training kernels (forward attention and out
+   projection; backward d_go, dq, dk/dv and products), bfloat16 and the
+   float32 split products alike, holds tensor-core HMMA instructions;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes, in float32 (TF32 off, relative max
    deviation <= 1e-3) and bfloat16 (< 2.5e-2), with median times and the
-   least time the card could take (`bound`); the feed-forward training
-   backward is timed by its device time (torch.profiler's kernel sum), as
-   the host's launches take about as long. The six training kernels
-   compare the output and every gradient, with the same seed on both
-   sides: the attention branch and the feed-forward (forward and backward)
-   at a main layer's shape (8 x 1500 x 512, 16 heads; dropout 0 and 0.2)
+   least time the card could take (`bound`); the feed-forward and the
+   attention branch's training backwards are timed by their device time
+   (torch.profiler's kernel sum), as the host's launches weigh in. The six
+   training kernels compare the output and every gradient, with the same
+   seed on both sides: the attention branch and the feed-forward (forward
+   and backward) at a main layer's shape (8 x 1500 x 512, 16 heads;
+   dropout 0 and 0.2)
    and at the frontend's three time blocks (256/128/64 sequences of 1500
    frames, C 32/64/128; dropout 0.1), and the fused frequency block
    (forward and backward: output, dx and ten parameter gradients) at the
@@ -173,9 +176,13 @@ ABLATE_BATCH = 16
 ABLATE_FLASH = (512, 1536, 32)
 # bfloat16 instantiations of the tensor-core flash kernels in the library
 FLASH_TC_KERNELS = {"flash_fwd_kernel": 8, "flash_dq_kernel": 2, "flash_dkv_kernel": 2}
-# instantiations of the feed-forward training backward's product kernels,
-# each on the tensor cores in both dtypes (float32 as split bf16 products)
-FF_TC_KERNELS = {"ff_hidden_kernel": 2, "ff_product_kernel": 8}
+# instantiations of the training kernels' products, each on the tensor cores
+# in both dtypes (float32 as split bf16 products): the feed-forward backward
+# (B9), the attention branch's forward (B4: attention, out projection) and
+# backward (B5: d_go, dq, dk/dv, d_gn and the weight gradients)
+TRAIN_TC_KERNELS = {"ff_hidden_kernel": 2, "ff_product_kernel": 8, "attn_fwd_kernel": 2,
+                    "attn_out_kernel": 4, "attn_dgo_kernel": 4, "attn_dq_kernel": 2,
+                    "attn_dkv_kernel": 2, "attn_product_kernel": 8}
 DEVICE = "cuda"
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): float32 outside
 # the tensor cores, bfloat16 on them, float32 as three bfloat16 products of
@@ -183,11 +190,14 @@ DEVICE = "cuda"
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "f32 split": 989e12 / 3}
 PEAK_BYTES = 3.35e12
 # kernels whose float32 products run as split bfloat16 products (their
-# float32 bound takes that rate), and kernels short enough that phase 3
-# times their backward by its device time (torch.profiler's kernel sum)
-# rather than by events around the host's call
-SPLIT_F32 = {"fused_ff_train_bwd"}
-DEVICE_TIMED = {"fused_ff_train_bwd"}
+# float32 bound takes that rate; the attention forward's first launch, the
+# q/k/v projection shared with the eval kernel, stays on SIMT float32 FMAs,
+# so its bound is a floor below its method), and kernels whose backward
+# phase 3 times by its device time (torch.profiler's kernel sum) rather
+# than by events around the host's call
+SPLIT_F32 = {"fused_ff_train_bwd", "fused_time_attention_train_fwd",
+             "fused_time_attention_train_bwd"}
+DEVICE_TIMED = {"fused_ff_train_bwd", "fused_time_attention_train_bwd"}
 
 
 def train_counters() -> dict:
@@ -335,7 +345,7 @@ def phase_build() -> None:
         check(len(found) == expect and all(n > 0 for n in found.values()),
               f"{kernel}: {len(found)} bfloat16 instantiations (expected {expect}), HMMA "
               f"counts {found}")
-    for kernel, expect in FF_TC_KERNELS.items():
+    for kernel, expect in TRAIN_TC_KERNELS.items():
         found = {name: n for name, n in counts.items() if kernel in name}
         print(f"[build] HMMA per instantiation of {kernel}: "
               + ", ".join(f"{name} {n}" for name, n in sorted(found.items())))

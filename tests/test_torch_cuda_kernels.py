@@ -16,8 +16,9 @@ the GPU machine with
 (the repository's conftest.py imports JAX, which that machine lacks).
 Tolerances: float32 relative max deviation 1e-5 (TF32 off; only the order
 of float32 sums differs), 1e-4 for the training kernels' gradients (sums
-over every row, in another order; the feed-forward backward's float32
-products, three bf16 products of split operands each, hold about 1e-5),
+over every row, in another order; the float32 products of the feed-forward
+backward and of the attention branch's forward and backward, three bf16
+products of split operands each, hold about 1e-5),
 bfloat16 < 2.5e-2 (the two sides round
 intermediates to bfloat16 at different places). The ablation kernels of
 `beat_this_tpu_torch/bench/` (every stage, mode, variant and pass) and the
@@ -231,6 +232,98 @@ def test_fused_time_attention_train(device, dtype, tol, rate, heads, n, items):
         before[0] + 1, before[1] + 1)
 
 
+@pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
+@pytest.mark.parametrize("heads,n,items", [(1, 77, 3), (1, 1500, 2), (16, 1500, 1)])
+def test_fused_time_attention_train_tensor_core_tiles(device, dtype, tol, heads, n, items):
+    """B4/B5 on the tensor cores at lengths that are not multiples of the
+    64-row tiles (n 77, 1500), one head at C 32, 16 at C 512, dropout 0.2:
+    output, dx and the five parameter gradients."""
+    c = heads * 32
+    attn, _ = _block(c, heads, n + heads, device)
+    attn.requires_grad_(True)
+    cos, sin = rope_tables(n, 32, device)
+    x = _x((items, n, c), dtype, device, n + 1)
+    _compare_train(
+        lambda t: time_ops.fused_time_attention_train(t, attn, cos, sin, heads, 0.2, 12),
+        lambda t: time_ops.fused_time_attention_train_ref(t, attn, cos, sin, heads, 0.2, 12),
+        x, list(attn.parameters()), tol, n + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_train_backward_is_deterministic(device, dtype):
+    """Two B5 backwards on the same inputs give the same bits in both
+    dtypes (row-group partials summed in a fixed order, no float atomics),
+    over enough rows for several weight-gradient groups."""
+    c, heads, n, items = 128, 4, 333, 8
+    assert -(-items * n // time_ops.attn_bwd_plan(items * n, c, dtype)[0]) > 2
+    attn, _ = _block(c, heads, 7, device)
+    attn.requires_grad_(True)
+    cos, sin = rope_tables(n, 32, device)
+    x = _x((items, n, c), dtype, device, 8)
+
+    def fn(t):
+        return time_ops.fused_time_attention_train(t, attn, cos, sin, heads, 0.2, 9)
+
+    cot = _x(x.shape, torch.float32, device, 10)
+    first = _run_grads(fn, x, list(attn.parameters()), cot)
+    second = _run_grads(fn, x, list(attn.parameters()), cot)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attn_wgrad_tiles(device):
+    """The output tiles per row group of B5's weight-gradient launch, as
+    tests/test_torch_attn_train_design.py takes them (WGRAD_TILES)."""
+    import ctypes
+
+    lib = ff_ops._build.load_library()
+    got = {}
+    for c in (32, 64, 128, 256, 384, 512):
+        tiles = ctypes.c_int()
+        assert lib.bt_attn_wgrad_tiles(c, ctypes.byref(tiles)) == 0
+        got[c] = tiles.value
+    assert got == {32: 2, 64: 3, 128: 4, 256: 16, 384: 36, 512: 64}
+    assert lib.bt_attn_wgrad_tiles(96, ctypes.byref(ctypes.c_int())) != 0
+
+
+@pytest.mark.parametrize("dtype,parts", [(torch.float32, 2), (torch.bfloat16, 1)])
+def test_attn_bwd_scratch_holds_the_operands(device, dtype, parts):
+    """B5's scratch at the main shape (8 x 1500 rows, C 512) as the library
+    lays it out: at least its operands (d_branch, the gated rows, dO / l, g
+    and d_q | d_k | d_v: 7 C bf16 values a row, hi and lo parts in float32)
+    and the float32 d_gn, under 0.4 GB in all; and the kernel refuses a
+    scratch one byte short."""
+    items, n, c, heads = 8, 1500, 512, 16
+    rows = items * n
+    group_rows, nbytes = time_ops.attn_bwd_plan(rows, c, dtype)
+    assert parts * 7 * rows * c * 2 + rows * c * 4 < nbytes < 4e8
+    attn, _ = _block(c, heads, 1, device)
+    cos, sin = rope_tables(n, 32, device)
+    x = _x((items, n, c), dtype, device, 1)
+    params = [time_ops.f32(attn.norm.gamma), time_ops.kernel_weight(attn.to_qkv.weight, dtype),
+              time_ops.f32(attn.to_gates.weight), time_ops.f32(attn.to_gates.bias),
+              time_ops.kernel_weight(attn.to_out[0].weight, dtype), cos, sin]
+    _, saved = time_ops.attn_train_fwd(x, *params, heads, 0.0, None)
+    dout = _x((items, n, c), dtype, device, 2)
+    dx = torch.empty_like(x)
+    grads = [torch.empty(shape, dtype=torch.float32, device=device)
+             for shape in ((c,), (4 * c, c), (heads, c), (heads,))]
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    lib = ff_ops._build.load_library()
+    bwd_params = params[:3] + params[4:]
+
+    def launch(size):
+        return lib.bt_attn_train_bwd(
+            ff_ops.dtype_code(dtype), c, x.data_ptr(), *(p.data_ptr() for p in bwd_params),
+            *(t.data_ptr() for t in saved), dout.data_ptr(), dx.data_ptr(),
+            *(g.data_ptr() for g in grads), scratch.data_ptr(), size, items, n, group_rows,
+            0, 0, 0, 1.0, 0, ff_ops.stream_of(x))
+
+    assert launch(nbytes - 1) != 0
+    assert launch(nbytes) == 0
+    torch.cuda.synchronize()
+
+
 def test_training_backward_is_deterministic(device):
     """Two backward runs give the same bits (no float atomics)."""
     attn, ff = _block(128, 4, 3, device)
@@ -298,7 +391,7 @@ def test_training_kernels_at_frontend_widths(device, dtype, tol, heads):
     groups from the shape, dropout 0.1."""
     c, n, items = heads * 32, 600, 16
     rows = items * n
-    assert ff_ops.wgrad_groups(4 * c // 32, rows) > 2  # B5
+    assert -(-rows // time_ops.attn_bwd_plan(rows, c, dtype)[0]) > 2  # B5
     assert _ff_wgrad_groups(rows, c, dtype) > 2  # B9
     attn, ff = _block(c, heads, rows + c, device)
     attn.requires_grad_(True)
