@@ -9,10 +9,9 @@
 // cp = tid % 16 and rg = tid / 16). Activation tiles use a row stride of C + 1
 // floats so that the two row groups of a warp hit different banks.
 //
-// The training kernels add `mm_acc_t` (the same product against a weight
-// read transposed) and `outer_acc` (weight gradients: a product over the
-// rows of a tile), pass a `Dropout` to `ff_tail`, and share `load_dy` and
-// `store_rows`.
+// The training forward of the frequency block passes a `Dropout` to
+// `ff_tail`; the training kernels' products run on the tensor cores
+// (tc_product.cuh), not here.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -62,22 +61,15 @@ __host__ __device__ constexpr int stage_floats(int ncol) { return ncol * (kKC + 
 // for k in [0, K). A: kRows x K float tile in shared memory. W: global, torch
 // Linear layout (row n holds the K inputs of output n). K % kKC == 0,
 // NCOL % 32 == 0. Ws: stage_floats(NCOL) floats of shared memory.
-// TRANS: W holds output n's input k at W[k * ldw + n] (a torch Linear weight
-// read transposed); staging then walks n fastest, which keeps it coalesced.
-template <int NCOL, bool TRANS, typename T>
-__device__ __forceinline__ void mm_acc_impl(float (&acc)[2][NCOL / 16], const float* A, int lda,
-                                            const T* __restrict__ W, int ldw, int n0, int K,
-                                            float* Ws) {
+template <int NCOL, typename T>
+__device__ __forceinline__ void mm_acc(float (&acc)[2][NCOL / 16], const float* A, int lda,
+                                       const T* __restrict__ W, int ldw, int n0, int K,
+                                       float* Ws) {
   const int tid = threadIdx.x, cp = tid & 15, rg = tid >> 4;
   for (int k0 = 0; k0 < K; k0 += kKC) {
     for (int e = tid; e < NCOL * kKC; e += kThreads) {
-      if (TRANS) {
-        const int k = e / NCOL, n = e % NCOL;
-        Ws[n * (kKC + 1) + k] = to_f(W[(size_t)(k0 + k) * ldw + n0 + n]);
-      } else {
-        const int n = e / kKC, k = e % kKC;
-        Ws[n * (kKC + 1) + k] = to_f(W[(size_t)(n0 + n) * ldw + k0 + k]);
-      }
+      const int n = e / kKC, k = e % kKC;
+      Ws[n * (kKC + 1) + k] = to_f(W[(size_t)(n0 + n) * ldw + k0 + k]);
     }
     __syncthreads();
 #pragma unroll
@@ -98,49 +90,11 @@ __device__ __forceinline__ void mm_acc_impl(float (&acc)[2][NCOL / 16], const fl
   }
 }
 
-template <int NCOL, typename T>
-__device__ __forceinline__ void mm_acc(float (&acc)[2][NCOL / 16], const float* A, int lda,
-                                       const T* __restrict__ W, int ldw, int n0, int K,
-                                       float* Ws) {
-  mm_acc_impl<NCOL, false, T>(acc, A, lda, W, ldw, n0, K, Ws);
-}
-
-// acc[i][2j+e] += sum_k A[(rg + 16 i) * lda + k] * W[k * ldw + n0 + 2cp + 32j + e]:
-// the product with the transpose of a torch-layout weight (e.g. d_y W2 for
-// W2 of shape (C, M): ldw = M, n indexes M).
-template <int NCOL, typename T>
-__device__ __forceinline__ void mm_acc_t(float (&acc)[2][NCOL / 16], const float* A, int lda,
-                                         const T* __restrict__ W, int ldw, int n0, int K,
-                                         float* Ws) {
-  mm_acc_impl<NCOL, true, T>(acc, A, lda, W, ldw, n0, K, Ws);
-}
-
 template <int N> __device__ __forceinline__ void zero(float (&a)[2][N]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) a[i][j] = 0.f;
-}
-
-// Weight-gradient product over the rows of a tile:
-//   acc[a][i] += sum_{r < kRows} L[r * ldl + 4 * warp + a] * R[r * ldr + lane + 32 i]
-// for a < 4, i < NI: the block covers 32 L columns by 32 * NI R columns.
-// Rows past the tensor's end must hold zeros in L or R.
-template <int NI>
-__device__ __forceinline__ void outer_acc(float (&acc)[4][NI], const float* L, int ldl,
-                                          const float* R, int ldr) {
-  const int lane = threadIdx.x & 31, l0 = 4 * (threadIdx.x >> 5);
-  for (int r = 0; r < kRows; ++r) {
-    float l[4], rv[NI];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) l[a] = L[r * ldl + l0 + a];
-#pragma unroll
-    for (int i = 0; i < NI; ++i) rv[i] = R[r * ldr + lane + 32 * i];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int i = 0; i < NI; ++i) acc[a][i] += l[a] * rv[i];
-  }
 }
 
 // dst = rmsnorm(src) * gamma row by row (F.normalize(x) * sqrt(C) * gamma,
@@ -197,35 +151,6 @@ __device__ __forceinline__ void store_rows(const float* src, int ld, int ncol,
   for (int e = threadIdx.x; e < nrows * ncol; e += kThreads) {
     const int r = e / ncol, c = e % ncol;
     dst[(row0 + r) * ncol + c] = from_f<T>(src[r * ld + c]);
-  }
-  __syncthreads();
-}
-
-// The float tile dy = round_T(dout * FF output mask), zero past nrows; with
-// `db2p`, also the tile's column sums of the unrounded values. Ends with a
-// barrier.
-template <int C, typename T>
-__device__ __forceinline__ void load_dy(const T* __restrict__ dout, float* dy, int64_t row0,
-                                        int nrows, const Dropout& drop, float* db2p) {
-  constexpr int ld = tile_ld(C);
-  for (int e = threadIdx.x; e < kRows * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    dy[r * ld + c] = r < nrows ? to_f(dout[(row0 + r) * C + c]) *
-                                     keep1(drop, kSiteFFOut, 0, 0, (uint32_t)(row0 + r), c)
-                               : 0.f;
-  }
-  __syncthreads();
-  if (db2p != nullptr) {
-    for (int c = threadIdx.x; c < C; c += kThreads) {
-      float s = 0.f;
-      for (int r = 0; r < kRows; ++r) s += dy[r * ld + c];
-      db2p[c] = s;
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < kRows * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    dy[r * ld + c] = round_to<T>(dy[r * ld + c]);
   }
   __syncthreads();
 }
@@ -304,12 +229,6 @@ __device__ __forceinline__ void ff_tail(const float* y, float* scratch,
     }
   }
 }
-
-// out[i] = sum over p < parts, in order, of part[p * n + i]: the deterministic
-// second pass of a reduction whose first pass wrote one partial per block.
-// Defined in fused_ff_train.cu.
-cudaError_t sum_partials(const float* part, float* out, int parts, int64_t n,
-                         cudaStream_t stream);
 
 // Raise the dynamic shared-memory limit of `kernel` when it needs more than
 // the default 48 KB; returns the first error.

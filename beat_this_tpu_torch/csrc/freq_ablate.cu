@@ -93,7 +93,7 @@ __global__ void __launch_bounds__(bt::kThreads)
     } else {
       static_assert(STAGE == kAttn, "stages: copy, rms, qkv, ff, attn (full is bt_fused_freq)");
       bt::freq_attention<C, T, false>(y, g, qkv, gate, ws, nullptr, wqkv, wg, gb, wout, cosv,
-                                      sinv, F, qscale, row0, bt::Dropout{}, bt::FreqKeep{});
+                                      sinv, F, qscale, row0, bt::Dropout{});
       bt::store_rows<T>(y, ld, C, out, row0, nrows);
     }
   }

@@ -1,8 +1,8 @@
 // The attention half of the fused frequency-axis block over one 32-row tile:
 //   y1 = x + drop_out(W_out (gate * softmax(rope(q) rope(k)^T / sqrt(32)) v)),
 // with attention within each item of F consecutive rows. Shared by the eval
-// and training forward kernels (fused_freq.cu) and by the training backward
-// (fused_freq_train.cu), which recomputes the forward with it.
+// and training forward kernels (fused_freq.cu) and by the ablation kernels
+// (freq_ablate.cu).
 //
 // One thread per (row, head) walks the item's F keys. At eval (TRAIN false)
 // it keeps an online softmax, as the eval kernel always has. In training it
@@ -33,15 +33,6 @@ template <int C, bool TRAIN> __host__ __device__ constexpr size_t freq_smem_byte
                           kRows * (C / kHeadDim) + (TRAIN ? pmask_floats<C>() : 0));
 }
 
-// What the training backward keeps of its forward recompute; a null
-// pointer is not written.
-struct FreqKeep {
-  float* o;    // kRows x tile_ld(C): the attention output rounded to T, before the gate
-  float* sig;  // kRows x C/32: the gates' sigmoid, unrounded
-  float* m;    // kRows x C/32: each query's largest score, in log2 units
-  float* l;    // kRows x C/32: each query's softmax denominator
-};
-
 // On entry, behind a barrier: y holds the tile's x (kRows x tile_ld(C)
 // floats) and g its normed rows round_T(rmsnorm(x) * agamma). On exit,
 // behind a barrier: y holds y1, g the gated attention output
@@ -49,14 +40,14 @@ struct FreqKeep {
 // after RoPE and v, gate (kRows x C/32) the rounded gates. ws:
 // stage_floats(C) floats. TRAIN: dropout `drop` on the probabilities
 // (pmask: pmask_floats<C>() floats, filled here) and after the out
-// projection (coordinates: row of the flattened tensor, column); `keep`
-// receives what the backward needs. Tiles start on item boundaries.
+// projection (coordinates: row of the flattened tensor, column). Tiles start
+// on item boundaries.
 template <int C, typename T, bool TRAIN>
 __device__ __forceinline__ void freq_attention(
     float* y, float* g, float* qkv, float* gate, float* ws, float* pmask,
     const T* __restrict__ wqkv, const float* __restrict__ wg, const float* __restrict__ gb,
     const T* __restrict__ wout, const float* __restrict__ cosv, const float* __restrict__ sinv,
-    int F, float qscale, int64_t row0, const Dropout& drop, const FreqKeep& keep) {
+    int F, float qscale, int64_t row0, const Dropout& drop) {
   constexpr int H = C / kHeadDim, ld = tile_ld(C), ldq = 3 * C + 1;
   constexpr int NT = C;  // q/k/v column tile: one third of the projection
   const int tid = threadIdx.x, cp = tid & 15, rg = tid >> 4;
@@ -67,9 +58,6 @@ __device__ __forceinline__ void freq_attention(
     for (int c = 0; c < C; ++c) z += g[r * ld + c] * wg[h * C + c];
     const float s = 1.f / (1.f + expf(-(z + gb[h])));
     gate[r * H + h] = round_to<T>(s);
-    if constexpr (TRAIN) {
-      if (keep.sig != nullptr) keep.sig[r * H + h] = s;
-    }
   }
   if constexpr (TRAIN) {
     // keep factors of (item (row0 + r) / F, head, query r % F, key)
@@ -141,10 +129,6 @@ __device__ __forceinline__ void freq_attention(
 #pragma unroll
         for (int d = 0; d < kHeadDim; ++d) o[d] += pd * vr[d];
       }
-      if (keep.m != nullptr) {
-        keep.m[r * H + h] = m;
-        keep.l[r * H + h] = l;
-      }
     } else {
       for (int j = first; j < first + F; ++j) {
         const float* kr = qkv + j * ldq + C + h * kHeadDim;
@@ -163,11 +147,7 @@ __device__ __forceinline__ void freq_attention(
     const float gt = gate[r * H + h];
 #pragma unroll
     for (int d = 0; d < kHeadDim; ++d) {
-      const float od = round_to<T>(o[d] / l);
-      if constexpr (TRAIN) {
-        if (keep.o != nullptr) keep.o[r * ld + h * kHeadDim + d] = od;
-      }
-      g[r * ld + h * kHeadDim + d] = round_to<T>(od * gt);
+      g[r * ld + h * kHeadDim + d] = round_to<T>(round_to<T>(o[d] / l) * gt);
     }
   }
   __syncthreads();

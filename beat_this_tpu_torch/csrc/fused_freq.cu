@@ -61,7 +61,7 @@ __global__ void __launch_bounds__(bt::kThreads)
   bt::load_rows<C, T>(x, y, row0, nrows);
   bt::rms_rows<C, true, T>(y, g, ld, agamma);
   bt::freq_attention<C, T, TRAIN>(y, g, qkv, gate, ws, pmask, wqkv, wg, gb, wout, cosv, sinv, F,
-                                  qscale, row0, drop, bt::FreqKeep{});
+                                  qscale, row0, drop);
   bt::ff_tail<C, T>(y, scratch, fgamma, w1, b1, w2, b2, M, out, row0, nrows, drop);
 }
 

@@ -1,492 +1,803 @@
-// Backward of the fused frequency-axis block in training: dx and the ten
-// parameter gradients (dgamma_attn, dW_qkv, dW_gates, db_gates, dW_out,
+// Backward of the fused frequency-axis block in training (B7): dx and the
+// ten parameter gradients (dgamma_attn, dW_qkv, dW_gates, db_gates, dW_out,
 // dgamma_ff, dW1, db1, dW2, db2) of
-//   y1  = x + drop(W_out (gate * attention)),
-//   out = y1 + drop(W2 drop(gelu(W1 rmsnorm(y1) + b1)) + b2),
-// with the four dropout masks regenerated from Philox by coordinates.
+//   x2  = x + drop(W_out (gate * attention)),
+//   out = x2 + drop(W2 drop(gelu(W1 rmsnorm(x2) + b1)) + b2),
+// with attention within each item of F consecutive rows (F <= 32 keys) and
+// the four dropout masks regenerated from Philox by coordinates: the
+// probabilities at (item, head, query, key), the other three sites at (row
+// of the (items * F, C) view, column).
 //
 // Replaces beat_this_tpu/ops/fused_freq.py:_fused_freq_bwd_kernel (reached
-// through _fused_freq_bwd). On the TPU one kernel accumulates every weight
-// gradient across its sequential grid in VMEM; here blocks run in parallel
-// and there are no float atomics, so the backward is three stages:
+// through _fused_freq_bwd). On the TPU one kernel recomputes the block per
+// row tile and accumulates every weight gradient across its sequential grid.
+// Here blocks run in parallel, so the block is decomposed into launches with
+// O(rows C) intermediates in device memory. Every projection and weight
+// gradient runs on the staged tensor-core product of tc_product.cuh
+// (mma.sync m16n8k16, bf16 operands, float32 accumulators; float32 as six
+// bf16 products of operands split in three parts, float32's 24 bits: with
+// two parts, as B5 and B9 take them, the gate bias's gradient, a sum over
+// rows that cancels, missed 1e-4 of the plain version); the attention over
+// F <= 32 keys, a small share of the work, runs one thread per (row, head)
+// on float32 FMAs.
 //
-//   1. freq_bwd_rows: per 32-row tile, recompute the forward from x
-//      (freq_attn.cuh, the training forward's own code), pull dout back
-//      through the FF (hidden layer 64 units at a time, as fused_ff_train's
-//      row launch), the output mask, the out projection, the gates and the
-//      attention (one thread per (row, head) over the item's F keys: dq
-//      query-major, then dk and dv key-major, recomputing each
-//      probability), and through both RMSNorms to dx. It writes the per-row
-//      operands of the four big weight gradients to scratch, rounded to the
-//      compute dtype as the TPU kernel rounds them: (d_qkv, g), (d_attn,
-//      og), (d_pre1, g2), (d_y, h1d); and per-tile partials of the small
-//      gradients (both gammas, the gates' weight and bias, db1, db2).
-//   2. atb (four launches): dW = A^T B over all rows for each pair, each
-//      block a 32 x (32..128) output tile over one group of row tiles, one
-//      float32 partial per group. The number of groups follows from the
-//      shape (ops/fused_ff.py:wgrad_groups), so the grid fills the card.
-//   3. sum_partials: the fixed-order sums of the partials, so two runs give
-//      the same bits.
+//   recompute the attention half from x (x is the only saved activation):
+//   1. operands: W_qkv^T and W_out^T (float32: also W_qkv, W_out split);
+//   2. rows:     per 128 rows, the norm, g = round_T(rmsnorm(x) gamma) as an
+//                operand and the gates sigmoid(g W_g + b_g) (float32 g and
+//                W_g, as the forward);
+//   3. qkv:      g W_qkv^T, whose epilogue rounds q, k, v and applies RoPE to
+//                q and k at position row % F (rounded again);
+//   4. attn:     per (item, head), two walks over the F keys: each query's
+//                maximum m, then p = exp2(s - m), l and o = round_T(p f) v /
+//                l; writes round_T(o), m, l, the mask bits and go =
+//                round_T(o gate) as an operand;
+//   5. out:      x2 = x + (go W_out^T) times the output mask, in float32;
+//   the feed-forward half, B9's launches on x2 (ff_train.cuh, float32 rows):
+//   6. d_x2 and the partials of dgamma_ff, dW1, db1, dW2, db2;
+//   the attention branch's backward:
+//   7. d_attn = round_T(d_x2 * output mask) as an operand;
+//   8. d_og = d_attn W_out, whose epilogue writes d_o = round_T(d_og gate)
+//      and the gate logits' cotangent d_z = (d_og . o) sig (1 - sig) per head;
+//   9. attn bwd: per (item, head), delta and dq query-major, then dk and dv
+//      key-major, recomputing p from m and l; d_q, d_k (inverse RoPE, times
+//      32^-0.5) and d_v as an operand;
+//   10. d_g = [d_q | d_k | d_v] W_qkv (float32);
+//   11. post:    per 128 rows, + round_T(d_z) W_g and the RMSNorm backward
+//       for dx = d_x2 + rmsnorm'(d_g), the partials of dgamma_attn, dW_g and
+//       db_g;
+//   12. dW_qkv = d_qkv^T g and dW_out = d_attn^T go over groups of rows, in
+//       one launch;
+//   13. every partial (B9's five and these five) summed in a fixed order in
+//       one launch: two runs give the same bits (no float atomics).
+// The scratch layout lives only here (Layout); the wrapper asks
+// bt_freq_train_bwd_scratch for its size. x2 is float32 in both dtypes, as
+// the plain version keeps x + branch unrounded into the FF.
 //
-// Recompute versus scratch: the forward is recomputed per row tile (x is
-// the only saved activation), and the operands of the weight gradients go
-// through device memory once, 8 C + 2 M values per row in the compute dtype
-// (786 MB at 384,000 rows of C 32 in float32), rather than recomputing the
-// whole block once more per weight-gradient block. What bounds it on the
-// H100: the row launch's float32 SIMT products (about 3x the forward's) and
-// the attention, where at C 32 only one (row, head) thread in eight has
-// work; the atb launches are bound by reading the scratch.
-#include "freq_attn.cuh"
+// Bound on the H100: the projections and weight gradients (3 (8 C^2 + 8 C M)
+// FLOPs a row) against C values of x, dout and dx a row; at C 32 the bytes
+// of the scratch operands bound it. bfloat16 values are rounded where the
+// TPU kernel rounds them (g, q/k/v, the dropped probabilities, the attention
+// output and the gated output; the cotangents of the out projection, the PV
+// product, the scores, the gate logits and q/k/v before their products).
+#include <algorithm>
+
+#include "ff_train.cuh"
 
 namespace {
 
-template <typename T>
-struct Operands {  // per-row operands of the weight gradients, (rows, width) each
-  T *g, *dqkv, *og, *da, *g2, *dp1, *h1d, *dy;
-};
+using mm::kTM;
+using mm::Operand;
+using bf16 = __nv_bfloat16;
 
-struct Partials {  // per-row-tile partials of the small gradients
-  float *dga, *dgf, *dbg, *dwg, *db1, *db2;
-};
+constexpr int kHD = bt::kHeadDim;                        // 32
+constexpr float kScale = 0.17677669529663688f;           // 32^-0.5
+constexpr float kQScale = kScale * 1.4426950408889634f;  // 32^-0.5 * log2(e)
+constexpr int kAT = 128;  // threads of an attention block, one (row, head) each
 
-template <int C>
-__host__ __device__ constexpr int rows_smem_floats() {
-  constexpr int H = C / bt::kHeadDim, ld = bt::tile_ld(C), hld = bt::kHid + 1;
-  return 6 * bt::kRows * ld + bt::kRows * (3 * C + 1) + 2 * bt::kRows * hld +
-         bt::stage_floats(C > bt::kHid ? C : bt::kHid) + bt::pmask_floats<C>() +
-         6 * bt::kRows * H + 2 * bt::kRows;
-}
+// Parts of an operand: float32's own precision (mm::full_parts), as the
+// gradients reach the gate bias through four products and the sums over
+// rows cancel (two parts missed the plain version by 1e-4: PERF.md,
+// Findings, PR 9).
+template <typename T> constexpr int kParts = mm::full_parts<T>();
 
+// -- row passes ------------------------------------------------------------------
+
+// Per 128 rows: each row's clamped norm rn, g = round_T(rmsnorm(x) gamma) as
+// an operand (parts `lo` apart) and the unrounded gates sig = sigmoid(g W_g
+// + b_g) per head, from the rounded g and float32 W_g.
 template <int C, typename T>
 __global__ void __launch_bounds__(bt::kThreads)
-    freq_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ agamma,
-                         const T* __restrict__ wqkv, const float* __restrict__ wg,
-                         const float* __restrict__ gb, const T* __restrict__ wout,
-                         const float* __restrict__ fgamma, const T* __restrict__ w1,
-                         const float* __restrict__ b1, const T* __restrict__ w2,
-                         const float* __restrict__ cosv, const float* __restrict__ sinv,
-                         const T* __restrict__ dout, T* __restrict__ dx, Operands<T> op,
-                         Partials pt, int64_t rows, int F, int M, float qscale,
-                         bt::Dropout drop) {
-  constexpr int H = C / bt::kHeadDim, D = bt::kHeadDim;
-  constexpr int ld = bt::tile_ld(C), ldq = 3 * C + 1, hld = bt::kHid + 1;
-  static_assert(bt::kRows * H <= bt::kThreads, "one thread per (row, head)");
-  const float kscale = 0.17677669529663688f;  // 32^-0.5
-  extern __shared__ float smem[];
-  float* Y = smem;                   // x, then y1
-  float* G = Y + bt::kRows * ld;     // g, og, g2, then round_T(d_attn)
-  float* O = G + bt::kRows * ld;     // round_T(o)
-  float* DY = O + bt::kRows * ld;    // round_T(d_y)
-  float* DX2 = DY + bt::kRows * ld;  // d_x2, the cotangent of y1
-  float* DO = DX2 + bt::kRows * ld;  // column-sum products, then round_T(d_o)
-  float* QKV = DO + bt::kRows * ld;  // q, k, v, then d_q, d_k, d_v
-  float* HC = QKV + bt::kRows * ldq;  // one chunk of round_T(d_pre1)
-  float* DPF = HC + bt::kRows * hld;  // the same chunk unrounded (db1)
-  float* WS = DPF + bt::kRows * hld;
-  float* PM = WS + bt::stage_floats(C > bt::kHid ? C : bt::kHid);
-  float* GATE = PM + bt::pmask_floats<C>();
-  float* SIG = GATE + bt::kRows * H;
-  float* MS = SIG + bt::kRows * H;
-  float* LS = MS + bt::kRows * H;
-  float* DELTA = LS + bt::kRows * H;
-  float* DPG = DELTA + bt::kRows * H;  // d of the gate logits
-  float* RN1 = DPG + bt::kRows * H;
-  float* RN2 = RN1 + bt::kRows;
-  const int tid = threadIdx.x, cp = tid & 15, rg = tid >> 4;
-  const int64_t tile = blockIdx.x, row0 = tile * bt::kRows;
-  const int nrows = bt::tile_rows(rows, row0);
+    freq_rows_kernel(const T* __restrict__ x, const float* __restrict__ agamma,
+                     const float* __restrict__ wg, const float* __restrict__ gb,
+                     float* __restrict__ rn, bf16* __restrict__ g, int64_t lo,
+                     float* __restrict__ sig, int64_t rows) {
+  constexpr int P = kParts<T>;
+  constexpr int H = C / kHD;
+  using RM = ff::RowMap<C>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q = lane % RM::L;
   const float sc = sqrtf((float)C);
+  for (int rr = warp * RM::RPW + lane / RM::L; rr < kTM; rr += 8 * RM::RPW) {
+    const int64_t r = (int64_t)blockIdx.x * kTM + rr;
+    const bool ok = r < rows;
+    float xv[RM::NG][4];
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < RM::NG; ++i) {
+      if (ok)
+        ff::load4(x + r * C + 4 * (q + RM::L * i), xv[i]);
+      else
+        xv[i][0] = xv[i][1] = xv[i][2] = xv[i][3] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ss += xv[i][e] * xv[i][e];
+    }
+#pragma unroll
+    for (int o = RM::L / 2; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    const float nrm = fmaxf(sqrtf(ss), 1e-12f);
+    float z[H] = {};
+#pragma unroll
+    for (int i = 0; i < RM::NG; ++i) {
+      const int col = 4 * (q + RM::L * i);
+      float gv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        gv[e] = xv[i][e] / nrm * sc * agamma[col + e];
+#pragma unroll
+        for (int h = 0; h < H; ++h) z[h] += bt::round_to<T>(gv[e]) * wg[h * C + col + e];
+      }
+      if (ok) mm::store4<P>(g + r * C + col, lo, gv);
+    }
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+#pragma unroll
+      for (int o = RM::L / 2; o; o >>= 1) z[h] += __shfl_xor_sync(0xffffffffu, z[h], o);
+    if (ok && q == 0) {
+      rn[r] = nrm;
+#pragma unroll
+      for (int h = 0; h < H; ++h) sig[r * H + h] = 1.f / (1.f + expf(-(z[h] + gb[h])));
+    }
+  }
+}
 
-  // 1. recompute the forward's attention half: g, y1, og, o, the gates and
-  // the softmax statistics
-  bt::load_rows<C, T>(x, Y, row0, nrows);
-  bt::rms_rows<C, true, T>(Y, G, ld, agamma, RN1);
-  bt::store_rows<T>(G, ld, C, op.g, row0, nrows);
-  bt::freq_attention<C, T, true>(Y, G, QKV, GATE, WS, PM, wqkv, wg, gb, wout, cosv, sinv, F,
-                                 qscale, row0, drop, bt::FreqKeep{O, SIG, MS, LS});
-  bt::store_rows<T>(G, ld, C, op.og, row0, nrows);
+// d_attn = round_T(d_x2 * output mask) as an operand, four columns a thread
+// and step.
+template <typename T>
+__global__ void __launch_bounds__(bt::kThreads)
+    freq_dattn_kernel(const float* __restrict__ dx2, bf16* __restrict__ da, int64_t lo,
+                      int64_t rows, int C, bt::Dropout drop) {
+  constexpr int P = kParts<T>;
+  const int64_t quads = rows * C / 4;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < quads;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t r = e / (C / 4), at = 4 * e;
+    const int c = (int)(at - r * C);
+    float f[4], d[4];
+    bt::keep4(drop, bt::kSiteAttnOut, 0, 0, (uint32_t)r, c >> 2, f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[i] = dx2[at + i] * f[i];
+    mm::store4<P>(da + at, lo, d);
+  }
+}
 
-  // 2. the FF: g2, d_y, then the hidden layer 64 units at a time (h1d and
-  // d_pre1 to scratch, db1 partials), accumulating d_g2 = d_pre1 W1
-  bt::rms_rows<C, true, T>(Y, G, ld, fgamma, RN2);
-  bt::store_rows<T>(G, ld, C, op.g2, row0, nrows);
-  bt::load_dy<C, T>(dout, DY, row0, nrows, drop, pt.db2 + tile * C);
-  bt::store_rows<T>(DY, ld, C, op.dy, row0, nrows);
-  float acc[2][C / 16];
-  bt::zero(acc);
-  for (int j0 = 0; j0 < M; j0 += bt::kHid) {
-    float hacc[2][bt::kHid / 16], dacc[2][bt::kHid / 16];
-    bt::zero(hacc);
-    bt::zero(dacc);
-    bt::mm_acc<bt::kHid, T>(hacc, G, ld, w1, C, j0, C, WS);
-    bt::mm_acc_t<bt::kHid, T>(dacc, DY, ld, w2, M, j0, C, WS);
+// Per 128 rows: d_g (float32, from the product) + round_T(d_z) W_g, then dx
+// = d_x2 + (w - n (n . w)) / rn with w = d_g gamma sqrt(C) and n = x / rn;
+// the block's partials of dgamma (d_g n sqrt(C)), dW_g (round_T(d_z) g with
+// g = round_T(n sqrt(C) gamma), as the rows pass rounds it) and db_g (d_z).
+template <int C, typename T>
+__global__ void __launch_bounds__(bt::kThreads)
+    freq_post_kernel(const T* __restrict__ x, const float* __restrict__ agamma,
+                     const float* __restrict__ wg, const float* __restrict__ rn,
+                     const float* __restrict__ dg, const float* __restrict__ dz,
+                     const float* __restrict__ dx2, T* __restrict__ dx, float* __restrict__ dgap,
+                     float* __restrict__ dwgp, float* __restrict__ dbgp, int64_t rows) {
+  constexpr int H = C / kHD;
+  using RM = ff::RowMap<C>;
+  __shared__ float red[8 * C];
+  __shared__ float bred[8][H];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q = lane % RM::L;
+  const float sc = sqrtf((float)C);
+  float acc[RM::NG][4] = {}, accw[H][RM::NG][4] = {}, accb[H] = {};
+  for (int rr = warp * RM::RPW + lane / RM::L; rr < kTM; rr += 8 * RM::RPW) {
+    const int64_t r = (int64_t)blockIdx.x * kTM + rr;
+    const bool ok = r < rows;
+    const float nrm = ok ? rn[r] : 1.f;
+    float dzv[H], dzr[H];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int h = 0; h < H; ++h) {
+      dzv[h] = ok ? dz[r * H + h] : 0.f;
+      dzr[h] = bt::round_to<T>(dzv[h]);
+    }
+    float n[RM::NG][4], d[RM::NG][4];
+    float s = 0.f;
 #pragma unroll
-      for (int j = 0; j < bt::kHid / 32; ++j) {
-        const int r = rg + 16 * i, c0 = j0 + 2 * cp + 32 * j;
-        float f[4];
-        bt::keep4(drop, bt::kSiteFFHidden, 0, 0, (uint32_t)(row0 + r), c0 >> 2, f);
+    for (int i = 0; i < RM::NG; ++i) {
+      const int col = 4 * (q + RM::L * i);
+      if (ok) {
+        ff::load4(x + r * C + col, n[i]);
+        ff::load4(dg + r * C + col, d[i]);
+      } else {
+        n[i][0] = n[i][1] = n[i][2] = n[i][3] = 0.f;
+        d[i][0] = d[i][1] = d[i][2] = d[i][3] = 0.f;
+      }
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pre = hacc[i][2 * j + e] + b1[c0 + e], fe = f[(c0 & 3) + e];
-          const float d = dacc[i][2 * j + e] * fe * bt::gelu_grad(pre);
-          const float db = bt::round_to<T>(d);
-          DPF[r * hld + c0 - j0 + e] = d;
-          HC[r * hld + c0 - j0 + e] = db;
-          if (r < nrows) {
-            op.h1d[(row0 + r) * M + c0 + e] = bt::from_f<T>(bt::gelu_exact(pre) * fe);
-            op.dp1[(row0 + r) * M + c0 + e] = bt::from_f<T>(db);
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int h = 0; h < H; ++h) d[i][e] += dzr[h] * wg[h * C + col + e];
+        n[i][e] /= nrm;
+        s += n[i][e] * d[i][e] * agamma[col + e] * sc;
+        acc[i][e] += d[i][e] * n[i][e] * sc;
+        const float gv = bt::round_to<T>(n[i][e] * sc * agamma[col + e]);
+#pragma unroll
+        for (int h = 0; h < H; ++h) accw[h][i][e] += dzr[h] * gv;
+      }
+    }
+#pragma unroll
+    for (int o = RM::L / 2; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (!ok) continue;
+    if (q == 0)
+#pragma unroll
+      for (int h = 0; h < H; ++h) accb[h] += dzv[h];
+#pragma unroll
+    for (int i = 0; i < RM::NG; ++i) {
+      const int col = 4 * (q + RM::L * i);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int64_t at = r * C + col + e;
+        const float w = d[i][e] * agamma[col + e] * sc;
+        dx[at] = bt::from_f<T>(dx2[at] + (w - n[i][e] * s) / nrm);
+      }
+    }
+  }
+  const int64_t tile = blockIdx.x;
+  ff::block_column_sums<C>(acc, red, dgap + tile * C);
+#pragma unroll
+  for (int h = 0; h < H; ++h) ff::block_column_sums<C>(accw[h], red, dwgp + (tile * H + h) * C);
+  // db_g: over the warp's lanes, then over the 8 warps in order
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    float v = accb[h];
+#pragma unroll
+    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) bred[warp][h] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < H) {
+    float v = 0.f;
+    for (int w = 0; w < 8; ++w) v += bred[w][threadIdx.x];
+    dbgp[tile * H + threadIdx.x] = v;
+  }
+}
+
+// -- products with epilogues -------------------------------------------------
+
+// q, k, v = g W_qkv^T (A: g, B: W_qkv^T, operands), rounded to T, with RoPE
+// on q and k at position row % F, rounded again, into qkv (rows, 3C) of T.
+template <int BN, typename T>
+__global__ void __launch_bounds__(bt::kThreads)
+    freq_qkv_kernel(Operand A, Operand B, const float* __restrict__ cosv,
+                    const float* __restrict__ sinv, T* __restrict__ qkv, int64_t rows, int C,
+                    int F) {
+  constexpr int P = kParts<T>;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int64_t m0 = (int64_t)blockIdx.y * kTM;
+  const int n0 = blockIdx.x * BN;
+  float acc[2][BN / 16][4];
+  mm::product<false, BN, P>(acc, A, B, m0, n0, 0, C, rows, 3 * C,
+                                reinterpret_cast<bf16*>(smem_b));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = 32 * (warp & 3), wn = (BN / 2) * (warp >> 2);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int64_t row = m0 + wm + 16 * mi + (lane >> 2) + 8 * hh;
+        const int col = n0 + wn + 8 * j + 2 * (lane & 3);
+        if (row >= rows || col >= 3 * C) continue;
+        float a = bt::round_to<T>(acc[mi][j][2 * hh]), b = bt::round_to<T>(acc[mi][j][2 * hh + 1]);
+        if (col < 2 * C) {  // the rotation pair (col, col + 1) of q or k
+          const int at = (int)(row % F) * (kHD / 2) + (col % kHD) / 2;
+          const float cs = cosv[at], sn = sinv[at];
+          const float ra = bt::round_to<T>(a * cs - b * sn);
+          const float rb = bt::round_to<T>(b * cs + a * sn);
+          a = ra;
+          b = rb;
+        }
+        qkv[row * 3 * C + col] = bt::from_f<T>(a);
+        qkv[row * 3 * C + col + 1] = bt::from_f<T>(b);
+      }
+}
+
+// x2 = x + (go W_out^T) times the output keep factors, in float32 (A: go,
+// B: W_out^T, operands).
+template <int BN, typename T>
+__global__ void __launch_bounds__(bt::kThreads)
+    freq_out_kernel(Operand A, Operand B, const T* __restrict__ x, float* __restrict__ x2,
+                    int64_t rows, int C, bt::Dropout drop) {
+  constexpr int P = kParts<T>;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int64_t m0 = (int64_t)blockIdx.y * kTM;
+  const int n0 = blockIdx.x * BN;
+  float acc[2][BN / 16][4];
+  mm::product<false, BN, P>(acc, A, B, m0, n0, 0, C, rows, C,
+                                reinterpret_cast<bf16*>(smem_b));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = 32 * (warp & 3), wn = (BN / 2) * (warp >> 2);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      const int64_t row = m0 + wm + 16 * mi + (lane >> 2);
+      const int col8 = n0 + wn + 8 * j, col = col8 + 2 * (lane & 3);
+      float f[2][2];
+      mm::row_keep(drop, bt::kSiteAttnOut, row, col8, f);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int64_t r = row + 8 * hh;
+        if (r >= rows || col >= C) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          x2[r * C + col + e] = bt::to_f(x[r * C + col + e]) + acc[mi][j][2 * hh + e] * f[hh][e];
+      }
+    }
+}
+
+// d_og = d_attn W_out (A: d_attn, B: W_out, operands), and from it per
+// (row, head): d_o = round_T(d_og gate) into dO (rows, C) of T and d_z =
+// (d_og . o) sig (1 - sig) with gate = round_T(sig) and o the rounded
+// attention output. A warp's BN / 2 columns are whole heads.
+template <int BN, typename T>
+__global__ void __launch_bounds__(bt::kThreads)
+    freq_dog_kernel(Operand A, Operand B, const T* __restrict__ o, const float* __restrict__ sig,
+                    T* __restrict__ dO, float* __restrict__ dz, int64_t rows, int C) {
+  constexpr int P = kParts<T>;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const int64_t m0 = (int64_t)blockIdx.y * kTM;
+  const int n0 = blockIdx.x * BN;
+  float acc[2][BN / 16][4];
+  mm::product<false, BN, P>(acc, A, B, m0, n0, 0, C, rows, C,
+                                reinterpret_cast<bf16*>(smem_b));
+  const int H = C / kHD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int wm = 32 * (warp & 3), wn = (BN / 2) * (warp >> 2);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int64_t row = m0 + wm + 16 * mi + g + 8 * hh;
+#pragma unroll
+      for (int hw = 0; hw < BN / 64; ++hw) {
+        const int c0 = n0 + wn + kHD * hw, head = c0 / kHD;
+        const bool ok = row < rows && c0 < C;
+        const float s = ok ? sig[row * H + head] : 0.f, gate = bt::round_to<T>(s);
+        float zo = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int64_t at = row * C + c0 + 8 * jj + 2 * t;
+          const float a0 = acc[mi][4 * hw + jj][2 * hh], a1 = acc[mi][4 * hw + jj][2 * hh + 1];
+          if (ok) {
+            zo += a0 * bt::to_f(o[at]) + a1 * bt::to_f(o[at + 1]);
+            dO[at] = bt::from_f<T>(a0 * gate);
+            dO[at + 1] = bt::from_f<T>(a1 * gate);
           }
         }
-      }
-    __syncthreads();
-    if (tid < bt::kHid) {
-      float sum = 0.f;
-      for (int r = 0; r < bt::kRows; ++r) sum += DPF[r * hld + tid];
-      pt.db1[tile * M + j0 + tid] = sum;
-    }
-    bt::mm_acc_t<C, T>(acc, HC, hld, w1 + (size_t)j0 * C, C, 0, bt::kHid, WS);
-  }
-
-  // d_x2 = dout + (w - n2 (n2 . w)) / r2 with w = d_g2 gamma_ff sqrt(C), n2 =
-  // y1 / r2; dgamma_ff's products into DO. Rows rg and rg + 16 are spread
-  // over the 16 threads of a half warp.
-  {
-    float s[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = rg + 16 * i;
-#pragma unroll
-      for (int j = 0; j < C / 32; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 2 * cp + 32 * j + e;
-          const float n = Y[r * ld + col] / RN2[r];
-          s[i] += n * acc[i][2 * j + e] * fgamma[col] * sc;
-          DO[r * ld + col] = acc[i][2 * j + e] * n * sc;
-        }
-#pragma unroll
-      for (int o = 8; o; o >>= 1) s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = rg + 16 * i;
-#pragma unroll
-      for (int j = 0; j < C / 32; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 2 * cp + 32 * j + e;
-          const float n = Y[r * ld + col] / RN2[r];
-          const float w = acc[i][2 * j + e] * fgamma[col] * sc;
-          DX2[r * ld + col] =
-              r < nrows ? bt::to_f(dout[(row0 + r) * C + col]) + (w - n * s[i]) / RN2[r] : 0.f;
-        }
-    }
-  }
-  __syncthreads();
-  for (int c = tid; c < C; c += bt::kThreads) {
-    float sum = 0.f;
-    for (int r = 0; r < bt::kRows; ++r) sum += DO[r * ld + c];
-    pt.dgf[tile * C + c] = sum;
-  }
-
-  // 3. d_attn = round_T(d_x2 * output mask); d_og = d_attn W_out; d_o =
-  // round_T(d_og * gate); the gate logits' cotangent from d_og . o per head
-  for (int e = tid; e < bt::kRows * C; e += bt::kThreads) {
-    const int r = e / C, c = e % C;
-    G[r * ld + c] = r < nrows ? bt::round_to<T>(DX2[r * ld + c] *
-                                                bt::keep1(drop, bt::kSiteAttnOut, 0, 0,
-                                                          (uint32_t)(row0 + r), c))
-                              : 0.f;
-  }
-  __syncthreads();  // also orders the DO reads above before the writes below
-  bt::store_rows<T>(G, ld, C, op.da, row0, nrows);
-  bt::zero(acc);
-  bt::mm_acc_t<C, T>(acc, G, ld, wout, C, 0, C, WS);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = rg + 16 * i;
-#pragma unroll
-    for (int j = 0; j < H; ++j) {  // head j holds columns 32 j .. 32 j + 31
-      float dsig = 0.f;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 2 * cp + 32 * j + e;
-        const float dog = acc[i][2 * j + e];
-        DO[r * ld + col] = bt::round_to<T>(dog * GATE[r * H + j]);
-        dsig += dog * O[r * ld + col];
-      }
-#pragma unroll
-      for (int o = 8; o; o >>= 1) dsig += __shfl_xor_sync(0xffffffffu, dsig, o);
-      if (cp == 0) {
-        const float sg = SIG[r * H + j];
-        DPG[r * H + j] = dsig * sg * (1.f - sg);
+        zo += __shfl_xor_sync(0xffffffffu, zo, 1);
+        zo += __shfl_xor_sync(0xffffffffu, zo, 2);
+        if (ok && t == 0) dz[row * H + head] = zo * s * (1.f - s);
       }
     }
-  }
-  __syncthreads();
-  if (tid < H) {
-    float sum = 0.f;
-    for (int r = 0; r < bt::kRows; ++r) sum += DPG[r * H + tid];
-    pt.dbg[tile * H + tid] = sum;
-  }
-  // dW_gates from the rounded rows g this block stored in step 1
-  for (int e = tid; e < H * C; e += bt::kThreads) {
-    const int h = e / C, c = e % C;
-    float sum = 0.f;
-    for (int r = 0; r < nrows; ++r)
-      sum += bt::round_to<T>(DPG[r * H + h]) * bt::to_f(op.g[(row0 + r) * C + c]);
-    pt.dwg[tile * H * C + e] = sum;
-  }
-
-  // 4. attention backward, one thread per (row, head): first as the query
-  // (delta = sum p dp over the undropped p, then dq), then as the key (dk,
-  // dv), recomputing each probability from the saved max and sum
-  const bool active = tid < bt::kRows * H;
-  const int r = tid / H, h = tid % H, first = r - r % F;
-  float dq[D], dk[D], dv[D];
-  if (active) {
-    const float* qr = QKV + r * ldq + h * D;
-    const float* dor = DO + r * ld + h * D;
-    const float* pm = PM + (r * H + h) * F;
-    const float m = MS[r * H + h], linv = 1.f / LS[r * H + h];
-    float delta = 0.f;
-    for (int j = first; j < first + F; ++j) {
-      const float* kr = QKV + j * ldq + C + h * D;
-      const float* vr = kr + C;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s += qr[d] * qscale * kr[d];  // the forward's score, bit for bit
-        dp += dor[d] * vr[d];
-      }
-      delta += exp2f(s - m) * linv * dp * pm[j - first];
-    }
-    DELTA[r * H + h] = delta;
-#pragma unroll
-    for (int d = 0; d < D; ++d) dq[d] = 0.f;
-    for (int j = first; j < first + F; ++j) {
-      const float* kr = QKV + j * ldq + C + h * D;
-      const float* vr = kr + C;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s += qr[d] * qscale * kr[d];  // the forward's score, bit for bit
-        dp += dor[d] * vr[d];
-      }
-      const float p = exp2f(s - m) * linv;
-      const float ds = bt::round_to<T>(p * (dp * pm[j - first] - delta));
-#pragma unroll
-      for (int d = 0; d < D; ++d) dq[d] += ds * kr[d];
-    }
-  }
-  __syncthreads();
-  if (active) {
-    const float* kr = QKV + r * ldq + C + h * D;
-    const float* vr = kr + C;
-#pragma unroll
-    for (int d = 0; d < D; ++d) dk[d] = dv[d] = 0.f;
-    for (int q = first; q < first + F; ++q) {
-      const float* qr = QKV + q * ldq + h * D;
-      const float* dor = DO + q * ld + h * D;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s += qr[d] * qscale * kr[d];  // the forward's score, bit for bit
-        dp += dor[d] * vr[d];
-      }
-      const float keep = PM[(q * H + h) * F + r - first];
-      const float p = exp2f(s - MS[q * H + h]) / LS[q * H + h];
-      const float ds = bt::round_to<T>(p * (dp * keep - DELTA[q * H + h]));
-      const float pd = bt::round_to<T>(p * keep);
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dk[d] += ds * qr[d];
-        dv[d] += pd * dor[d];
-      }
-    }
-  }
-  __syncthreads();  // every read of q, k, v is done: overwrite them in place
-  if (active) {
-    // dq, dk: the inverse RoPE at this row's position, times 32^-0.5
-    const int pos = r % F;
-    float* out = QKV + r * ldq + h * D;
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) {
-      const float cs = cosv[pos * (D / 2) + i], sn = sinv[pos * (D / 2) + i];
-      out[2 * i] = bt::round_to<T>((dq[2 * i] * cs + dq[2 * i + 1] * sn) * kscale);
-      out[2 * i + 1] = bt::round_to<T>((dq[2 * i + 1] * cs - dq[2 * i] * sn) * kscale);
-      out[C + 2 * i] = bt::round_to<T>((dk[2 * i] * cs + dk[2 * i + 1] * sn) * kscale);
-      out[C + 2 * i + 1] = bt::round_to<T>((dk[2 * i + 1] * cs - dk[2 * i] * sn) * kscale);
-    }
-#pragma unroll
-    for (int d = 0; d < D; ++d) out[2 * C + d] = bt::round_to<T>(dv[d]);
-  }
-  __syncthreads();
-  bt::store_rows<T>(QKV, ldq, 3 * C, op.dqkv, row0, nrows);
-
-  // 5. d_g = round_T(d_gate_logits) W_gates + d_qkv W_qkv; dx = d_x2 + (w -
-  // n1 (n1 . w)) / r1 with w = d_g gamma_attn sqrt(C), n1 = x / r1;
-  // dgamma_attn's products into DO
-  bt::zero(acc);
-  bt::mm_acc_t<C, T>(acc, QKV, ldq, wqkv, C, 0, 3 * C, WS);
-  {
-    float s[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int rr = rg + 16 * i;
-#pragma unroll
-      for (int j = 0; j < C / 32; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 2 * cp + 32 * j + e;
-          float dg = acc[i][2 * j + e];
-          for (int hh = 0; hh < H; ++hh)
-            dg += bt::round_to<T>(DPG[rr * H + hh]) * wg[hh * C + col];
-          acc[i][2 * j + e] = dg;
-          const float n = rr < nrows ? bt::to_f(x[(row0 + rr) * C + col]) / RN1[rr] : 0.f;
-          s[i] += n * dg * agamma[col] * sc;
-          DO[rr * ld + col] = dg * n * sc;
-        }
-#pragma unroll
-      for (int o = 8; o; o >>= 1) s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int rr = rg + 16 * i;
-      if (rr >= nrows) continue;
-#pragma unroll
-      for (int j = 0; j < C / 32; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 2 * cp + 32 * j + e;
-          const int64_t at = (row0 + rr) * C + col;
-          const float n = bt::to_f(x[at]) / RN1[rr];
-          const float w = acc[i][2 * j + e] * agamma[col] * sc;
-          dx[at] = bt::from_f<T>(DX2[rr * ld + col] + (w - n * s[i]) / RN1[rr]);
-        }
-    }
-  }
-  __syncthreads();
-  for (int c = tid; c < C; c += bt::kThreads) {
-    float sum = 0.f;
-    for (int rr = 0; rr < bt::kRows; ++rr) sum += DO[rr * ld + c];
-    pt.dga[tile * C + c] = sum;
-  }
 }
 
-// part[g][a][b] = sum over the rows of row-tile group g (blockIdx.z) of
-// A[row][a] * B[row][b], for the block's 32 columns a of A (blockIdx.x) and
-// 32 NI columns b of B (blockIdx.y). A (rows, ka) and B (rows, kb) in T.
-template <int NI, typename T>
+// The backward's products over the staged product's jobs (d_g: one job;
+// dW_qkv and dW_out: two).
+template <bool AM, int BN, int P>
 __global__ void __launch_bounds__(bt::kThreads)
-    atb_kernel(const T* __restrict__ A, int ka, const T* __restrict__ B, int kb,
-               float* __restrict__ part, int64_t rows, int tiles_per_group) {
-  constexpr int cl = 33, rl = 32 * NI + 1;
-  __shared__ float L[bt::kRows * cl];
-  __shared__ float R[bt::kRows * rl];
-  const int tid = threadIdx.x, a0 = blockIdx.x * 32, b0 = blockIdx.y * 32 * NI, g = blockIdx.z;
-  const int64_t tiles = (rows + bt::kRows - 1) / bt::kRows;
-  const int64_t t_end = min((int64_t)(g + 1) * tiles_per_group, tiles);
-  float acc[4][NI];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int i = 0; i < NI; ++i) acc[a][i] = 0.f;
-  for (int64_t t = (int64_t)g * tiles_per_group; t < t_end; ++t) {
-    const int64_t row0 = t * bt::kRows;
-    const int nrows = bt::tile_rows(rows, row0);
-    for (int e = tid; e < bt::kRows * 32; e += bt::kThreads) {
-      const int r = e / 32, c = e % 32;
-      L[r * cl + c] = r < nrows ? bt::to_f(A[(row0 + r) * ka + a0 + c]) : 0.f;
-    }
-    for (int e = tid; e < bt::kRows * 32 * NI; e += bt::kThreads) {
-      const int r = e / (32 * NI), c = e % (32 * NI);
-      R[r * rl + c] = r < nrows ? bt::to_f(B[(row0 + r) * kb + b0 + c]) : 0.f;
-    }
-    __syncthreads();
-    bt::outer_acc<NI>(acc, L, cl, R, rl);
-    __syncthreads();
-  }
-  const int lane = tid & 31, l0 = 4 * (tid >> 5);
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-      part[(size_t)g * ka * kb + (size_t)(a0 + l0 + a) * kb + b0 + lane + 32 * i] = acc[a][i];
+    freq_product_kernel(mm::ProductJob j0, mm::ProductJob j1) {
+  mm::product_jobs<AM, BN, P>(j0, j1);
 }
 
-// out (ka, kb) = A^T B over all rows: grouped partials, then their
-// fixed-order sum. part: groups * ka * kb floats.
-template <typename T>
-cudaError_t atb(const T* A, int ka, const T* B, int kb, float* part, float* out, int64_t rows,
-                int groups, cudaStream_t s) {
-  const int64_t tiles = (rows + bt::kRows - 1) / bt::kRows;
-  const int tpg = (int)((tiles + groups - 1) / groups);
-  const int ni = kb >= 128 ? 4 : kb / 32;
-  const dim3 grid(ka / 32, kb / (32 * ni), groups);
-  switch (ni) {
-    case 1: atb_kernel<1, T><<<grid, bt::kThreads, 0, s>>>(A, ka, B, kb, part, rows, tpg); break;
-    case 2: atb_kernel<2, T><<<grid, bt::kThreads, 0, s>>>(A, ka, B, kb, part, rows, tpg); break;
-    default: atb_kernel<4, T><<<grid, bt::kThreads, 0, s>>>(A, ka, B, kb, part, rows, tpg);
+// Every partial summed in a fixed order, in one launch.
+__global__ void __launch_bounds__(bt::kThreads) freq_sums_kernel(mm::SumJobs<10> s) {
+  mm::column_sums(s);
+}
+
+// -- the attention over F keys --------------------------------------------------
+
+// A block of kAT threads covers RB = kAT / H rows, thread (r, h) = (tid / H,
+// tid % H); F divides 32 and so RB, so items lie whole in a block. A head's
+// rows of q, k, v or d_o sit in shared memory at h HS + 32 r, HS = 32 RB + 8:
+// the threads of a warp read the same row of a head (broadcast), and the
+// heads of a warp fall in different banks.
+template <int C> struct AttnMap {
+  static constexpr int H = C / kHD, RB = kAT / H, HS = RB * kHD + 8, FLOATS = H * HS;
+};
+
+// Columns [0, C) of rows [row0, row0 + nrows) of a (rows, ld) matrix into
+// the head tiles `dst`, zeros past nrows.
+template <int C, typename T>
+__device__ __forceinline__ void stage_heads(float* dst, const T* __restrict__ src, int64_t ld,
+                                            int64_t row0, int nrows) {
+  using AM = AttnMap<C>;
+  for (int e = threadIdx.x; e < AM::RB * C; e += kAT) {
+    const int r = e / C, c = e % C;
+    dst[(c / kHD) * AM::HS + r * kHD + c % kHD] =
+        r < nrows ? bt::to_f(src[(row0 + r) * ld + c]) : 0.f;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return bt::sum_partials(part, out, groups, (int64_t)ka * kb, s);
+}
+
+__device__ __forceinline__ void load_row(float (&v)[kHD], const float* p) {
+#pragma unroll
+  for (int d = 0; d < kHD; d += 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p + d);
+    v[d] = w.x, v[d + 1] = w.y, v[d + 2] = w.z, v[d + 3] = w.w;
+  }
+}
+
+__device__ __forceinline__ float dot(const float (&a)[kHD], const float* p) {
+  float s = 0.f;
+#pragma unroll
+  for (int d = 0; d < kHD; d += 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p + d);
+    s += a[d] * w.x;
+    s += a[d + 1] * w.y;
+    s += a[d + 2] * w.z;
+    s += a[d + 3] * w.w;
+  }
+  return s;
+}
+
+// The keep factor of key j from a row's mask bits (1 when dropout is off).
+__device__ __forceinline__ float keep_of(const bt::Dropout& d, uint32_t bits, int j) {
+  return !d.on ? 1.f : (bits >> j) & 1u ? d.scale : 0.f;
+}
+
+// The forward recomputed, one thread per (row, head): walk 1 finds the
+// query's largest score m (log2 units), walk 2 forms p = exp2(s - m), sums
+// the undropped p into l and accumulates round_T(p f) v. Writes round_T(o /
+// l) into o (rows, C) of T, go = round_T(o gate) as an operand (parts `lo`
+// apart), m, l and the mask bits (bit j: key j kept) per (row, head).
+template <int C, typename T>
+__global__ void __launch_bounds__(kAT)
+    freq_core_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ sig,
+                         T* __restrict__ o, bf16* __restrict__ go, int64_t lo,
+                         float* __restrict__ mrow, float* __restrict__ lrow,
+                         uint32_t* __restrict__ keep, int64_t rows, int F, bt::Dropout drop) {
+  constexpr int P = kParts<T>;
+  using AM = AttnMap<C>;
+  constexpr int H = AM::H;
+  __shared__ __align__(16) float ks[AM::FLOATS];
+  __shared__ __align__(16) float vs[AM::FLOATS];
+  const int64_t row0 = (int64_t)blockIdx.x * AM::RB;
+  const int nrows = (int)min((int64_t)AM::RB, rows - row0);
+  stage_heads<C, T>(ks, qkv + C, 3 * C, row0, nrows);
+  stage_heads<C, T>(vs, qkv + 2 * C, 3 * C, row0, nrows);
+  __syncthreads();
+  const int r = threadIdx.x / H, h = threadIdx.x % H;
+  if (r >= nrows) return;
+  const int64_t row = row0 + r;
+  const int first = r - r % F;
+  const float* kh = ks + h * AM::HS;
+  const float* vh = vs + h * AM::HS;
+  float qv[kHD], acc[kHD];
+#pragma unroll
+  for (int d = 0; d < kHD; ++d) {
+    qv[d] = bt::to_f(qkv[row * 3 * C + h * kHD + d]) * kQScale;
+    acc[d] = 0.f;
+  }
+  float m = -INFINITY;
+  for (int j = first; j < first + F; ++j) m = fmaxf(m, dot(qv, kh + j * kHD));
+  uint32_t bits = 0u;
+  if (drop.on)
+    for (int c4 = 0; 4 * c4 < F; ++c4) {
+      float f[4];
+      bt::keep4(drop, bt::kSiteAttnProbs, (uint32_t)(row / F), h, r % F, c4, f);
+      for (int c = 0; c < 4 && 4 * c4 + c < F; ++c) bits |= (f[c] != 0.f ? 1u : 0u) << (4 * c4 + c);
+    }
+  float l = 0.f;
+  for (int jj = 0; jj < F; ++jj) {
+    const int j = first + jj;
+    const float p = exp2f(dot(qv, kh + j * kHD) - m);
+    l += p;
+    const float pd = bt::round_to<T>(p * keep_of(drop, bits, jj));
+    const float* vr = vh + j * kHD;
+#pragma unroll
+    for (int d = 0; d < kHD; ++d) acc[d] += pd * vr[d];
+  }
+  mrow[row * H + h] = m;
+  lrow[row * H + h] = l;
+  keep[row * H + h] = bits;
+  const float gate = bt::round_to<T>(sig[row * H + h]);
+  const int64_t at = row * C + h * kHD;
+#pragma unroll
+  for (int d = 0; d < kHD; d += 2) {
+    const float o0 = bt::round_to<T>(acc[d] / l), o1 = bt::round_to<T>(acc[d + 1] / l);
+    o[at + d] = bt::from_f<T>(o0);
+    o[at + d + 1] = bt::from_f<T>(o1);
+    mm::store2<P>(go + at + d, lo, o0 * gate, o1 * gate);
+  }
+}
+
+// d_q, d_k (pair i of position pos pulled back through the rotation, times
+// 32^-0.5) and d_v of one (row, head) stored as operand parts.
+template <int P>
+__device__ __forceinline__ void store_rope_inv(bf16* dst, int64_t lo, const float (&g)[kHD],
+                                               const float* __restrict__ cosv,
+                                               const float* __restrict__ sinv, int pos) {
+#pragma unroll
+  for (int i = 0; i < kHD / 2; ++i) {
+    const float cs = cosv[pos * (kHD / 2) + i], sn = sinv[pos * (kHD / 2) + i];
+    mm::store2<P>(dst + 2 * i, lo, (g[2 * i] * cs + g[2 * i + 1] * sn) * kScale,
+                      (g[2 * i + 1] * cs - g[2 * i] * sn) * kScale);
+  }
+}
+
+template <int C>
+constexpr size_t core_bwd_smem() {
+  return sizeof(float) * (4 * AttnMap<C>::FLOATS + 3 * kAT) + sizeof(uint32_t) * kAT;
+}
+
+// The attention's backward, one thread per (row, head): as the query, delta
+// = sum_j p_j dp_j f_j (dp_j = d_o . v_j) and dq = sum_j ds_j k_j with ds =
+// round_T(p (dp f - delta)); then as the key, dk = sum_q ds q and dv = sum_q
+// round_T(p f) d_o_q, recomputing each p from the query's m and l. Writes
+// [d_q | d_k | d_v] into dqkv (rows, 3C) as an operand (parts `dlo` apart).
+template <int C, typename T>
+__global__ void __launch_bounds__(kAT)
+    freq_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dO,
+                         const float* __restrict__ mrow, const float* __restrict__ lrow,
+                         const uint32_t* __restrict__ keep, const float* __restrict__ cosv,
+                         const float* __restrict__ sinv, bf16* __restrict__ dqkv, int64_t dlo,
+                         int64_t rows, int F, bt::Dropout drop) {
+  constexpr int P = kParts<T>;
+  using AM = AttnMap<C>;
+  constexpr int H = AM::H;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* ks = qs + AM::FLOATS;
+  float* vs = ks + AM::FLOATS;
+  float* dos = vs + AM::FLOATS;
+  float* ms = dos + AM::FLOATS;  // per thread (r, h): m, l, delta, mask bits
+  float* ls = ms + kAT;
+  float* deltas = ls + kAT;
+  uint32_t* bitss = reinterpret_cast<uint32_t*>(deltas + kAT);
+  const int64_t row0 = (int64_t)blockIdx.x * AM::RB;
+  const int nrows = (int)min((int64_t)AM::RB, rows - row0);
+  stage_heads<C, T>(qs, qkv, 3 * C, row0, nrows);
+  stage_heads<C, T>(ks, qkv + C, 3 * C, row0, nrows);
+  stage_heads<C, T>(vs, qkv + 2 * C, 3 * C, row0, nrows);
+  stage_heads<C, T>(dos, dO, C, row0, nrows);
+  const int tid = threadIdx.x, r = tid / H, h = tid % H;
+  const bool active = r < nrows;
+  const int64_t row = row0 + r;
+  if (active) {
+    ms[tid] = mrow[row * H + h];
+    ls[tid] = lrow[row * H + h];
+    bitss[tid] = keep[row * H + h];
+  }
+  __syncthreads();
+  const int first = r - r % F, pos = r % F;
+  const float* qh = qs + h * AM::HS;
+  const float* kh = ks + h * AM::HS;
+  const float* vh = vs + h * AM::HS;
+  const float* doh = dos + h * AM::HS;
+  bf16* dst = dqkv + row * 3 * C + h * kHD;
+  if (active) {
+    float qv[kHD], dor[kHD], g[kHD];
+    load_row(dor, doh + r * kHD);
+#pragma unroll
+    for (int d = 0; d < kHD; ++d) {
+      qv[d] = qh[r * kHD + d] * kQScale;
+      g[d] = 0.f;
+    }
+    const float m = ms[tid], linv = 1.f / ls[tid];
+    const uint32_t bits = bitss[tid];
+    float delta = 0.f;
+    for (int jj = 0; jj < F; ++jj) {
+      const int j = first + jj;
+      const float p = exp2f(dot(qv, kh + j * kHD) - m) * linv;
+      delta += p * dot(dor, vh + j * kHD) * keep_of(drop, bits, jj);
+    }
+    deltas[tid] = delta;
+    for (int jj = 0; jj < F; ++jj) {
+      const int j = first + jj;
+      const float p = exp2f(dot(qv, kh + j * kHD) - m) * linv;
+      const float dp = dot(dor, vh + j * kHD);
+      const float ds = bt::round_to<T>(p * (dp * keep_of(drop, bits, jj) - delta));
+      const float* kr = kh + j * kHD;
+#pragma unroll
+      for (int d = 0; d < kHD; ++d) g[d] += ds * kr[d];
+    }
+    store_rope_inv<P>(dst, dlo, g, cosv, sinv, pos);
+  }
+  __syncthreads();  // every query's delta is in shared memory
+  if (!active) return;
+  float kv[kHD], vv[kHD], dk[kHD], dv[kHD];
+  load_row(kv, kh + r * kHD);
+  load_row(vv, vh + r * kHD);
+#pragma unroll
+  for (int d = 0; d < kHD; ++d) dk[d] = dv[d] = 0.f;
+  for (int qi = first; qi < first + F; ++qi) {
+    const float* qr = qh + qi * kHD;
+    const float* dor = doh + qi * kHD;
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < kHD; ++d) s += qr[d] * kQScale * kv[d];  // the forward's score
+    const int at = qi * H + h;
+    const float p = exp2f(s - ms[at]) / ls[at];
+    const float f = keep_of(drop, bitss[at], pos);
+    const float ds = bt::round_to<T>(p * (dot(vv, dor) * f - deltas[at]));
+    const float pd = bt::round_to<T>(p * f);
+#pragma unroll
+    for (int d = 0; d < kHD; ++d) {
+      dk[d] += ds * qr[d];
+      dv[d] += pd * dor[d];
+    }
+  }
+  store_rope_inv<P>(dst + C, dlo, dk, cosv, sinv, pos);
+#pragma unroll
+  for (int d = 0; d < kHD; d += 2) mm::store2<P>(dst + 2 * C + d, dlo, dv[d], dv[d + 1]);
+}
+
+// -- scratch layout and launches ---------------------------------------------
+
+// The backward's scratch (on a null base: its size alone): B9's layout
+// (ff::BwdLayout, operands of P parts) first, then in float32 only W_qkv and
+// W_out split (P parts of 3C C and C C); bf16 operands (P = 3 parts in
+// float32, 1 in bf16) W_qkv^T
+// (P C 3C), W_out^T (P C C), g and go (P rows C each); q | k | v (rows 3C)
+// and the rounded attention output (rows C) of T; float32 row norms (rows),
+// gates, m, l (rows H each), the mask bits (rows H), x2 (rows C; d_g once the
+// FF half is done), d_x2 (rows C); the partials of dgamma_attn (tiles C),
+// dW_g (tiles H C), db_g (tiles H) per 128-row tile and of dW_qkv (groups 3C
+// C) and dW_out (groups C C). d_attn, d_o, d_z and d_qkv take the space of
+// B9's first sections, free once the FF half is done.
+template <typename T> struct Layout {
+  ff::BwdLayout fs;  // B9's
+  bf16 *wqkv, *wout, *wqkvt, *woutt, *g, *go, *da, *dqkv;
+  T *qkv, *o, *dO;
+  float *rn, *sig, *mrow, *lrow, *x2, *dg, *dx2, *dz;
+  uint32_t* keep;
+  float *dgap, *dwgp, *dbgp, *dwqp, *dwop;
+  int64_t groups;
+  size_t bytes, late_bytes;
+
+  Layout(void* base, int64_t rows, int C, int M, int64_t groups_, int64_t ff_groups)
+      : fs(base, kParts<T>, rows, C, M, ff_groups), groups(groups_) {
+    const int64_t P = kParts<T>, S = P > 1 ? P : 0, H = C / kHD, tiles = fs.tiles;
+    mm::Carver c(reinterpret_cast<void*>(reinterpret_cast<uintptr_t>(base) + fs.bytes));
+    wqkv = c.take<bf16>(S * 3 * C * C);
+    wout = c.take<bf16>(S * C * C);
+    wqkvt = c.take<bf16>(P * 3 * C * C);
+    woutt = c.take<bf16>(P * C * C);
+    g = c.take<bf16>(P * rows * C);
+    go = c.take<bf16>(P * rows * C);
+    qkv = c.take<T>(rows * 3 * C);
+    o = c.take<T>(rows * C);
+    rn = c.take<float>(rows);
+    sig = c.take<float>(rows * H);
+    mrow = c.take<float>(rows * H);
+    lrow = c.take<float>(rows * H);
+    keep = c.take<uint32_t>(rows * H);
+    x2 = dg = c.take<float>(rows * C);
+    dx2 = c.take<float>(rows * C);
+    dgap = c.take<float>(tiles * C);
+    dwgp = c.take<float>(tiles * H * C);
+    dbgp = c.take<float>(tiles * H);
+    dwqp = c.take<float>(groups * 3 * C * C);
+    dwop = c.take<float>(groups * C * C);
+    bytes = fs.bytes + c.bytes;
+    mm::Carver late(base);
+    da = late.take<bf16>(P * rows * C);
+    dO = late.take<T>(rows * C);
+    dz = late.take<float>(rows * H);
+    dqkv = late.take<bf16>(P * rows * 3 * C);
+    late_bytes = late.bytes;
+  }
+
+  // The late sections fit in B9's first four.
+  bool fits() const {
+    return late_bytes <= (size_t)(reinterpret_cast<uintptr_t>(fs.w1t) -
+                                  reinterpret_cast<uintptr_t>(fs.g));
+  }
+};
+
+// Output tiles of the weight-gradient launch per row group: dW_qkv (3C, C)
+// and dW_out (C, C) in blocks of kTM x product_n(C).
+inline int wgrad_tiles(int C) {
+  const int bn = mm::product_n(C);
+  return (C + bn - 1) / bn * ((3 * C + kTM - 1) / kTM + (C + kTM - 1) / kTM);
 }
 
 template <int C, typename T>
-cudaError_t launch_bwd(const void* x, const void* agamma, const void* wqkv, const void* wg,
-                       const void* gb, const void* wout, const void* fgamma, const void* w1,
-                       const void* b1, const void* w2, const void* cosv, const void* sinv,
-                       const void* dout, void* dx, float* const* grads, void* ops, void* part,
-                       int64_t rows, int F, int M, int groups, bt::Dropout drop,
-                       cudaStream_t s) {
-  constexpr int H = C / bt::kHeadDim;
-  const int64_t tiles = (rows + bt::kRows - 1) / bt::kRows;
-  Operands<T> op;
-  op.g = (T*)ops;
-  op.dqkv = op.g + rows * C;
-  op.og = op.dqkv + rows * 3 * C;
-  op.da = op.og + rows * C;
-  op.g2 = op.da + rows * C;
-  op.dp1 = op.g2 + rows * C;
-  op.h1d = op.dp1 + rows * M;
-  op.dy = op.h1d + rows * M;
-  Partials pt;
-  pt.dga = (float*)part;
-  pt.dgf = pt.dga + tiles * C;
-  pt.dbg = pt.dgf + tiles * C;
-  pt.dwg = pt.dbg + tiles * H;
-  pt.db1 = pt.dwg + tiles * H * C;
-  pt.db2 = pt.db1 + tiles * M;
-  float* gp = pt.db2 + tiles * C;  // group partials, reused by the four products in turn
+cudaError_t launch_bwd(const Layout<T>& s, const T* x, const float* agamma, const T* wqkv,
+                       const float* wg, const float* gb, const T* wout, const float* fgamma,
+                       const T* w1, const float* b1, const T* w2, const float* cosv,
+                       const float* sinv, const T* dout, T* dx, float* const* grads,
+                       int64_t rows, int F, int M, int64_t group_rows, int64_t ff_group_rows,
+                       bt::Dropout drop, cudaStream_t stream) {
+  constexpr int P = kParts<T>;
+  constexpr int H = C / kHD, BN = mm::product_n(C);
+  using AM = AttnMap<C>;
+  const int64_t rlo = rows * C, tiles = s.fs.tiles;
+  const unsigned mtiles = (unsigned)tiles, ntiles = (C + BN - 1) / BN;
+  const unsigned ablocks = (unsigned)((rows + AM::RB - 1) / AM::RB);
+  const size_t smem_nn = mm::product_smem<false, BN, P>();
+  cudaError_t err;
 
-  const size_t smem = sizeof(float) * rows_smem_floats<C>();
-  auto k1 = freq_bwd_rows_kernel<C, T>;
-  cudaError_t err = bt::allow_smem(k1, smem);
-  if (err != cudaSuccess) return err;
-  const float qscale = 0.17677669529663688f * 1.4426950408889634f;  // 32^-0.5 * log2(e)
-  k1<<<(unsigned)tiles, bt::kThreads, smem, s>>>(
-      (const T*)x, (const float*)agamma, (const T*)wqkv, (const float*)wg, (const float*)gb,
-      (const T*)wout, (const float*)fgamma, (const T*)w1, (const float*)b1, (const T*)w2,
-      (const float*)cosv, (const float*)sinv, (const T*)dout, (T*)dx, op, pt, rows, F, M, qscale,
-      drop);
+  // 1-5. the attention half recomputed: x2 (float32)
+  mm::ConvJobs conv;
+  conv.add(wqkv, s.wqkvt, 3 * C, C, 1);
+  conv.add(wout, s.woutt, C, C, 1);
+  if (P > 1) {
+    conv.add(wqkv, s.wqkv, 3 * C, C, 0);
+    conv.add(wout, s.wout, C, C, 0);
+  }
+  if ((err = mm::convert<T, P>(conv, stream)) != cudaSuccess) return err;
+  const Operand wqkv_op{P > 1 ? s.wqkv : (const bf16*)wqkv, C, (int64_t)3 * C * C};
+  const Operand wout_op{P > 1 ? s.wout : (const bf16*)wout, C, (int64_t)C * C};
+
+  freq_rows_kernel<C, T><<<mtiles, bt::kThreads, 0, stream>>>(x, agamma, wg, gb, s.rn, s.g, rlo,
+                                                              s.sig, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // grads: dga, dwqkv, dwg, dgb, dwout, dgf, dw1, db1, dw2, db2
-  if ((err = atb<T>(op.dqkv, 3 * C, op.g, C, gp, grads[1], rows, groups, s)) != cudaSuccess)
+  auto kq = freq_qkv_kernel<BN, T>;
+  if ((err = bt::allow_smem(kq, smem_nn)) != cudaSuccess) return err;
+  kq<<<dim3((3 * C + BN - 1) / BN, mtiles), bt::kThreads, smem_nn, stream>>>(
+      Operand{s.g, C, rlo}, Operand{s.wqkvt, 3 * C, (int64_t)3 * C * C}, cosv, sinv, s.qkv, rows,
+      C, F);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  freq_core_fwd_kernel<C, T><<<ablocks, kAT, 0, stream>>>(s.qkv, s.sig, s.o, s.go, rlo, s.mrow,
+                                                          s.lrow, s.keep, rows, F, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  auto ko = freq_out_kernel<BN, T>;
+  if ((err = bt::allow_smem(ko, smem_nn)) != cudaSuccess) return err;
+  ko<<<dim3(ntiles, mtiles), bt::kThreads, smem_nn, stream>>>(
+      Operand{s.go, C, rlo}, Operand{s.woutt, C, (int64_t)C * C}, x, s.x2, rows, C, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // 6. the feed-forward half on x2
+  if ((err = ff::bwd_launch<C, T, float, P>(s.fs, s.x2, fgamma, w1, b1, w2, dout, s.dx2, rows, M,
+                                         ff_group_rows, drop, stream)) != cudaSuccess)
     return err;
-  if ((err = atb<T>(op.da, C, op.og, C, gp, grads[4], rows, groups, s)) != cudaSuccess) return err;
-  if ((err = atb<T>(op.dp1, M, op.g2, C, gp, grads[6], rows, groups, s)) != cudaSuccess) return err;
-  if ((err = atb<T>(op.dy, C, op.h1d, M, gp, grads[8], rows, groups, s)) != cudaSuccess) return err;
-  const struct { const float* p; float* out; int64_t n; } small[] = {
-      {pt.dga, grads[0], C}, {pt.dwg, grads[2], (int64_t)H * C}, {pt.dbg, grads[3], H},
-      {pt.dgf, grads[5], C}, {pt.db1, grads[7], M},               {pt.db2, grads[9], C}};
-  for (const auto& t : small)
-    if ((err = bt::sum_partials(t.p, t.out, (int)tiles, t.n, s)) != cudaSuccess) return err;
-  return cudaSuccess;
+
+  // 7-9. the attention branch's backward to d_qkv
+  const unsigned eblocks = (unsigned)std::min<int64_t>((rlo / 4 + bt::kThreads - 1) / bt::kThreads,
+                                                       132 * 16);
+  freq_dattn_kernel<T><<<eblocks, bt::kThreads, 0, stream>>>(s.dx2, s.da, rlo, rows, C, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  auto kg = freq_dog_kernel<BN, T>;
+  if ((err = bt::allow_smem(kg, smem_nn)) != cudaSuccess) return err;
+  kg<<<dim3(ntiles, mtiles), bt::kThreads, smem_nn, stream>>>(Operand{s.da, C, rlo}, wout_op,
+                                                              s.o, s.sig, s.dO, s.dz, rows, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  auto kb = freq_core_bwd_kernel<C, T>;
+  if ((err = bt::allow_smem(kb, core_bwd_smem<C>())) != cudaSuccess) return err;
+  kb<<<ablocks, kAT, core_bwd_smem<C>(), stream>>>(s.qkv, s.dO, s.mrow, s.lrow, s.keep, cosv,
+                                                    sinv, s.dqkv, 3 * rlo, rows, F, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // 10. d_g = d_qkv W_qkv
+  const mm::ProductJob dgj{Operand{s.dqkv, 3 * C, 3 * rlo}, wqkv_op, s.dg, C, 0, rows, C,
+                           3 * C, 3 * C, mtiles};
+  auto kd = freq_product_kernel<false, BN, P>;
+  if ((err = bt::allow_smem(kd, smem_nn)) != cudaSuccess) return err;
+  kd<<<dim3(ntiles, mtiles), bt::kThreads, smem_nn, stream>>>(dgj, dgj);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // 11. the RMSNorm backward to dx
+  freq_post_kernel<C, T><<<mtiles, bt::kThreads, 0, stream>>>(
+      x, agamma, wg, s.rn, s.dg, s.dz, s.dx2, dx, s.dgap, s.dwgp, s.dbgp, rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // 12. dW_qkv = d_qkv^T g and dW_out = d_attn^T go
+  const mm::ProductJob wq{Operand{s.dqkv, 3 * C, 3 * rlo}, Operand{s.g, C, rlo}, s.dwqp, C,
+                          (int64_t)3 * C * C, 3 * C, C, rows, group_rows,
+                          (unsigned)((3 * C + kTM - 1) / kTM)};
+  const mm::ProductJob wo{Operand{s.da, C, rlo}, Operand{s.go, C, rlo}, s.dwop, C,
+                          (int64_t)C * C, C, C, rows, group_rows, (unsigned)((C + kTM - 1) / kTM)};
+  auto kw = freq_product_kernel<true, BN, P>;
+  const size_t smem_tn = mm::product_smem<true, BN, P>();
+  if ((err = bt::allow_smem(kw, smem_tn)) != cudaSuccess) return err;
+  kw<<<dim3(ntiles, wq.mtiles + wo.mtiles, (unsigned)s.groups), bt::kThreads, smem_tn, stream>>>(
+      wq, wo);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // 13. the fixed-order sums. grads: dga, dwqkv, dwg, dgb, dwout, dgf, dw1,
+  // db1, dw2, db2
+  mm::SumJobs<10> sums;
+  ff::bwd_sums(s.fs, C, M, grads[5], grads[6], grads[7], grads[8], grads[9], sums, 0);
+  sums.set(5, s.dgap, grads[0], tiles, C);
+  sums.set(6, s.dwgp, grads[2], tiles, (int64_t)H * C);
+  sums.set(7, s.dbgp, grads[3], tiles, H);
+  sums.set(8, s.dwqp, grads[1], s.groups, (int64_t)3 * C * C);
+  sums.set(9, s.dwop, grads[4], s.groups, (int64_t)C * C);
+  freq_sums_kernel<<<sums.finish(), bt::kThreads, 0, stream>>>(sums);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -494,11 +805,18 @@ cudaError_t dispatch_bwd(int C, const void* x, const void* agamma, const void* w
                          const void* wg, const void* gb, const void* wout, const void* fgamma,
                          const void* w1, const void* b1, const void* w2, const void* cosv,
                          const void* sinv, const void* dout, void* dx, float* const* grads,
-                         void* ops, void* part, int64_t rows, int F, int M, int groups,
-                         bt::Dropout drop, cudaStream_t s) {
-#define BT_CALL(CC)                                                                          \
-  launch_bwd<CC, T>(x, agamma, wqkv, wg, gb, wout, fgamma, w1, b1, w2, cosv, sinv, dout, dx, \
-                    grads, ops, part, rows, F, M, groups, drop, s)
+                         void* scratch, int64_t scratch_bytes, int64_t rows, int F, int M,
+                         int64_t group_rows, int64_t ff_group_rows, bt::Dropout drop,
+                         cudaStream_t s) {
+  const Layout<T> lay(scratch, rows, C, M, mm::row_groups(rows, group_rows),
+                      mm::row_groups(rows, ff_group_rows));
+  if ((int64_t)lay.bytes > scratch_bytes || !lay.fits()) return cudaErrorInvalidValue;
+#define BT_CALL(CC)                                                                           \
+  launch_bwd<CC, T>(lay, (const T*)x, (const float*)agamma, (const T*)wqkv, (const float*)wg, \
+                    (const float*)gb, (const T*)wout, (const float*)fgamma, (const T*)w1,     \
+                    (const float*)b1, (const T*)w2, (const float*)cosv, (const float*)sinv,   \
+                    (const T*)dout, (T*)dx, grads, rows, F, M, group_rows, ff_group_rows,      \
+                    drop, s)
   switch (C) {
     case 32: return BT_CALL(32);
     case 64: return BT_CALL(64);
@@ -508,44 +826,65 @@ cudaError_t dispatch_bwd(int C, const void* x, const void* agamma, const void* w
 #undef BT_CALL
 }
 
+bool supported(int C) { return C == 32 || C == 64 || C == 128; }
+
 }  // namespace
 
+// Output tiles of bt_freq_train_bwd's attention weight-gradient launch per
+// row group.
+extern "C" int bt_freq_wgrad_tiles(int C, int* tiles) {
+  if (!supported(C)) return (int)cudaErrorInvalidValue;
+  *tiles = wgrad_tiles(C);
+  return 0;
+}
+
+// Bytes of bt_freq_train_bwd's scratch for these arguments, in *bytes.
+extern "C" int bt_freq_train_bwd_scratch(int dtype, int C, long long rows, int M,
+                                         long long group_rows, long long ff_group_rows,
+                                         long long* bytes) {
+  if ((dtype != 0 && dtype != 1) || !supported(C) || rows < 0 || group_rows < 1 ||
+      ff_group_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const int64_t g = mm::row_groups(rows, group_rows), fg = mm::row_groups(rows, ff_group_rows);
+  *bytes = (long long)(dtype == 0 ? Layout<float>(nullptr, rows, C, M, g, fg).bytes
+                                  : Layout<bf16>(nullptr, rows, C, M, g, fg).bytes);
+  return 0;
+}
+
 // dtype: 0 float32, 1 bfloat16 for x, dout, dx (rows, C), wqkv (3C, C), wout
-// (C, C), w1 (M, C), w2 (C, M) and the operand scratch `ops` (rows * (8 C +
-// 2 M) values); agamma, wg (C/32, C), gb, fgamma, b1, cos/sin (F, 16) and
-// the gradients are float32, in the parameters' torch layouts: dga (C),
-// dwqkv (3C, C), dwg (C/32, C), dgb (C/32), dwout (C, C), dgf (C), dw1 (M,
-// C), db1 (M), dw2 (C, M), db2 (C). part: ceil(rows / 32) * (3 C + C/32 +
-// C/32 * C + M) + groups * max(3 C * C, M * C) floats; 1 <= groups <=
-// ceil(rows / 32). F divides 32 and rows. Dropout as bt_freq_train_fwd.
+// (C, C), w1 (M, C), w2 (C, M); agamma, wg (C/32, C), gb, fgamma, b1, cos/sin
+// (F, 16) and the gradients are float32, in the parameters' torch layouts:
+// dga (C), dwqkv (3C, C), dwg (C/32, C), dgb (C/32), dwout (C, C), dgf (C),
+// dw1 (M, C), db1 (M), dw2 (C, M), db2 (C). scratch: scratch_bytes bytes, at
+// least bt_freq_train_bwd_scratch's; the weight-gradient products take the
+// rows in groups of group_rows (attention) and ff_group_rows (FF) >= 1
+// (ops/fused_ff.py:ff_wgrad_split). F divides 32 and rows; M % 64 == 0.
+// Dropout as bt_freq_train_fwd.
 extern "C" int bt_freq_train_bwd(int dtype, int C, const void* x, const void* agamma,
                                  const void* wqkv, const void* wg, const void* gb,
                                  const void* wout, const void* fgamma, const void* w1,
                                  const void* b1, const void* w2, const void* cosv,
                                  const void* sinv, const void* dout, void* dx, void* dga,
                                  void* dwqkv, void* dwg, void* dgb, void* dwout, void* dgf,
-                                 void* dw1, void* db1, void* dw2, void* db2, void* ops,
-                                 void* part, long long rows, int F, int M, int groups,
-                                 unsigned seed, unsigned salt, unsigned thr, float scale, int on,
-                                 void* stream) {
+                                 void* dw1, void* db1, void* dw2, void* db2, void* scratch,
+                                 long long scratch_bytes, long long rows, int F, int M,
+                                 long long group_rows, long long ff_group_rows, unsigned seed,
+                                 unsigned salt, unsigned thr, float scale, int on, void* stream) {
   if (rows <= 0) return 0;
-  if (F <= 0 || bt::kRows % F || rows % F || M % bt::kHid || groups < 1)
+  if (F <= 0 || 32 % F || rows % F || M % ff::kHidN || group_rows < 1 || ff_group_rows < 1)
     return (int)cudaErrorInvalidValue;
-  bt::Dropout d;
-  d.seed = seed;
-  d.salt = salt;
-  d.thr = thr;
-  d.scale = scale;
-  d.on = on;
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
   float* const grads[10] = {(float*)dga, (float*)dwqkv, (float*)dwg, (float*)dgb, (float*)dwout,
                             (float*)dgf, (float*)dw1,   (float*)db1, (float*)dw2, (float*)db2};
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0 ? dispatch_bwd<float>(C, x, agamma, wqkv, wg, gb, wout, fgamma, w1, b1,
-                                                w2, cosv, sinv, dout, dx, grads, ops, part, rows,
-                                                F, M, groups, d, s)
+                                                w2, cosv, sinv, dout, dx, grads, scratch,
+                                                scratch_bytes, rows, F, M, group_rows,
+                                                ff_group_rows, d, s)
                : dtype == 1
-                   ? dispatch_bwd<__nv_bfloat16>(C, x, agamma, wqkv, wg, gb, wout, fgamma, w1, b1,
-                                                 w2, cosv, sinv, dout, dx, grads, ops, part, rows,
-                                                 F, M, groups, d, s)
+                   ? dispatch_bwd<__nv_bfloat16>(C, x, agamma, wqkv, wg, gb, wout, fgamma, w1,
+                                                 b1, w2, cosv, sinv, dout, dx, grads, scratch,
+                                                 scratch_bytes, rows, F, M, group_rows,
+                                                 ff_group_rows, d, s)
                    : cudaErrorInvalidValue);
 }

@@ -74,61 +74,6 @@ constexpr int kHD = bt::kHeadDim;                          // 32
 constexpr float kScale = 0.17677669529663688f;             // 32^-0.5
 constexpr float kQScale = kScale * 1.4426950408889634f;    // 32^-0.5 * log2(e)
 
-// -- operands -------------------------------------------------------------------
-
-// One conversion of a (rows, cols) matrix of T into bf16 operand parts
-// (hi, and with SPLIT lo = round(v - hi) `lo` elements after it), as it is
-// or transposed to (cols, rows).
-struct ConvJob {
-  const void* src;
-  bf16* dst;
-  int64_t rows, cols, lo;
-  int trans;
-};
-
-// Up to five conversions in one launch: blocks first[j] .. first[j + 1] - 1
-// take job j, two elements a thread.
-struct ConvJobs {
-  static constexpr int kMax = 5;
-  ConvJob job[kMax];
-  int count = 0;
-  unsigned first[kMax + 1] = {0};
-
-  void add(const void* src, bf16* dst, int64_t rows, int64_t cols, int trans) {
-    job[count] = ConvJob{src, dst, rows, cols, rows * cols, trans};
-    const int64_t pairs = rows * cols / 2;
-    first[count + 1] = first[count] + (unsigned)((pairs + bt::kThreads - 1) / bt::kThreads);
-    ++count;
-  }
-  unsigned blocks() const { return first[count]; }
-};
-
-template <bool SPLIT>
-__device__ __forceinline__ void store1(bf16* p, int64_t lo, float v) {
-  const bf16 hi = __float2bfloat16(v);
-  *p = hi;
-  if constexpr (SPLIT) p[lo] = __float2bfloat16(v - __bfloat162float(hi));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(bt::kThreads) attn_operands_kernel(ConvJobs s) {
-  constexpr bool SPLIT = std::is_same<T, float>::value;
-  int j = 0;
-  while (blockIdx.x >= s.first[j + 1]) ++j;
-  const ConvJob& jb = s.job[j];
-  const int64_t i = 2 * ((int64_t)(blockIdx.x - s.first[j]) * bt::kThreads + threadIdx.x);
-  if (i >= jb.rows * jb.cols) return;
-  const T* src = static_cast<const T*>(jb.src);
-  const float v0 = bt::to_f(src[i]), v1 = bt::to_f(src[i + 1]);
-  if (!jb.trans) {
-    mm::store2<SPLIT>(jb.dst + i, jb.lo, v0, v1);
-    return;
-  }
-  const int64_t r = i / jb.cols, c = i % jb.cols;  // cols is even: c + 1 is in row r
-  store1<SPLIT>(jb.dst + c * jb.rows + r, jb.lo, v0);
-  store1<SPLIT>(jb.dst + (c + 1) * jb.rows + r, jb.lo, v1);
-}
-
 // -- the attention core ----------------------------------------------------------
 
 namespace tc {
@@ -307,7 +252,7 @@ __global__ void __launch_bounds__(kThreads)
       const int64_t at = row * C + h * kHD + 8 * c + 2 * t;
       const float v0 = acc[c][2 * hh] / lt[hh], v1 = acc[c][2 * hh + 1] / lt[hh];
       *reinterpret_cast<float2*>(o + at) = make_float2(v0, v1);
-      mm::store2<P == 2>(go + at, go_lo, v0 * gate, v1 * gate);
+      mm::store2<P>(go + at, go_lo, v0 * gate, v1 * gate);
     }
   }
 }
@@ -319,7 +264,7 @@ __device__ __forceinline__ void store_rope_inv(bf16* dst, int64_t lo, float a, f
                                                const float* __restrict__ cosv,
                                                const float* __restrict__ sinv, size_t at) {
   const float cs = cosv[at], sn = sinv[at];
-  mm::store2<P == 2>(dst, lo, (a * cs + b * sn) * kScale, (b * cs - a * sn) * kScale);
+  mm::store2<P>(dst, lo, (a * cs + b * sn) * kScale, (b * cs - a * sn) * kScale);
 }
 
 // dol: round_T(dO / l) as (items * H, n, 32) operands (parts `lo` apart, as
@@ -488,7 +433,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kHD / 8; ++c) {
       store_rope_inv<P>(dst + C + 8 * c + 2 * t, dlo, dk[c][2 * hh], dk[c][2 * hh + 1], cosv,
                         sinv, (size_t)r * (kHD / 2) + 4 * c + t);
-      mm::store2<P == 2>(dst + 2 * C + 8 * c + 2 * t, dlo, dv[c][2 * hh], dv[c][2 * hh + 1]);
+      mm::store2<P>(dst + 2 * C + 8 * c + 2 * t, dlo, dv[c][2 * hh], dv[c][2 * hh + 1]);
     }
   }
 }
@@ -524,8 +469,8 @@ __global__ void __launch_bounds__(bt::kThreads)
       d[i] = bt::to_f(dout[at + i]) * f[i];
       gv[i] = o[at + i] * gate;
     }
-    mm::store4<SPLIT>(dbr + at, lo, d);
-    mm::store4<SPLIT>(go + at, lo, gv);
+    mm::store4<SPLIT ? 2 : 1>(dbr + at, lo, d);
+    mm::store4<SPLIT ? 2 : 1>(go + at, lo, gv);
   }
 }
 
@@ -540,7 +485,7 @@ __global__ void __launch_bounds__(bt::kThreads)
   const int64_t m0 = (int64_t)blockIdx.y * kTM;
   const int n0 = blockIdx.x * BN;
   float acc[2][BN / 16][4];
-  mm::product<false, BN, SPLIT>(acc, A, B, m0, n0, 0, C, rows, C,
+  mm::product<false, BN, SPLIT ? 2 : 1>(acc, A, B, m0, n0, 0, C, rows, C,
                                 reinterpret_cast<bf16*>(smem_b));
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = 32 * (warp & 3), wn = (BN / 2) * (warp >> 2);
@@ -577,7 +522,7 @@ __global__ void __launch_bounds__(bt::kThreads)
   const int64_t m0 = (int64_t)blockIdx.y * kTM;
   const int n0 = blockIdx.x * BN;
   float acc[2][BN / 16][4];
-  mm::product<false, BN, SPLIT>(acc, A, B, m0, n0, 0, C, rows, C,
+  mm::product<false, BN, SPLIT ? 2 : 1>(acc, A, B, m0, n0, 0, C, rows, C,
                                 reinterpret_cast<bf16*>(smem_b));
   const int H = C / kHD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
@@ -605,7 +550,7 @@ __global__ void __launch_bounds__(bt::kThreads)
           if (ok) {
             const float2 ov = *reinterpret_cast<const float2*>(o + row * C + c0 + d);
             zo += a0 * ov.x + a1 * ov.y;
-            mm::store2<SPLIT>(dol + bht * kHD + d, lo, a0 * gate / l, a1 * gate / l);
+            mm::store2<SPLIT ? 2 : 1>(dol + bht * kHD + d, lo, a0 * gate / l, a1 * gate / l);
           }
         }
         zo = tc::quad_sum(zo);
@@ -617,34 +562,12 @@ __global__ void __launch_bounds__(bt::kThreads)
     }
 }
 
-// One product of attn_product_kernel: out (+ z out_step for depth slice z =
-// blockIdx.z) = A B over rows [0, m_end) and columns [0, n_end), depth
-// [z k_per, min((z + 1) k_per, k_end)); m tiles of kTM rows.
-struct ProductJob {
-  Operand A, B;
-  float* out;
-  int64_t ldo, out_step, m_end;
-  int n_end;
-  int64_t k_end, k_per;
-  unsigned mtiles;
-};
-
-// Two products in one launch: the first job's m tiles, then the second's,
-// along blockIdx.y (d_gn: one job; the weight gradients dW_qkv and dW_out).
+// Products of the backward over the staged product's jobs (d_gn: one job;
+// the weight gradients dW_qkv and dW_out: two).
 template <bool AM, int BN, bool SPLIT>
 __global__ void __launch_bounds__(bt::kThreads)
-    attn_product_kernel(ProductJob j0, ProductJob j1) {
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  const bool second = blockIdx.y >= j0.mtiles;
-  const ProductJob jb = second ? j1 : j0;
-  const int64_t m0 = (int64_t)(blockIdx.y - (second ? j0.mtiles : 0u)) * kTM;
-  const int64_t k0 = (int64_t)blockIdx.z * jb.k_per;
-  const int n0 = blockIdx.x * BN;
-  float acc[2][BN / 16][4];
-  mm::product<AM, BN, SPLIT>(acc, jb.A, jb.B, m0, n0, k0, min(k0 + jb.k_per, jb.k_end), jb.m_end,
-                             jb.n_end, reinterpret_cast<bf16*>(smem_b));
-  mm::store_product<BN>(acc, jb.out + blockIdx.z * jb.out_step, jb.ldo, 0, m0, n0, jb.m_end,
-                        jb.n_end);
+    attn_product_kernel(mm::ProductJob j0, mm::ProductJob j1) {
+  mm::product_jobs<AM, BN, SPLIT ? 2 : 1>(j0, j1);
 }
 
 template <int C>
@@ -749,7 +672,8 @@ __global__ void __launch_bounds__(bt::kThreads)
   for (int e = tid; e < bt::kRows * (C / 2); e += bt::kThreads) {
     const int r = e / (C / 2), c = 2 * (e % (C / 2));
     if (r < nrows)
-      mm::store2<SPLIT>(gop + (row0 + r) * C + c, glo, t1[r * ld + c], t1[r * ld + c + 1]);
+      mm::store2<SPLIT ? 2 : 1>(gop + (row0 + r) * C + c, glo, t1[r * ld + c],
+                                t1[r * ld + c + 1]);
   }
   for (int e = tid; e < H * C; e += bt::kThreads) {
     const int h = e / C, c = e % C;
@@ -856,15 +780,14 @@ cudaError_t launch_fwd(const void* x, const void* agamma, const void* wqkv, cons
       (const float*)cosv, (const float*)sinv, (T*)q, (T*)k, (T*)v, (float*)gates, rows, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  ConvJobs conv;
+  mm::ConvJobs conv;
   conv.add(wout, s.wt, C, C, 1);
   if (SPLIT) {
     conv.add(q, s.q, rows, C, 0);
     conv.add(k, s.k, rows, C, 0);
     conv.add(v, s.v, rows, C, 0);
   }
-  attn_operands_kernel<T><<<conv.blocks(), bt::kThreads, 0, stream>>>(conv);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = mm::convert<T, SPLIT ? 2 : 1>(conv, stream)) != cudaSuccess) return err;
 
   const bf16* qo = SPLIT ? s.q : (const bf16*)q;
   const bf16* ko = SPLIT ? s.k : (const bf16*)k;
@@ -877,7 +800,7 @@ cudaError_t launch_fwd(const void* x, const void* agamma, const void* wqkv, cons
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   auto kb = attn_out_kernel<BN, T>;
-  const size_t smem_out = mm::product_smem<false, BN, SPLIT>();
+  const size_t smem_out = mm::product_smem<false, BN, SPLIT ? 2 : 1>();
   if ((err = bt::allow_smem(kb, smem_out)) != cudaSuccess) return err;
   kb<<<dim3((C + BN - 1) / BN, (unsigned)((rows + kTM - 1) / kTM)), bt::kThreads, smem_out,
        stream>>>(Operand{s.go, C, rlo}, Operand{s.wt, C, (int64_t)C * C}, (T*)out, rows, C,
@@ -905,14 +828,13 @@ cudaError_t launch_bwd(const void* x, const void* agamma, const void* wqkv, cons
 
   // a. operands: the bf16 weights and q, k, v are their own operands
   if (SPLIT) {
-    ConvJobs conv;
+    mm::ConvJobs conv;
     conv.add(wout, s.wout, C, C, 0);
     conv.add(wqkv, s.wqkv, 3 * C, C, 0);
     conv.add(q, s.q, rows, C, 0);
     conv.add(k, s.k, rows, C, 0);
     conv.add(v, s.v, rows, C, 0);
-    attn_operands_kernel<T><<<conv.blocks(), bt::kThreads, 0, stream>>>(conv);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = mm::convert<T, SPLIT ? 2 : 1>(conv, stream)) != cudaSuccess) return err;
   }
   const Operand wout_op{SPLIT ? s.wout : (const bf16*)wout, C, (int64_t)C * C};
   const Operand wqkv_op{SPLIT ? s.wqkv : (const bf16*)wqkv, C, (int64_t)3 * C * C};
@@ -930,7 +852,7 @@ cudaError_t launch_bwd(const void* x, const void* agamma, const void* wqkv, cons
 
   // c. d_go = d_branch W_out and its epilogue
   auto kc = attn_dgo_kernel<BN, SPLIT>;
-  const size_t smem_nn = mm::product_smem<false, BN, SPLIT>();
+  const size_t smem_nn = mm::product_smem<false, BN, SPLIT ? 2 : 1>();
   if ((err = bt::allow_smem(kc, smem_nn)) != cudaSuccess) return err;
   kc<<<dim3(ntiles, mtiles), bt::kThreads, smem_nn, stream>>>(
       Operand{s.dbr, C, rlo}, wout_op, (const float*)o, (const float*)gates, (const float*)lrow,
@@ -953,8 +875,8 @@ cudaError_t launch_bwd(const void* x, const void* agamma, const void* wqkv, cons
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // f. d_gn = d_qkv W_qkv
-  const ProductJob dgn{Operand{s.dqkv, 3 * C, 3 * rlo}, wqkv_op, s.dgn, C, 0, rows, C,
-                       3 * C, 3 * C, mtiles};
+  const mm::ProductJob dgn{Operand{s.dqkv, 3 * C, 3 * rlo}, wqkv_op, s.dgn, C, 0, rows, C,
+                           3 * C, 3 * C, mtiles};
   auto kf = attn_product_kernel<false, BN, SPLIT>;
   if ((err = bt::allow_smem(kf, smem_nn)) != cudaSuccess) return err;
   kf<<<dim3(ntiles, mtiles), bt::kThreads, smem_nn, stream>>>(dgn, dgn);
@@ -971,12 +893,13 @@ cudaError_t launch_bwd(const void* x, const void* agamma, const void* wqkv, cons
 
   // h. dW_qkv = d_qkv^T g and dW_out = d_branch^T round_T(o * gate)
   const int64_t wstep = (int64_t)4 * C * C;
-  const ProductJob wq{Operand{s.dqkv, 3 * C, 3 * rlo}, Operand{s.g, C, rlo}, s.dwp, C, wstep,
-                      3 * C, C, rows, group_rows, (unsigned)((3 * C + kTM - 1) / kTM)};
-  const ProductJob wo{Operand{s.dbr, C, rlo}, Operand{s.go, C, rlo}, s.dwp + 3 * C * C, C, wstep,
-                      C, C, rows, group_rows, (unsigned)((C + kTM - 1) / kTM)};
+  const mm::ProductJob wq{Operand{s.dqkv, 3 * C, 3 * rlo}, Operand{s.g, C, rlo}, s.dwp, C,
+                          wstep, 3 * C, C, rows, group_rows,
+                          (unsigned)((3 * C + kTM - 1) / kTM)};
+  const mm::ProductJob wo{Operand{s.dbr, C, rlo}, Operand{s.go, C, rlo}, s.dwp + 3 * C * C, C,
+                          wstep, C, C, rows, group_rows, (unsigned)((C + kTM - 1) / kTM)};
   auto kh = attn_product_kernel<true, BN, SPLIT>;
-  const size_t smem_tn = mm::product_smem<true, BN, SPLIT>();
+  const size_t smem_tn = mm::product_smem<true, BN, SPLIT ? 2 : 1>();
   if ((err = bt::allow_smem(kh, smem_tn)) != cudaSuccess) return err;
   kh<<<dim3(ntiles, wq.mtiles + wo.mtiles, (unsigned)groups), bt::kThreads, smem_tn, stream>>>(
       wq, wo);

@@ -1,14 +1,20 @@
-// The staged tensor-core product of the training backwards (B9,
-// fused_ff_train.cu; B4 / B5, fused_time_train.cu): a block of 8 warps
-// takes a 128-row tile of A times a BN-column tile of B over a depth range,
-// on mma.sync m16n8k16 (bf16 operands, float32 accumulators, mma.cuh),
-// through a 3-deep cp.async ring of 32-deep staged tiles. float32 runs as
-// three bf16 products of split operands (a = a_hi + a_lo, both bf16: a_hi
-// b_hi + a_hi b_lo + a_lo b_hi), about 16 significant bits against plain
-// TF32's 11. Also the bf16 operand stores (hi and, split, lo parts), the
-// keep factors of a row-major dropout site in C fragments, and the
-// fixed-order sums of per-block partials in one launch.
+// The staged tensor-core product of the training kernels (B8 / B9,
+// ff_train.cuh; B4 / B5, fused_time_train.cu; B7, fused_freq_train.cu): a
+// block of 8 warps takes a 128-row tile of A times a BN-column tile of B over
+// a depth range, on mma.sync m16n8k16 (bf16 operands, float32 accumulators,
+// mma.cuh), through a 3-deep cp.async ring of 32-deep staged tiles. An
+// operand has P bf16 parts `lo` elements apart: P = 1 is bf16 itself; float32
+// splits a value into P = 2 parts (a = a_hi + a_lo, three bf16 products a_hi
+// b_hi + a_hi b_lo + a_lo b_hi, about 16 significant bits against plain
+// TF32's 11) or P = 3 (a = a_0 + a_1 + a_2, the six products of parts i, j
+// with i + j <= 2, each k-step summed apart: float32's 24 bits). Also the
+// bf16 operand stores and the launch that converts matrices into operands,
+// the keep factors of a row-major dropout site in C fragments, products of
+// up to two jobs in one launch, and the fixed-order sums of per-block
+// partials in one launch.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -23,12 +29,19 @@ constexpr int kTK = 32;     // depth of a staged tile
 constexpr int kStages = 3;  // staged tiles in flight (cp.async ring)
 constexpr int kAlign = 256; // scratch sections start on multiples of this many bytes
 
-// A bf16 matrix operand with row stride `ld`; its lo part (value - hi,
-// rounded to bf16) lies `lo` elements after the hi part (split products).
+// A bf16 matrix operand with row stride `ld`; part p (p > 0: what the parts
+// before it leave of the value, rounded to bf16) lies p `lo` elements after
+// the first.
 struct Operand {
   const bf16* p;
   int64_t ld, lo;
 };
+
+// The parts of an operand at float32's own precision: three in float32,
+// one in bf16 (its own operand).
+template <typename T> constexpr int full_parts() {
+  return std::is_same<T, float>::value ? 3 : 1;
+}
 
 // bf16 elements of one staged tile. A is staged [m][k] (k contiguous) or,
 // with AM, [k][m]; B always [k][n]. The 8-element pad puts the 8 rows an
@@ -37,21 +50,20 @@ template <bool AM> __host__ __device__ constexpr int a_tile() {
   return AM ? kTK * (kTM + 8) : kTM * (kTK + 8);
 }
 template <int BN> __host__ __device__ constexpr int b_tile() { return kTK * (BN + 8); }
-template <bool AM, int BN, bool SPLIT> __host__ __device__ constexpr int stage_elems() {
-  return (SPLIT ? 2 : 1) * (a_tile<AM>() + b_tile<BN>());
+template <bool AM, int BN, int P> __host__ __device__ constexpr int stage_elems() {
+  return P * (a_tile<AM>() + b_tile<BN>());
 }
-template <bool AM, int BN, bool SPLIT> constexpr size_t product_smem() {
-  return sizeof(bf16) * kStages * stage_elems<AM, BN, SPLIT>();
+template <bool AM, int BN, int P> constexpr size_t product_smem() {
+  return sizeof(bf16) * kStages * stage_elems<AM, BN, P>();
 }
 
 // Stage depth [k0, k0 + kTK) of A's rows [m0, m0 + kTM) and of B's columns
 // [n0, n0 + BN) into `st` by cp.async, zeros at m >= m_end, n >= n_end or
 // k >= k_end. Bounds along a contiguous axis are multiples of 8.
-template <bool AM, int BN, bool SPLIT>
+template <bool AM, int BN, int P>
 __device__ __forceinline__ void stage(bf16* st, const Operand& A, const Operand& B, int64_t m0,
                                       int n0, int64_t k0, int64_t m_end, int n_end,
                                       int64_t k_end) {
-  constexpr int P = SPLIT ? 2 : 1;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     bf16* as = st + p * a_tile<AM>();
@@ -94,9 +106,8 @@ __device__ __forceinline__ void stage(bf16* st, const Operand& A, const Operand&
 // x 2 (n): warp w owns rows 32 (w % 4) .. + 31 and columns BN / 2 (w / 4)
 // .. + BN / 2 - 1; acc[mi][j] is the C fragment of rows 16 mi .. + 15 and
 // columns 8 j .. + 7 of that.
-template <bool AM, int BN, bool SPLIT>
+template <bool AM, int BN, int P>
 __device__ __forceinline__ void mma_stage(float (&acc)[2][BN / 16][4], const bf16* st) {
-  constexpr int P = SPLIT ? 2 : 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = 32 * (warp & 3), wn = (BN / 2) * (warp >> 2);
   const bf16* bs = st + P * a_tile<AM>();
@@ -128,11 +139,29 @@ __device__ __forceinline__ void mma_stage(float (&acc)[2][BN / 16][4], const bf1
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float(&c)[4] = acc[mi][2 * nb + h];
-          if constexpr (SPLIT) {
-            bt::mma_bf16(c, a[1][mi], b[0][2 * h], b[0][2 * h + 1]);
-            bt::mma_bf16(c, a[0][mi], b[1][2 * h], b[1][2 * h + 1]);
+          if constexpr (P == 3) {
+            // float32's own precision: this k-step's small terms and its
+            // product of the first parts each go into fresh accumulators and
+            // reach c by float32 adds, so the tensor cores round no sum
+            // longer than one k-step (accumulating in c, they drifted by
+            // ~2e-5 over thousands of rows: PERF.md, Findings, PR 9)
+            float sm[4] = {0.f, 0.f, 0.f, 0.f}, big[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int t = 2; t >= 1; --t)
+#pragma unroll
+              for (int i = t; i >= 0; --i)
+                bt::mma_bf16(sm, a[i][mi], b[t - i][2 * h], b[t - i][2 * h + 1]);
+            bt::mma_bf16(big, a[0][mi], b[0][2 * h], b[0][2 * h + 1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) c[e] += big[e] + sm[e];
+          } else {
+            // the small terms first (P = 2: a_lo b_hi, a_hi b_lo, a_hi b_hi)
+#pragma unroll
+            for (int t = P - 1; t >= 0; --t)
+#pragma unroll
+              for (int i = t; i >= 0; --i)
+                bt::mma_bf16(c, a[i][mi], b[t - i][2 * h], b[t - i][2 * h + 1]);
           }
-          bt::mma_bf16(c, a[0][mi], b[0][2 * h], b[0][2 * h + 1]);
         }
     }
   }
@@ -141,11 +170,12 @@ __device__ __forceinline__ void mma_stage(float (&acc)[2][BN / 16][4], const bf1
 // acc = A[m0 .. m0 + kTM) B[:, n0 .. n0 + BN) over depth [k_begin, k_end),
 // through a kStages-deep cp.async ring in `smem`. Ends with a barrier, so
 // `smem` is free again.
-template <bool AM, int BN, bool SPLIT>
+template <bool AM, int BN, int P>
 __device__ __forceinline__ void product(float (&acc)[2][BN / 16][4], const Operand& A,
                                         const Operand& B, int64_t m0, int n0, int64_t k_begin,
                                         int64_t k_end, int64_t m_end, int n_end, bf16* smem) {
-  constexpr int S = stage_elems<AM, BN, SPLIT>();
+  static_assert(P >= 1 && P <= 3, "operands have 1, 2 or 3 parts");
+  constexpr int S = stage_elems<AM, BN, P>();
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -154,7 +184,7 @@ __device__ __forceinline__ void product(float (&acc)[2][BN / 16][4], const Opera
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk)
-      stage<AM, BN, SPLIT>(smem + s * S, A, B, m0, n0, k_begin + (int64_t)s * kTK, m_end, n_end,
+      stage<AM, BN, P>(smem + s * S, A, B, m0, n0, k_begin + (int64_t)s * kTK, m_end, n_end,
                            k_end);
     bt::cp_async_commit();
   }
@@ -163,10 +193,10 @@ __device__ __forceinline__ void product(float (&acc)[2][BN / 16][4], const Opera
     __syncthreads();
     const int nx = kt + kStages - 1;
     if (nx < nk)
-      stage<AM, BN, SPLIT>(smem + (nx % kStages) * S, A, B, m0, n0, k_begin + (int64_t)nx * kTK,
+      stage<AM, BN, P>(smem + (nx % kStages) * S, A, B, m0, n0, k_begin + (int64_t)nx * kTK,
                            m_end, n_end, k_end);
     bt::cp_async_commit();
-    mma_stage<AM, BN, SPLIT>(acc, smem + (kt % kStages) * S);
+    mma_stage<AM, BN, P>(acc, smem + (kt % kStages) * S);
   }
   bt::cp_async_wait<0>();
   __syncthreads();
@@ -200,22 +230,27 @@ __device__ __forceinline__ void store_product(const float (&acc)[2][BN / 16][4],
       }
 }
 
-// v0, v1 as bf16 at p[0], p[1] (round to nearest even, which is round_T for
-// bf16); with SPLIT also their remainders v - hi at p[lo], p[lo + 1].
-template <bool SPLIT>
+// v0, v1 as P bf16 parts at p[0], p[1] (part 0 rounded to nearest even,
+// which is round_T for bf16), p[lo], p[lo + 1] (what part 0 leaves) and
+// p[2 lo], p[2 lo + 1] (what parts 0 and 1 leave).
+template <int P>
 __device__ __forceinline__ void store2(bf16* p, int64_t lo, float v0, float v1) {
-  const uint32_t hi = bt::pack_bf16(v0, v1);
-  *reinterpret_cast<uint32_t*>(p) = hi;
-  if constexpr (SPLIT) {
-    const float2 h = bt::unpack_bf16(hi);
-    *reinterpret_cast<uint32_t*>(p + lo) = bt::pack_bf16(v0 - h.x, v1 - h.y);
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const uint32_t part = bt::pack_bf16(v0, v1);
+    *reinterpret_cast<uint32_t*>(p + k * lo) = part;
+    if (k + 1 < P) {
+      const float2 h = bt::unpack_bf16(part);
+      v0 -= h.x;
+      v1 -= h.y;
+    }
   }
 }
 
-template <bool SPLIT>
+template <int P>
 __device__ __forceinline__ void store4(bf16* p, int64_t lo, const float (&v)[4]) {
-  store2<SPLIT>(p, lo, v[0], v[1]);
-  store2<SPLIT>(p + 2, lo, v[2], v[3]);
+  store2<P>(p, lo, v[0], v[1]);
+  store2<P>(p + 2, lo, v[2], v[3]);
 }
 
 // Keep factors of a row-major dropout site (item 0, head 0: the FF hidden
@@ -258,6 +293,12 @@ template <int J> struct SumJobs {
   int64_t n[J];
   unsigned first[J + 1];
 
+  void set(int j, const float* p, float* o, int64_t np, int64_t nv) {
+    part[j] = p;
+    out[j] = o;
+    parts[j] = (int)np;
+    n[j] = nv;
+  }
   unsigned finish() {
     first[0] = 0;
     for (int j = 0; j < J; ++j) first[j + 1] = first[j] + (unsigned)((n[j] + 127) / 128);
@@ -330,6 +371,95 @@ struct Carver {
     return static_cast<P*>(p);
   }
 };
+
+// One conversion of a (rows, cols) matrix into a bf16 operand (parts `lo`
+// elements apart), as it is or transposed to (cols, rows).
+struct ConvJob {
+  const void* src;
+  bf16* dst;
+  int64_t rows, cols, lo;
+  int trans;
+};
+
+// Up to five conversions in one launch of operands_kernel: blocks first[j]
+// .. first[j + 1] - 1 take job j, two elements a thread.
+struct ConvJobs {
+  static constexpr int kMax = 5;
+  ConvJob job[kMax];
+  int count = 0;
+  unsigned first[kMax + 1] = {0};
+
+  void add(const void* src, bf16* dst, int64_t rows, int64_t cols, int trans) {
+    job[count] = ConvJob{src, dst, rows, cols, rows * cols, trans};
+    const int64_t pairs = rows * cols / 2;
+    first[count + 1] = first[count] + (unsigned)((pairs + bt::kThreads - 1) / bt::kThreads);
+    ++count;
+  }
+  unsigned blocks() const { return first[count]; }
+};
+
+template <int P>
+__device__ __forceinline__ void store1(bf16* p, int64_t lo, float v) {
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const bf16 part = __float2bfloat16(v);
+    p[k * lo] = part;
+    v -= __bfloat162float(part);
+  }
+}
+
+// The conversions of a launch of convert<T, P>: matrices of T into P parts.
+template <typename T, int P>
+__global__ void __launch_bounds__(bt::kThreads) operands_kernel(ConvJobs s) {
+  int j = 0;
+  while (blockIdx.x >= s.first[j + 1]) ++j;
+  const ConvJob& jb = s.job[j];
+  const int64_t i = 2 * ((int64_t)(blockIdx.x - s.first[j]) * bt::kThreads + threadIdx.x);
+  if (i >= jb.rows * jb.cols) return;
+  const T* src = static_cast<const T*>(jb.src);
+  const float v0 = bt::to_f(src[i]), v1 = bt::to_f(src[i + 1]);
+  if (!jb.trans) {
+    store2<P>(jb.dst + i, jb.lo, v0, v1);
+    return;
+  }
+  const int64_t r = i / jb.cols, c = i % jb.cols;  // cols is even: c + 1 is in row r
+  store1<P>(jb.dst + c * jb.rows + r, jb.lo, v0);
+  store1<P>(jb.dst + (c + 1) * jb.rows + r, jb.lo, v1);
+}
+
+template <typename T, int P> cudaError_t convert(const ConvJobs& jobs, cudaStream_t stream) {
+  operands_kernel<T, P><<<jobs.blocks(), bt::kThreads, 0, stream>>>(jobs);
+  return cudaGetLastError();
+}
+
+// One product of a jobs launch: out (+ z out_step for depth slice z =
+// blockIdx.z) = A B over rows [0, m_end) and columns [0, n_end), depth
+// [z k_per, min((z + 1) k_per, k_end)); m tiles of kTM rows.
+struct ProductJob {
+  Operand A, B;
+  float* out;
+  int64_t ldo, out_step, m_end;
+  int n_end;
+  int64_t k_end, k_per;
+  unsigned mtiles;
+};
+
+// The body of a launch of two products: the first job's m tiles, then the
+// second's, along blockIdx.y (one product: the same job twice).
+template <bool AM, int BN, int P>
+__device__ __forceinline__ void product_jobs(const ProductJob& j0, const ProductJob& j1) {
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const bool second = blockIdx.y >= j0.mtiles;
+  const ProductJob jb = second ? j1 : j0;
+  const int64_t m0 = (int64_t)(blockIdx.y - (second ? j0.mtiles : 0u)) * kTM;
+  const int64_t k0 = (int64_t)blockIdx.z * jb.k_per;
+  const int n0 = blockIdx.x * BN;
+  float acc[2][BN / 16][4];
+  product<AM, BN, P>(acc, jb.A, jb.B, m0, n0, k0, min(k0 + jb.k_per, jb.k_end), jb.m_end,
+                         jb.n_end, reinterpret_cast<bf16*>(smem_b));
+  store_product<BN>(acc, jb.out + blockIdx.z * jb.out_step, jb.ldo, 0, m0, n0, jb.m_end,
+                    jb.n_end);
+}
 
 }  // namespace mm
 }  // namespace

@@ -39,8 +39,9 @@ _SIGNATURES = {
     "bt_fused_ff": [_I, _I] + [_P] * 7 + [_L, _I, _P],
     "bt_fused_time": [_I, _I] + [_P] * 19 + [_I, _I, _I, _P],
     "bt_fused_freq": [_I, _I] + [_P] * 14 + [_L, _I, _I, _P],
-    "bt_ff_train_fwd": [_I, _I] + [_P] * 7 + [_L, _I] + _DROP + [_P],
-    "bt_ff_train_bwd": [_I, _I] + [_P] * 13 + [_L, _L, _I, _L] + _DROP + [_P],
+    "bt_ff_train_fwd": [_I, _I] + [_P] * 8 + [_L, _L, _I] + _DROP + [_P],
+    "bt_ff_train_fwd_scratch": [_I, _I, _L, _I, ctypes.POINTER(_L)],
+    "bt_ff_train_bwd": [_I, _I, _I] + [_P] * 13 + [_L, _L, _I, _L] + _DROP + [_P],
     "bt_ff_train_bwd_scratch": [_I, _I, _L, _I, _L, ctypes.POINTER(_L)],
     "bt_ff_wgrad_tiles": [_I, _I, ctypes.POINTER(_I)],
     "bt_attn_train_fwd": [_I, _I] + [_P] * 17 + [_L, _I, _I] + _DROP + [_P],
@@ -49,7 +50,9 @@ _SIGNATURES = {
     "bt_attn_train_bwd_scratch": [_I, _I, _L, _L, ctypes.POINTER(_L)],
     "bt_attn_wgrad_tiles": [_I, ctypes.POINTER(_I)],
     "bt_freq_train_fwd": [_I, _I] + [_P] * 14 + [_L, _I, _I] + _DROP + [_P],
-    "bt_freq_train_bwd": [_I, _I] + [_P] * 26 + [_L, _I, _I, _I] + _DROP + [_P],
+    "bt_freq_train_bwd": [_I, _I] + [_P] * 25 + [_L, _L, _I, _I, _L, _L] + _DROP + [_P],
+    "bt_freq_train_bwd_scratch": [_I, _I, _L, _I, _L, _L, ctypes.POINTER(_L)],
+    "bt_freq_wgrad_tiles": [_I, ctypes.POINTER(_I)],
     "bt_flash_fwd": [_I, _I] + [_P] * 7 + [_I, _I, _I] + _DROP + [_P, _P],
     "bt_flash_bwd": [_I, _I] + [_P] * 11 + [_I, _I, _I] + _DROP + [_P, _P],
     "bt_small_attn_fwd": [_I, _I, _I] + [_P] * 6 + [_L, _I] + _DROP + [_P],

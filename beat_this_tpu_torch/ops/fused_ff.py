@@ -106,18 +106,6 @@ fused_ff.launches = 0
 
 
 CARD_SMS = 132  # streaming multiprocessors of the H100 SXM
-ROW_TILE = 32  # rows per block of the row-tile kernels (csrc/common.cuh kRows)
-
-
-def wgrad_groups(blocks: int, rows: int) -> int:
-    """Row-tile groups of a weight-gradient launch with `blocks` blocks per
-    group over `rows` rows, from the shape alone (B7's weight gradients:
-    one block per head): enough groups for about two blocks per SM (1, 2, 4
-    heads: 264, 132, 66 groups), never more than one group per row tile.
-    Each group adds one weight-sized float32 partial to the scratch, summed
-    in a fixed order, so a given shape gives the same bits on every run."""
-    tiles = -(-rows // ROW_TILE)
-    return max(1, min(-(-2 * CARD_SMS // blocks), tiles))
 
 
 FF_MIN_GROUP_ROWS = 256  # the fewest rows a group of B9's weight-gradient products takes
@@ -187,18 +175,25 @@ def fused_ff_train_ref(x: torch.Tensor, ff: FeedForward, dropout_rate: float = 0
 
 
 def ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed) -> torch.Tensor:
-    """Launch the training forward on x (rows, C): x + dropout(FF(x))."""
-    c = x.shape[-1]
+    """Launch the training forward on x (rows, C): x + dropout(FF(x)). The
+    library lays out its scratch (the operands g, W1^T, W2^T and the dropped
+    hidden layer; csrc/ff_train.cuh) and gives its size."""
+    rows, c = x.shape
+    m = w1.shape[0]
     code = _check_cuda("fused_ff_train", x, c)
     lib = _build.load_library()
+    nbytes = ctypes.c_longlong()
+    _build.check(lib.bt_ff_train_fwd_scratch(code, c, rows, m, ctypes.byref(nbytes)),
+                 "bt_ff_train_fwd_scratch")
     params = [f32(gamma), kernel_weight(w1, x.dtype), f32(b1), kernel_weight(w2, x.dtype), f32(b2)]
     out = torch.empty_like(x)
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         _build.check(
             lib.bt_ff_train_fwd(
                 code, c, x.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(),
-                x.shape[0], w1.shape[0], *drop.kernel_args(dropout_rate, seed, drop.SALT_FF),
-                stream_of(x),
+                scratch.data_ptr(), nbytes.value, rows, m,
+                *drop.kernel_args(dropout_rate, seed, drop.SALT_FF), stream_of(x),
             ),
             "bt_ff_train_fwd",
         )
@@ -206,17 +201,22 @@ def ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed) -> torch.Tensor:
     return out
 
 
-def ff_train_bwd(x, gamma, w1, b1, w2, dout, dropout_rate, seed):
+def ff_train_bwd(x, gamma, w1, b1, w2, dout, dropout_rate, seed, dtype=None):
     """Launch the training backward; returns (dx, dgamma, dw1, db1, dw2, db2),
-    the parameter gradients in float32 and torch's layouts."""
+    dx in the dtype of x, the parameter gradients in float32 and torch's
+    layouts. `dtype`: the compute dtype of the weights, dout and the rounding
+    points, x's by default; float32 x with bfloat16 compute is what the
+    frequency block's backward runs on its residual."""
     rows, c = x.shape
     m = w1.shape[0]
-    code = _check_cuda("fused_ff_train", x, c)
+    dtype = x.dtype if dtype is None else dtype
+    xcode = _check_cuda("fused_ff_train", x, c)
+    code = dtype_code(dtype)
     lib = _build.load_library()
-    group_rows, nbytes = ff_bwd_plan(rows, c, m, x.dtype)
+    group_rows, nbytes = ff_bwd_plan(rows, c, m, dtype)
     dev = x.device
-    params = [f32(gamma), kernel_weight(w1, x.dtype), f32(b1), kernel_weight(w2, x.dtype)]
-    dout = dout.to(x.dtype).contiguous()
+    params = [f32(gamma), kernel_weight(w1, dtype), f32(b1), kernel_weight(w2, dtype)]
+    dout = dout.to(dtype).contiguous()
     dx = torch.empty_like(x)
     grads = [torch.empty(shape, dtype=torch.float32, device=dev)
              for shape in ((c,), (m, c), (m,), (c, m), (c,))]
@@ -224,7 +224,7 @@ def ff_train_bwd(x, gamma, w1, b1, w2, dout, dropout_rate, seed):
     with torch.cuda.device(dev):
         _build.check(
             lib.bt_ff_train_bwd(
-                code, c, x.data_ptr(), *(p.data_ptr() for p in params), dout.data_ptr(),
+                code, xcode, c, x.data_ptr(), *(p.data_ptr() for p in params), dout.data_ptr(),
                 dx.data_ptr(), *(g.data_ptr() for g in grads), scratch.data_ptr(), nbytes,
                 rows, m, group_rows, *drop.kernel_args(dropout_rate, seed, drop.SALT_FF),
                 stream_of(x),

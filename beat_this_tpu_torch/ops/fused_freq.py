@@ -11,13 +11,16 @@ plain version `fused_freq_roformer_ref`, the composable path.
 `dropout_rate > 0`): dropout at the four sites of the TPU kernel (attention
 probabilities, attention output, FF hidden, FF output), all drawn from one
 Philox seed under `ops/dropout.SALT_FREQ`. Its forward is the training
-variant of `csrc/fused_freq.cu` and its backward `csrc/fused_freq_train.cu`,
-which recomputes the block from x, so only the inputs are saved between the
-passes; `fused_freq_roformer_train_ref` is its plain version.
+variant of `csrc/fused_freq.cu` and its backward `csrc/fused_freq_train.cu`
+(its products on the tensor cores, its FF half the feed-forward backward's
+own launches), which recomputes the block from x, so only the inputs are
+saved between the passes; `fused_freq_roformer_train_ref` is its plain
+version.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -38,13 +41,12 @@ from beat_this_tpu_torch.model.layers import (
 from beat_this_tpu_torch.ops import _build
 from beat_this_tpu_torch.ops import dropout as drop
 from beat_this_tpu_torch.ops.fused_ff import (
-    ROW_TILE,
     dtype_code,
     f32,
     ff_train_branch,
+    ff_wgrad_split,
     kernel_weight,
     stream_of,
-    wgrad_groups,
 )
 from beat_this_tpu_torch.ops.fused_time import block_params
 from beat_this_tpu_torch.ops.rotary import apply_rope
@@ -127,8 +129,20 @@ def fused_freq_roformer_train_ref(x, attn: Attention, ff: FeedForward, rope_cos,
     column), all under SALT_FREQ."""
     dtype = x.dtype
     items, f, c = x.shape
-    heads = c // HEAD_DIM
     x32 = wide(x).reshape(items * f, c)
+    x2 = x32 + freq_attention_branch(x32, attn, rope_cos, rope_sin, f, dtype, dropout_rate, seed)
+    out = x2 + ff_train_branch(x2, ff, dtype, dropout_rate, seed, drop.SALT_FREQ)
+    return out.to(dtype).reshape(items, f, c)
+
+
+def freq_attention_branch(x32: torch.Tensor, attn: Attention, rope_cos, rope_sin, f: int,
+                          dtype: torch.dtype, dropout_rate: float = 0.0,
+                          seed: Optional[int] = None) -> torch.Tensor:
+    """The dropped attention branch of `fused_freq_roformer_train_ref` on the
+    float32 (or float64) rows `x32` (items * F, C), with the rounding points
+    of the compute dtype `dtype`; the block adds it to x32 unrounded."""
+    rows, c = x32.shape
+    items, heads = rows // f, c // HEAD_DIM
     acc = x32.dtype
     on = dropout_rate > 0.0 and seed is not None
     g = round_value(rms_norm(x32, attn.norm.gamma), dtype)
@@ -147,19 +161,17 @@ def fused_freq_roformer_train_ref(x, attn: Attention, ff: FeedForward, rope_cos,
     if on:
         with torch.no_grad():
             keep = drop.keep_mask(seed, drop.SALT_FREQ, drop.SITE_ATTN_PROBS, items, heads, f,
-                                  f, dropout_rate, x.device)
+                                  f, dropout_rate, x32.device)
         p = p * keep.to(acc)
     o = round_value(round_grad(torch.matmul(round_value(p, dtype), v), dtype) / l, dtype)
     go = round_value(o * gates.reshape(items, f, heads).transpose(1, 2)[..., None], dtype)
-    go = go.transpose(1, 2).reshape(items * f, c)
+    go = go.transpose(1, 2).reshape(rows, c)
     branch = round_grad(F.linear(go, round_value(attn.to_out[0].weight.to(acc), dtype)), dtype)
     if on:
         with torch.no_grad():
             keep = rows_mask(seed, drop.SALT_FREQ, drop.SITE_ATTN_OUT, branch, dropout_rate)
         branch = branch * keep
-    x2 = x32 + branch
-    out = x2 + ff_train_branch(x2, ff, dtype, dropout_rate, seed, drop.SALT_FREQ)
-    return out.to(dtype).reshape(items, f, c)
+    return branch
 
 
 def _train_params(params, dtype) -> list[torch.Tensor]:
@@ -192,39 +204,50 @@ def freq_train_fwd(x, params, cos, sin, f: int, dropout_rate: float, seed) -> to
     return out
 
 
+def freq_bwd_plan(rows: int, c: int, m: int, dtype: torch.dtype) -> tuple[int, int, int]:
+    """(rows per group of the attention weight gradients, rows per group of
+    the FF's, scratch bytes) of B7 over `rows` rows of width `c`, hidden
+    width `m`, in `dtype`: each from `ff_wgrad_split` over the tile count the
+    kernel library gives, which also lays out the scratch
+    (csrc/fused_freq_train.cu: bt_freq_wgrad_tiles, bt_freq_train_bwd_scratch;
+    csrc/fused_ff_train.cu: bt_ff_wgrad_tiles)."""
+    lib = _build.load_library()
+    tiles, ff_tiles, nbytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    _build.check(lib.bt_freq_wgrad_tiles(c, ctypes.byref(tiles)), "bt_freq_wgrad_tiles")
+    _build.check(lib.bt_ff_wgrad_tiles(c, m, ctypes.byref(ff_tiles)), "bt_ff_wgrad_tiles")
+    group_rows = ff_wgrad_split(rows, tiles.value)
+    ff_group_rows = ff_wgrad_split(rows, ff_tiles.value)
+    _build.check(lib.bt_freq_train_bwd_scratch(dtype_code(dtype), c, rows, m, group_rows,
+                                               ff_group_rows, ctypes.byref(nbytes)),
+                 "bt_freq_train_bwd_scratch")
+    return group_rows, ff_group_rows, nbytes.value
+
+
 def freq_train_bwd(x, params, cos, sin, f: int, dout, dropout_rate: float, seed):
     """Launch the training backward; returns dx and the ten parameter
-    gradients (float32, torch layouts, the order of `params`).
-
-    Scratch: the per-row operands of the four weight-gradient products
-    (g, d_qkv, the gated attention output, d_attn, g2, d_pre1, the dropped
-    hidden layer, d_y: rows * (8 C + 2 M) values of the compute dtype, 786 MB
-    at 384,000 rows of C 32 in float32), one float32 partial per row tile of
-    the small gradients, and one per row-tile group of a weight, reused by
-    the four weights in turn."""
+    gradients (float32, torch layouts, the order of `params`). The library
+    lays out the scratch (`freq_bwd_plan`: the recomputed attention half,
+    float32 x2 and d_x2, the FF half's operands, the attention branch's
+    cotangents as operands, the partials of the weight gradients)."""
     rows, c = x.shape
     m = params[6].shape[0]
-    heads = c // HEAD_DIM
     code = _check_freq("fused_freq_roformer_train", x.reshape(-1, f, c))
     lib = _build.load_library()
     dev, dtype = x.device, x.dtype
-    tiles = -(-rows // ROW_TILE)
-    # dW_out is the smallest product: C / 32 blocks per group
-    groups = wgrad_groups(heads, rows)
+    group_rows, ff_group_rows, nbytes = freq_bwd_plan(rows, c, m, dtype)
     kp = _train_params(params, dtype)[:9]  # b2 has no part in the backward
     dout = dout.to(dtype).contiguous()
     dx = torch.empty_like(x)
     grads = [torch.empty(p.shape, dtype=torch.float32, device=dev) for p in params]
-    ops = torch.empty(rows * (8 * c + 2 * m), dtype=dtype, device=dev)
-    part = torch.empty(tiles * (3 * c + heads + heads * c + m) + groups * max(3 * c * c, m * c),
-                       dtype=torch.float32, device=dev)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         _build.check(
             lib.bt_freq_train_bwd(
                 code, c, x.data_ptr(), *(p.data_ptr() for p in kp), cos.data_ptr(),
                 sin.data_ptr(), dout.data_ptr(), dx.data_ptr(),
-                *(g.data_ptr() for g in grads), ops.data_ptr(), part.data_ptr(), rows, f, m,
-                groups, *drop.kernel_args(dropout_rate, seed, drop.SALT_FREQ), stream_of(x),
+                *(g.data_ptr() for g in grads), scratch.data_ptr(), nbytes, rows, f, m,
+                group_rows, ff_group_rows, *drop.kernel_args(dropout_rate, seed, drop.SALT_FREQ),
+                stream_of(x),
             ),
             "bt_freq_train_bwd",
         )

@@ -13,11 +13,12 @@ device's summed kernel time and busy share (kernel time over wall), the
 step's peak device memory (`torch.cuda.max_memory_allocated`), and the
 kernels by device time, grouped by the port's kernel families (B4/B5
 `fused_time_train.cu`, B6 `fused_freq.cu`, B7 `fused_freq_train.cu`, B8/B9
-`fused_ff_train.cu`, the shared partial sums; at `--head-dim 16`, where the
-fused attention kernels decline every block, B10/B11 `flash_attention.cu`
-(in bfloat16 with its rotation pre-pass) and B12 `small_attention.cu`) and
-everything else (cuBLAS, cuDNN, elementwise, optimizer). Needs a CUDA
-device.
+`ff_train.cuh`, whose B9 families also hold B7's feed-forward half, run by
+the same kernels; the shared operand conversions; at `--head-dim 16`, where
+the fused attention kernels decline every block, B10/B11
+`flash_attention.cu` (in bfloat16 with its rotation pre-pass) and B12
+`small_attention.cu`) and everything else (cuBLAS, cuDNN, elementwise,
+optimizer). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,11 +35,20 @@ WARMUP, TOP = 2, 12  # unprofiled steps first; kernels listed by name
 
 # kernel-name fragments -> the family they belong to, first match wins
 FAMILIES = (
-    ("freq_bwd_rows", "B7 freq_bwd_rows"),
-    ("atb_kernel", "B7 atb (weight gradients)"),
+    ("freq_rows_kernel", "B7 rows (norm, g, gates)"),
+    ("freq_qkv_kernel", "B7 qkv (RoPE epilogue)"),
+    ("freq_core_fwd", "B7 attention core, recomputed"),
+    ("freq_out_kernel", "B7 out projection (x2)"),
+    ("freq_dattn", "B7 d_attn"),
+    ("freq_dog", "B7 d_og"),
+    ("freq_core_bwd", "B7 attention core backward"),
+    ("freq_product_kernel<false", "B7 d_g"),
+    ("freq_product_kernel<true", "B7 dW_qkv, dW_out"),
+    ("freq_post", "B7 post"),
+    ("freq_sums", "B7 sums"),
     ("fused_freq_kernel", "B6 fused_freq (train fwd)"),
     ("time_qkv", "B4 time_qkv"),
-    ("attn_operands", "B4/B5 operands (W_out^T; f32 split q, k, v, weights)"),
+    ("operands_kernel", "operands (B4/B5/B7/B8/B9 weights; B4/B5 f32 split q, k, v)"),
     ("attn_fwd_kernel", "B4 attn_fwd"),
     ("attn_out_kernel", "B4 attn_out"),
     ("attn_bwd_pre", "B5 pre (d_branch, gated rows)"),
@@ -49,13 +59,15 @@ FAMILIES = (
     ("attn_product_kernel<true", "B5 dW_qkv, dW_out"),
     ("attn_bwd_post", "B5 post"),
     ("attn_bwd_sums", "B5 sums"),
-    ("ff_train_fwd", "B8 ff_train_fwd"),
+    ("ff_hidden_kernel<3, false>", "B8 hidden"),
+    ("ff_hidden_kernel<1, false>", "B8 hidden"),
+    ("ff_out_kernel", "B8 out"),
+    ("ff_pre_kernel", "B8/B9 pre (row passes)"),
     ("ff_hidden_kernel", "B9 hidden (pre1, d_h1)"),
     ("ff_product_kernel<false", "B9 d_g"),
     ("ff_product_kernel<true", "B9 dW1, dW2"),
-    ("ff_bwd_", "B9 row passes, weight operands"),
+    ("ff_post_kernel", "B9 post"),
     ("column_sums", "B9 column_sums"),
-    ("sum_partials", "B7 sum_partials"),
     ("rotate_kernel", "B10/B11 rotate (bf16 pre-pass)"),
     ("flash_fwd", "B10 flash_fwd"),
     ("flash_dq", "B11 flash_dq"),

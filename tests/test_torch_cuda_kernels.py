@@ -18,9 +18,12 @@ Tolerances: float32 relative max deviation 1e-5 (TF32 off; only the order
 of float32 sums differs), 1e-4 for the training kernels' gradients (sums
 over every row, in another order; the float32 products of the feed-forward
 backward and of the attention branch's forward and backward, three bf16
-products of split operands each, hold about 1e-5),
-bfloat16 < 2.5e-2 (the two sides round
-intermediates to bfloat16 at different places). The ablation kernels of
+products of split operands each, hold about 1e-5; those of the
+feed-forward forward and of the frequency block's backward, six products
+of three-part operands, about 1e-6), bfloat16 < 2.5e-2 (the two sides
+round intermediates to bfloat16 at different places). The masks of the
+feed-forward forward and the frequency block's backward are read off
+their outputs and held to the plain version's bit for bit. The ablation kernels of
 `beat_this_tpu_torch/bench/` (every stage, mode, variant and pass) and the
 DBN decoder on the card against the CPU are held here too."""
 
@@ -29,6 +32,7 @@ import pytest
 import torch
 
 from beat_this_tpu_torch.model.layers import Attention, FeedForward
+from beat_this_tpu_torch.ops import dropout as drop
 from beat_this_tpu_torch.ops import flash_attention as flash_ops
 from beat_this_tpu_torch.ops import fused_ff as ff_ops
 from beat_this_tpu_torch.ops import fused_freq as freq_ops
@@ -203,8 +207,8 @@ def test_ff_bwd_scratch_holds_the_stash(device, dtype, parts, limit):
 
     def launch(size):
         return lib.bt_ff_train_bwd(
-            ff_ops.dtype_code(dtype), c, x.data_ptr(), gamma.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), dout.data_ptr(),
+            ff_ops.dtype_code(dtype), ff_ops.dtype_code(dtype), c, x.data_ptr(),
+            gamma.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dout.data_ptr(),
             dx.data_ptr(), *(g.data_ptr() for g in grads), scratch.data_ptr(), size, rows,
             4 * c, group_rows, 0, 0, 0, 1.0, 0, ff_ops.stream_of(x))
 
@@ -381,6 +385,103 @@ def test_fused_freq_train_backward_is_deterministic(device):
     first, second = _run_grads(fn, x, params, cot), _run_grads(fn, x, params, cot)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("c,rows", [(32, 300), (128, 77), (512, 70)])
+def test_ff_train_backward_on_float32_rows(device, rate, c, rows):
+    """B9 on float32 rows with bfloat16 compute, as B7 runs its FF half on
+    the residual x2, against the backward of `ff_train_branch` with those
+    rounding points: dx (float32) and the five parameter gradients."""
+    _, ff = _block(c, c // 32, c + rows, device)
+    ff.requires_grad_(True)
+    norm, lin1, _, _, lin2, _ = ff.net
+    x = _x((rows, c), torch.float32, device, c)
+    dout = _x((rows, c), torch.bfloat16, device, c + 1)
+    got = ff_ops.ff_train_bwd(x, norm.gamma, lin1.weight, lin1.bias, lin2.weight, dout, rate, 7,
+                              dtype=torch.bfloat16)
+    xg = x.clone().requires_grad_(True)
+    y = xg + ff_ops.ff_train_branch(xg, ff, torch.bfloat16, rate, 7, drop.SALT_FF)
+    want = torch.autograd.grad(y, [xg, norm.gamma, lin1.weight, lin1.bias, lin2.weight, lin2.bias],
+                               dout.float())
+    assert got[0].dtype == torch.float32
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(g).all()), i
+        assert _rel(g, w) < 2.5e-2, (i, _rel(g, w))
+
+
+def _kept(seed, site, items, heads, rows, cols, device, salt, rate=0.5):
+    """The plain version's mask of `site` as booleans, (items, heads, rows,
+    cols) squeezed."""
+    m = drop.keep_mask(seed, salt, site, items, heads, rows, cols, rate, device)
+    return (m != 0).squeeze(0).squeeze(0)
+
+
+@pytest.mark.parametrize("c", [32, 512])
+def test_ff_train_forward_masks_match_the_plain_version(device, c):
+    """B8's two masks, read off its output, equal the plain version's bit for
+    bit: with W2 = 0 and b2 = 1, out - x is the output keep factor; with W1 =
+    0, b1 = 1 and W2 picking hidden unit q C + j for column j, out - x is
+    gelu(1) times the hidden and the output keep factors."""
+    rows, m, rate, seed = 300, 4 * c, 0.5, 29
+    x = _x((rows, c), torch.float32, device, 3)
+    gamma, w1, b1 = (torch.ones(c, device=device), torch.zeros(m, c, device=device),
+                     torch.ones(m, device=device))
+    out_keep = _kept(seed, drop.SITE_FF_OUT, 1, 1, rows, c, device, drop.SALT_FF)
+    hid_keep = _kept(seed, drop.SITE_FF_HIDDEN, 1, 1, rows, m, device, drop.SALT_FF)
+    out = ff_ops.ff_train_fwd(x, gamma, w1, b1, torch.zeros(c, m, device=device),
+                              torch.ones(c, device=device), rate, seed)
+    assert torch.equal((out - x) != 0, out_keep)
+    cols = torch.arange(c, device=device)
+    for q in range(4):
+        w2 = torch.zeros(c, m, device=device)
+        w2[cols, q * c + cols] = 1.0
+        out = ff_ops.ff_train_fwd(x, gamma, w1, b1, w2, torch.zeros(c, device=device), rate,
+                                  seed)
+        assert torch.equal((out - x) != 0, hid_keep[:, q * c:(q + 1) * c] & out_keep)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_freq_train_backward_masks_match_the_plain_version(device, dtype):
+    """The four masks B7 regenerates equal the plain version's bit for bit,
+    read off two weight gradients of a backward whose dout is one row r0 of
+    ones. x's rows are one-hot (row r at column r % F), W_q = W_k = 0 (every
+    score 0, p = 1, l = F), W_v maps the one-hot g to v_j = e_j in each head,
+    W_g = 0 (gate 1/2), W1 = 0 (d_x2 = dout, pre1 = b1 = 1). Then dW_out[c]
+    = f_out_attn[r0, c] go[r0] with go[r0, 32 h + j] = f_p(item, h, r0 % F,
+    j) / (2 F), and dW2[c, k] = f_out_ff[r0, c] gelu(1) f_hid[r0, k]."""
+    c, f, items, rate, seed = 64, 16, 2, 0.5, 31
+    heads, rows, m = c // 32, items * f, 4 * c
+    r = torch.arange(rows, device=device)
+    x = torch.zeros(rows, c, device=device)
+    x[r, r % f] = 1.0
+    wqkv = torch.zeros(3 * c, c, device=device)
+    for h in range(heads):
+        wqkv[2 * c + 32 * h + torch.arange(f, device=device), torch.arange(f, device=device)] = (
+            c**-0.5)
+    params = (torch.ones(c, device=device), wqkv, torch.zeros(heads, c, device=device),
+              torch.zeros(heads, device=device), _x((c, c), torch.float32, device, 1),
+              torch.ones(c, device=device), torch.zeros(m, c, device=device),
+              torch.ones(m, device=device), _x((c, m), torch.float32, device, 2),
+              torch.zeros(c, device=device))
+    cos, sin = rope_tables(f, 32, device)
+    kw = dict(device=device, salt=drop.SALT_FREQ)
+    attn_out = _kept(seed, drop.SITE_ATTN_OUT, 1, 1, rows, c, rate=rate, **kw)
+    ff_out = _kept(seed, drop.SITE_FF_OUT, 1, 1, rows, c, rate=rate, **kw)
+    ff_hid = _kept(seed, drop.SITE_FF_HIDDEN, 1, 1, rows, m, rate=rate, **kw)
+    probs = _kept(seed, drop.SITE_ATTN_PROBS, items, heads, f, f, rate=rate, **kw)
+    for r0 in range(rows):
+        dout = torch.zeros(rows, c, dtype=dtype, device=device)
+        dout[r0] = 1.0
+        _, _, _, _, _, dwout, _, _, _, dw2, _ = freq_ops.freq_train_bwd(
+            x.to(dtype), params, cos, sin, f, dout, rate, seed)
+        rows_seen = dwout.abs().sum(1) != 0
+        assert torch.equal(rows_seen, attn_out[r0])
+        go = dwout[rows_seen][0].reshape(heads, 32)
+        assert torch.equal(go[:, :f] != 0, probs[r0 // f, :, r0 % f])
+        assert not bool(go[:, f:].any())
+        assert torch.equal(dw2.abs().sum(1) != 0, ff_out[r0])
+        assert torch.equal(dw2.abs().sum(0) != 0, ff_hid[r0])
 
 
 @pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
