@@ -1,0 +1,168 @@
+"""Where the time of one eval forward goes on the card:
+
+    python -m beat_this_tpu_torch.bench.profile_eval [--precision float32|bfloat16]
+        [--head-dim 32|16]
+
+The full-width model (`init_beat_this(0)`, random weights from the seed)
+predicts three click pieces made by `data.synth.click_track` from seed 0
+through the chunked predictor, each once to warm up and then once under
+`torch.profiler`: a 75 s piece (3750 frames, three 1500-frame chunks in one
+forward: the unmasked path), a 12 s piece (601 frames in a 768-frame bucket:
+the masked short-piece path) and a batch of 16 chunks of 1500 frames in one
+forward (`inference.CHUNK_BATCH`: a long piece or a directory batch). For
+each window it prints, beside the card's `nvidia-smi` name and power limit,
+the wall time (host clock around a synchronized forward), the device's
+summed kernel time and busy share (kernel time over wall), the kernels'
+device time by family and by group (K2 `fused_time.cu`, K1 `fused_ff.cu`,
+K3 `fused_freq.cu`, at `--head-dim 16` B10 `flash_attention.cu` and B12
+`small_attention.cu`, and the rest: cuBLAS, cuDNN, mel, elementwise,
+copies), and the largest kernels. K1 runs B8's feed-forward launches, as
+K2's tail does; the wrappers' launch counts in the window tell whose they
+are (`group`). Needs a CUDA device: the kernels run only there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+from collections import defaultdict
+
+TOP = 10  # kernels listed by name per window
+
+# kernel-name fragments -> family, first match wins; the SIMT kernels of
+# earlier versions of K1 and K2 are named too, so that one profile reads
+# either tree
+FAMILIES = (
+    ("time_rows_kernel", "K2 rows (norm, gates)"),
+    ("time_qkv_kernel", "K2 qkv (RoPE epilogue)"),
+    ("attn_fwd_kernel", "K2 attention core"),
+    ("time_out_kernel", "K2 out projection (y1)"),
+    ("time_attn_kernel", "K2 attention (SIMT)"),
+    ("time_out_ff_kernel", "K2 out projection + feed-forward (SIMT)"),
+    ("fused_ff_kernel", "K1 (SIMT)"),
+    ("operands_kernel", "FF weight operands"),
+    ("ff_pre_kernel", "FF row pass"),
+    ("ff_hidden_kernel", "FF hidden product"),
+    ("ff_out_kernel", "FF output product"),
+    ("ff_product_kernel", "FF output product, depth slices"),
+    ("ff_out_sum_kernel", "FF output slices' sum"),
+    ("fused_freq_kernel", "K3 fused_freq"),
+    ("rotate_kernel", "B10 rotate (bf16 pre-pass)"),
+    ("flash_fwd", "B10 flash_fwd"),
+    ("small_fwd", "B12 small_fwd"),
+)
+OTHER = "other (cuBLAS, cuDNN, mel, elementwise, copies)"
+# families whose kernels K1 and K2's tail share
+SHARED = ("FF weight operands", "FF row pass", "FF hidden product", "FF output product",
+          "FF output product, depth slices", "FF output slices' sum")
+
+
+def family(name: str) -> str:
+    for frag, fam in FAMILIES:
+        if frag in name:
+            return fam
+    return OTHER
+
+
+def group(fam: str, k1_launches: int, k2_launches: int) -> str:
+    """The kernel whose launches a family's time belongs to: K1, K2, K3,
+    B10, B12 or the rest. The feed-forward families are K2's tail in a
+    window where only K2 ran, K1's where only K1 ran, and both otherwise."""
+    if fam in SHARED:
+        if k1_launches and not k2_launches:
+            return "K1"
+        if k2_launches and not k1_launches:
+            return "K2"
+        return "K1 + K2 (shared feed-forward launches)"
+    if fam == OTHER:
+        return "rest"
+    return fam.split()[0]
+
+
+def get_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m beat_this_tpu_torch.bench.profile_eval")
+    p.add_argument("--precision", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--head-dim", type=int, default=32, choices=[16, 32])
+    return p
+
+
+def main(argv=None) -> dict:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from beat_this_tpu_torch.data.synth import click_track
+    from beat_this_tpu_torch.inference import CHUNK_BATCH, ChunkedPredictor
+    from beat_this_tpu_torch.io.checkpoint import init_beat_this
+    from beat_this_tpu_torch.model.beat_this import BeatThis, BeatThisConfig
+    from beat_this_tpu_torch.ops import fused_ff, fused_time
+
+    args = get_parser().parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_eval: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    cfg = BeatThisConfig(head_dim=args.head_dim)
+    model = BeatThis(cfg)
+    model.load_state_dict(init_beat_this(0, cfg))
+    model = model.to(dev).eval().requires_grad_(False)
+    dtype = torch.bfloat16 if args.precision == "bfloat16" else torch.float32
+    predictor = ChunkedPredictor(model, compute_dtype=dtype)
+
+    rng = np.random.default_rng(0)
+
+    def piece(frames: int) -> np.ndarray:
+        return click_track(frames, 25, 3, 4, rng)[0].astype(np.float32)
+
+    chunks = np.stack([piece(predictor.chunk_size) for _ in range(CHUNK_BATCH)])
+    windows = (
+        ("75 s piece (3 chunks)", lambda s=piece(3750): predictor.predict(s)),
+        ("12 s piece (601 frames, masked)", lambda s=piece(601): predictor.predict(s)),
+        (f"batch of {CHUNK_BATCH} chunks", lambda: predictor._forward(chunks)),
+    )
+    config = "stock" if args.head_dim == 32 else f"head_dim {args.head_dim}"
+    print(f"[profile_eval] {smi}")
+    results = {}
+    for name, fn in windows:
+        fn()  # warm: kernel build and caches
+        torch.cuda.synchronize()
+        before = (fused_ff.fused_ff.launches, fused_time.fused_time_roformer.launches)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        k1 = fused_ff.fused_ff.launches - before[0]
+        k2 = fused_time.fused_time_roformer.launches - before[1]
+        by_name: dict[str, float] = defaultdict(float)
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[evt.name] += evt.device_time_total / 1e3  # us -> ms
+        by_family: dict[str, float] = defaultdict(float)
+        for kname, ms in by_name.items():
+            by_family[family(kname)] += ms
+        by_group: dict[str, float] = defaultdict(float)
+        for fam, ms in by_family.items():
+            by_group[group(fam, k1, k2)] += ms
+        device_ms = sum(by_name.values())
+        print(f"[profile_eval] one forward, {name}, {config}, {args.precision}: wall "
+              f"{1e3 * wall:.2f} ms, device kernel time {device_ms:.2f} ms, busy share "
+              f"{device_ms / (1e3 * wall):.3f}; launches K2 {k2}, K1 {k1}")
+        for grp, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+            print(f"[profile_eval]   {grp}: {ms:.2f} ms ({ms / device_ms:.1%})")
+        for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+            print(f"[profile_eval]     {fam}: {ms:.2f} ms")
+        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
+            print(f"[profile_eval]     kernel {kname[:90]}: {ms:.3f} ms")
+        results[name] = {"wall_ms": 1e3 * wall, "device_ms": device_ms,
+                         "groups": dict(by_group), "families": dict(by_family)}
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -9,9 +9,11 @@
 // cp = tid % 16 and rg = tid / 16). Activation tiles use a row stride of C + 1
 // floats so that the two row groups of a warp hit different banks.
 //
-// The training forward of the frequency block passes a `Dropout` to
-// `ff_tail`; the training kernels' products run on the tensor cores
-// (tc_product.cuh), not here.
+// The row-tile kernels are the frequency block's (fused_freq.cu: eval K3 and
+// the training forward B6, which passes a `Dropout` to `ff_tail`) and the
+// bench's ablated block (freq_ablate.cu), and B5's row epilogue loads its
+// rows with `load_rows`; the eval K1 / K2 and the training kernels' products
+// run on the tensor cores (tc_product.cuh), not here.
 #pragma once
 
 #include <cuda_bf16.h>

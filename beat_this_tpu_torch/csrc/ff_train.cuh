@@ -7,7 +7,8 @@
 // so the backward regenerates the forward's masks. x (and dx) are of type X,
 // the compute dtype T (float32 or bf16) sets the rounding points, and the
 // operands have P parts (tc_product.cuh: bf16 1; float32 3 in B8 and B7, 2 in
-// B9's own launches); X is T except in B7, where it is float32.
+// B9's own launches and at eval); X is T except in B7 and K2's tail, where it
+// is float32.
 //
 // Every product runs on the staged product of tc_product.cuh (mma.sync,
 // bf16 operands, float32 accumulators; float32 as bf16 products of split
@@ -16,7 +17,12 @@
 // hidden-width operands to scratch and takes the weight gradients as
 // products over the rows.
 //
-// forward (B8), 4 launches:
+// The forward's launches at dropout rate 0 are also the eval feed-forward:
+// K1 (fused_ff.cu) on rows of T and the tail of K2 (fused_time.cu) on its
+// float32 rows y1, both with two-part float32 operands.
+//
+// forward (B8), 4 launches (5 where the output product is taken in depth
+// slices, at small row counts):
 //   1. operands: W1^T and W2^T as bf16 operands;
 //   2. pre:      per 128 rows, g = round_T(rmsnorm(x) gamma) as an operand;
 //   3. hidden:   per (128 rows, 64 hidden units), pre1 = g W1^T; the
@@ -49,6 +55,7 @@
 // written); at the frontend's C 32-128 the bytes of the scratch operands.
 #pragma once
 
+#include <algorithm>
 #include <type_traits>
 
 #include "tc_product.cuh"
@@ -153,10 +160,10 @@ __global__ void __launch_bounds__(bt::kThreads)
 
 // The forward's output product: out = x + (h1d W2^T + b2) times the output
 // keep factors, in float32, rounded once to T (A: h1d, B: W2^T, operands of
-// P parts).
-template <int BN, typename T, int P>
+// P parts; x of type X).
+template <int BN, typename T, typename X, int P>
 __global__ void __launch_bounds__(bt::kThreads)
-    ff_out_kernel(Operand A, Operand B, const T* __restrict__ x, const float* __restrict__ b2,
+    ff_out_kernel(Operand A, Operand B, const X* __restrict__ x, const float* __restrict__ b2,
                   T* __restrict__ out, int64_t rows, int C, int M, bt::Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem_b[];
   const int64_t m0 = (int64_t)blockIdx.y * kTM;
@@ -187,18 +194,6 @@ __global__ void __launch_bounds__(bt::kThreads)
     }
 }
 
-// Row passes: a block covers kTM rows with 8 warps. A row takes L = min(32,
-// C / 4) lanes, each over NG = C / (4 L) groups of 4 columns (q + L i for
-// lane q of the row); a warp covers 32 / L rows at once.
-template <int C> struct RowMap {
-  static constexpr int L = C / 4 < 32 ? C / 4 : 32, NG = C / (4 * L), RPW = 32 / L;
-};
-
-template <typename T> __device__ __forceinline__ void load4(const T* p, float (&v)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) v[e] = bt::to_f(p[e]);
-}
-
 // Each lane's per-column sums acc (its NG groups of 4 columns) summed over
 // the rows of the block into part[0 .. C), in a fixed order: over the lanes
 // of one column group in a warp, then over the 8 warps. red: 8 C floats of
@@ -224,6 +219,35 @@ __device__ __forceinline__ void block_column_sums(float (&acc)[RowMap<C>::NG][4]
     part[c] = s;
   }
   __syncthreads();
+}
+
+// The output after an output product taken in S depth slices (partials
+// `part`, S (rows, C) float32 sections): out = x + (the slices' sum, in
+// order, + b2) times the output keep factors, in float32, rounded once to T;
+// four columns a thread and step.
+template <typename T, typename X>
+__global__ void __launch_bounds__(bt::kThreads)
+    ff_out_sum_kernel(const float* __restrict__ part, int S, const X* __restrict__ x,
+                      const float* __restrict__ b2, T* __restrict__ out, int64_t rows, int C,
+                      bt::Dropout drop) {
+  const int64_t quads = rows * C / 4, step = rows * C;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < quads;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t r = e / (C / 4);
+    const int c = 4 * (int)(e % (C / 4));
+    const int64_t at = r * C + c;
+    float4 a = *reinterpret_cast<const float4*>(part + at);
+    for (int z = 1; z < S; ++z) {
+      const float4 v = *reinterpret_cast<const float4*>(part + z * step + at);
+      a.x += v.x, a.y += v.y, a.z += v.z, a.w += v.w;
+    }
+    float f[4];
+    bt::keep4(drop, bt::kSiteFFOut, 0, 0, (uint32_t)r, c >> 2, f);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      out[at + i] = bt::from_f<T>(bt::to_f(x[at + i]) + (av[i] + b2[c + i]) * f[i]);
+  }
 }
 
 // Before the products: g = round_T(rmsnorm(x) gamma) as a bf16 operand
@@ -337,41 +361,57 @@ __global__ void __launch_bounds__(bt::kThreads)
   block_column_sums<C>(acc, red, dgp + blockIdx.x * (int64_t)C);
 }
 
+// Depth slices of the forward's output product h1d W2^T (depth M): one
+// while its output tiles (C / BN of them across, rows / 128 down) give
+// about two blocks per SM, else enough slices for that, each at least 256
+// deep. A slice writes a float32 partial that ff_out_sum_kernel adds in a
+// fixed order (at 768 rows of C 512 the 24 tiles take 8 slices).
+inline int out_splits(int64_t rows, int C, int M) {
+  const int64_t tiles = (C + product_n(C) - 1) / product_n(C) * ((rows + kTM - 1) / kTM);
+  const int64_t want = (2 * kCardSMs + tiles - 1) / tiles, most = M / 256 > 1 ? M / 256 : 1;
+  return (int)(want < most ? want : most);
+}
+
 // The forward's scratch (on a null base: its size alone), bf16 operands of
-// P parts: g (P rows C), h1d (P rows M), W1^T and W2^T (P M C each).
+// P parts: g (P rows C), h1d (P rows M), W1^T and W2^T (P M C each); with
+// more than one output slice, their float32 partials (splits rows C).
 struct FwdLayout {
   bf16 *g, *h1d, *w1t, *w2t;
+  float* part;
+  int splits;
   size_t bytes;
 
-  FwdLayout(void* base, int P, int64_t rows, int C, int M) {
+  FwdLayout(void* base, int P, int64_t rows, int C, int M) : splits(out_splits(rows, C, M)) {
     Carver c(base);
     g = c.take<bf16>(P * rows * C);
     h1d = c.take<bf16>(P * rows * M);
     w1t = c.take<bf16>(P * M * C);
     w2t = c.take<bf16>(P * M * C);
+    part = c.take<float>(splits > 1 ? splits * rows * C : 0);
     bytes = c.bytes;
   }
 };
 
-template <int C, typename T>
-cudaError_t fwd_launch(const FwdLayout& s, const T* x, const float* gamma, const T* w1,
-                       const float* b1, const T* w2, const float* b2, T* out, int64_t rows,
-                       int M, bt::Dropout drop, cudaStream_t stream) {
-  // float32's own precision: the frontend's train-mode batch norms sum the
-  // gradient behind each block over 96k-384k rows where it nearly cancels,
-  // so the first training step's gradients hold the plain version's to 1e-3
-  // only so (two parts missed it by up to 5.9x: PERF.md, Findings, PR 9)
-  constexpr int P = full_parts<T>(), BN = product_n(C);
+// The forward's weight operands W1^T and W2^T as two jobs of a conversion
+// launch (the caller may add its own jobs and launches it).
+inline void fwd_operands(ConvJobs& conv, const FwdLayout& s, const void* w1, const void* w2,
+                         int C, int M) {
+  conv.add(w1, s.w1t, M, C, 1);
+  conv.add(w2, s.w2t, C, M, 1);
+}
+
+// The forward's launches after the weight operands: the row pass, the hidden
+// product and the output product, on rows x of type X, operands of P parts.
+template <int C, typename T, typename X, int P>
+cudaError_t fwd_rows_launch(const FwdLayout& s, const X* x, const float* gamma, const float* b1,
+                            const float* b2, T* out, int64_t rows, int M, bt::Dropout drop,
+                            cudaStream_t stream) {
+  constexpr int BN = product_n(C);
   const int64_t rlo = rows * C, hlo = rows * M, wlo = (int64_t)M * C;
   const unsigned tiles = (unsigned)((rows + kTM - 1) / kTM);
   cudaError_t err;
 
-  ConvJobs conv;
-  conv.add(w1, s.w1t, M, C, 1);
-  conv.add(w2, s.w2t, C, M, 1);
-  if ((err = convert<T, P>(conv, stream)) != cudaSuccess) return err;
-
-  ff_pre_kernel<C, T, T, false, P><<<tiles, bt::kThreads, 0, stream>>>(
+  ff_pre_kernel<C, T, X, false, P><<<tiles, bt::kThreads, 0, stream>>>(
       x, gamma, nullptr, nullptr, s.g, nullptr, rlo, nullptr, rows, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
@@ -383,11 +423,28 @@ cudaError_t fwd_launch(const FwdLayout& s, const T* x, const float* gamma, const
       g, w1t, g, w1t, b1, nullptr, s.h1d, hlo, nullptr, rows, M, C, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  auto outk = ff_out_kernel<BN, T, P>;
+  const Operand h1d{s.h1d, M, hlo}, w2t{s.w2t, C, wlo};
+  const unsigned ntiles = (unsigned)((C + BN - 1) / BN);
   const size_t smem_out = product_smem<false, BN, P>();
-  if ((err = bt::allow_smem(outk, smem_out)) != cudaSuccess) return err;
-  outk<<<dim3((unsigned)((C + BN - 1) / BN), tiles), bt::kThreads, smem_out, stream>>>(
-      Operand{s.h1d, M, hlo}, Operand{s.w2t, C, wlo}, x, b2, out, rows, C, M, drop);
+  if (s.splits == 1) {
+    auto outk = ff_out_kernel<BN, T, X, P>;
+    if ((err = bt::allow_smem(outk, smem_out)) != cudaSuccess) return err;
+    outk<<<dim3(ntiles, tiles), bt::kThreads, smem_out, stream>>>(h1d, w2t, x, b2, out, rows, C,
+                                                                   M, drop);
+    return cudaGetLastError();
+  }
+  // too few output tiles to fill the card: the depth in slices, then their sum
+  auto pk = ff_product_kernel<false, BN, P>;
+  if ((err = bt::allow_smem(pk, smem_out)) != cudaSuccess) return err;
+  const int64_t k_per = ((M + s.splits - 1) / s.splits + kTK - 1) / kTK * kTK;
+  pk<<<dim3(ntiles, tiles, (unsigned)s.splits), bt::kThreads, smem_out, stream>>>(
+      h1d, w2t, s.part, C, rlo, 0, rows, C, M, k_per);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t quads = rlo / 4;
+  const unsigned sum_blocks =
+      (unsigned)std::min<int64_t>((quads + bt::kThreads - 1) / bt::kThreads, kCardSMs * 16);
+  ff_out_sum_kernel<T, X><<<sum_blocks, bt::kThreads, 0, stream>>>(s.part, s.splits, x, b2, out,
+                                                                  rows, C, drop);
   return cudaGetLastError();
 }
 

@@ -1,70 +1,61 @@
-// Fused feed-forward residual: out = x + W2 gelu(W1 rmsnorm(x) + b1) + b2.
+// Fused feed-forward residual (eval, K1): out = x + W2 gelu(W1 rmsnorm(x) + b1) + b2.
 //
 // Replaces beat_this_tpu/ops/fused_ff.py:_ff_kernel (reached through
 // fused_ff), the eval feed-forward residual that the short-piece path runs
-// in every time block and main layer.
+// in every time block and main layer, and the head_dim 16 model in every
+// block. It is the training forward's function at dropout rate 0, so it
+// runs that forward's launches (ff_train.cuh, B8) with dropout off, which
+// draw no Philox bits and write no masks: the weight operands W1^T and
+// W2^T from the float32 weights (converted on every call: a weight may
+// change between calls), a row pass for g = round_T(rmsnorm(x) gamma), the
+// hidden product with b1 and the exact GELU in its epilogue (h rounded once
+// to T), and the output product with b2 and x added in float32, rounded
+// once (at small row counts in depth slices and a summing pass). Every
+// product runs on the tensor cores (mma.sync m16n8k16, bf16 operands,
+// float32 accumulators) over 128-row tiles, in a 2-D grid of (hidden or
+// output column tiles) x (row tiles); float32 as three bf16 products of
+// two-part operands (about 16 significant bits; B8 takes three parts for
+// the cancelling sums of training, which eval does not have).
 //
-// Bound on the H100: arithmetic. Each row costs 4 * C * M multiply-adds
-// (M = 4 C) against 2 * C activation values read and written, so at C = 512
-// a 32-row tile does ~134 MFLOP for 64 KB of activations; the weights (4 MB
-// f32 at C = 512) are re-read from L2 by every tile.
-//
-// Design: one 256-thread block per 32-row tile; the tile, its norm and one
-// 64-unit chunk of the hidden layer live in shared memory (at C = 512 the
-// whole 32 x 2048 hidden layer would be 256 KB, more than a block may hold),
-// so the hidden width is streamed: gelu(g W1[:, j:j+64] + b1) for one chunk,
-// then that chunk times W2[j:j+64, :] is added to float32 register
-// accumulators. Weights stream through shared memory 16 input features at a
-// time. Products are float32 FMAs on the SIMT cores; bfloat16 inputs are
-// widened on load. The ragged last tile is masked in the kernel.
-#include "common.cuh"
+// Bound on the H100: arithmetic at C 512 (4 C M FLOPs a row, M = 4 C,
+// against 2 C values read and written); at C 32-128 the bytes of x, out and
+// the hidden layer's operand.
+#include "ff_train.cuh"
 
 namespace {
 
 template <int C, typename T>
-__global__ void __launch_bounds__(bt::kThreads)
-    fused_ff_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                    const T* __restrict__ w1, const float* __restrict__ b1,
-                    const T* __restrict__ w2, const float* __restrict__ b2,
-                    T* __restrict__ out, int64_t rows, int M) {
-  extern __shared__ float smem[];
-  float* y = smem;
-  const int64_t row0 = (int64_t)blockIdx.x * bt::kRows;
-  const int nrows = bt::tile_rows(rows, row0);
-  bt::load_rows<C, T>(x, y, row0, nrows);
-  bt::ff_tail<C, T>(y, y + bt::kRows * bt::tile_ld(C), gamma, w1, b1, w2, b2, M, out, row0,
-                    nrows);
-}
-
-template <int C, typename T>
 cudaError_t launch(const void* x, const void* gamma, const void* w1, const void* b1,
-                   const void* w2, const void* b2, void* out, int64_t rows, int M,
-                   cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (bt::kRows * bt::tile_ld(C) + bt::ff_tail_floats<C>());
-  auto kernel = fused_ff_kernel<C, T>;
-  cudaError_t err = bt::allow_smem(kernel, smem);
+                   const void* w2, const void* b2, void* out, void* scratch,
+                   int64_t scratch_bytes, int64_t rows, int M, cudaStream_t stream) {
+  constexpr int P = mm::split_parts<T>();
+  const ff::FwdLayout s(scratch, P, rows, C, M);
+  if ((int64_t)s.bytes > scratch_bytes) return cudaErrorInvalidValue;
+  mm::ConvJobs conv;
+  ff::fwd_operands(conv, s, w1, w2, C, M);
+  cudaError_t err = mm::convert<float, P>(conv, stream);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((rows + bt::kRows - 1) / bt::kRows);
-  kernel<<<blocks, bt::kThreads, smem, stream>>>(
-      (const T*)x, (const float*)gamma, (const T*)w1, (const float*)b1, (const T*)w2,
-      (const float*)b2, (T*)out, rows, M);
-  return cudaGetLastError();
+  return ff::fwd_rows_launch<C, T, T, P>(s, (const T*)x, (const float*)gamma, (const float*)b1,
+                                         (const float*)b2, (T*)out, rows, M, bt::Dropout{},
+                                         stream);
 }
 
 template <typename T>
 cudaError_t dispatch(int C, const void* x, const void* gamma, const void* w1, const void* b1,
-                     const void* w2, const void* b2, void* out, int64_t rows, int M,
-                     cudaStream_t s) {
+                     const void* w2, const void* b2, void* out, void* scratch,
+                     int64_t scratch_bytes, int64_t rows, int M, cudaStream_t s) {
+#define BT_CALL(CC) \
+  case CC: return launch<CC, T>(x, gamma, w1, b1, w2, b2, out, scratch, scratch_bytes, rows, M, s);
   switch (C) {
-    case 32: return launch<32, T>(x, gamma, w1, b1, w2, b2, out, rows, M, s);
-    case 64: return launch<64, T>(x, gamma, w1, b1, w2, b2, out, rows, M, s);
-    case 128: return launch<128, T>(x, gamma, w1, b1, w2, b2, out, rows, M, s);
-    case 256: return launch<256, T>(x, gamma, w1, b1, w2, b2, out, rows, M, s);
-    case 384: return launch<384, T>(x, gamma, w1, b1, w2, b2, out, rows, M, s);
-    case 512: return launch<512, T>(x, gamma, w1, b1, w2, b2, out, rows, M, s);
+    BT_CALL(32)
+    BT_CALL(64)
+    BT_CALL(128)
+    BT_CALL(256)
+    BT_CALL(384)
+    BT_CALL(512)
     default: return cudaErrorInvalidValue;
   }
+#undef BT_CALL
 }
 
 }  // namespace
@@ -73,17 +64,29 @@ extern "C" const char* bt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// dtype: 0 float32, 1 bfloat16 (x, w1, w2, out); gamma, b1, b2 float32.
-// x, out (rows, C); w1 (M, C); w2 (C, M). M % 64 == 0.
+// Bytes of bt_fused_ff's scratch for these arguments, in *bytes.
+extern "C" int bt_fused_ff_scratch(int dtype, int C, long long rows, int M, long long* bytes) {
+  if ((dtype != 0 && dtype != 1) || rows < 0 || M % ff::kHidN) return (int)cudaErrorInvalidValue;
+  *bytes = (long long)ff::FwdLayout(nullptr, dtype == 0 ? 2 : 1, rows, C, M).bytes;
+  return 0;
+}
+
+// dtype: 0 float32, 1 bfloat16 (x, out); the weights w1 (M, C), w2 (C, M),
+// gamma, b1 and b2 float32 (the kernel rounds the weights to the dtype's
+// operands). x, out (rows, C); M % 64 == 0. scratch: scratch_bytes bytes,
+// at least bt_fused_ff_scratch's.
 extern "C" int bt_fused_ff(int dtype, int C, const void* x, const void* gamma, const void* w1,
                            const void* b1, const void* w2, const void* b2, void* out,
-                           long long rows, int M, void* stream) {
+                           void* scratch, long long scratch_bytes, long long rows, int M,
+                           void* stream) {
   if (rows <= 0) return 0;
-  if (M % bt::kHid) return (int)cudaErrorInvalidValue;
+  if (M % ff::kHidN) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err =
-      dtype == 0 ? dispatch<float>(C, x, gamma, w1, b1, w2, b2, out, rows, M, s)
-      : dtype == 1 ? dispatch<__nv_bfloat16>(C, x, gamma, w1, b1, w2, b2, out, rows, M, s)
+      dtype == 0 ? dispatch<float>(C, x, gamma, w1, b1, w2, b2, out, scratch, scratch_bytes,
+                                   rows, M, s)
+      : dtype == 1 ? dispatch<__nv_bfloat16>(C, x, gamma, w1, b1, w2, b2, out, scratch,
+                                             scratch_bytes, rows, M, s)
                    : cudaErrorInvalidValue;
   return (int)err;
 }

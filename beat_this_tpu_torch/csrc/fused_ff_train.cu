@@ -43,10 +43,19 @@ cudaError_t launch_fwd(const void* x, const void* gamma, const void* w1, const v
                        const void* w2, const void* b2, void* out, void* scratch,
                        int64_t scratch_bytes, int64_t rows, int M, bt::Dropout drop,
                        cudaStream_t stream) {
-  const FwdLayout s(scratch, full_parts<T>(), rows, C, M);
+  // float32's own precision: the frontend's train-mode batch norms sum the
+  // gradient behind each block over 96k-384k rows where it nearly cancels,
+  // so the first training step's gradients hold the plain version's to 1e-3
+  // only so (two parts missed it by up to 5.9x: PERF.md, Findings, PR 9)
+  constexpr int P = full_parts<T>();
+  const FwdLayout s(scratch, P, rows, C, M);
   if ((int64_t)s.bytes > scratch_bytes) return cudaErrorInvalidValue;
-  return fwd_launch<C, T>(s, (const T*)x, (const float*)gamma, (const T*)w1, (const float*)b1,
-                          (const T*)w2, (const float*)b2, (T*)out, rows, M, drop, stream);
+  ConvJobs conv;
+  fwd_operands(conv, s, w1, w2, C, M);
+  cudaError_t err = convert<T, P>(conv, stream);
+  if (err != cudaSuccess) return err;
+  return fwd_rows_launch<C, T, T, P>(s, (const T*)x, (const float*)gamma, (const float*)b1,
+                                     (const float*)b2, (T*)out, rows, M, drop, stream);
 }
 
 #define BT_FF_SWITCH(CALL)                          \

@@ -94,7 +94,7 @@ __global__ void __launch_bounds__(bt::kThreads)
                      float* __restrict__ sig, int64_t rows) {
   constexpr int P = kParts<T>;
   constexpr int H = C / kHD;
-  using RM = ff::RowMap<C>;
+  using RM = mm::RowMap<C>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q = lane % RM::L;
   const float sc = sqrtf((float)C);
   for (int rr = warp * RM::RPW + lane / RM::L; rr < kTM; rr += 8 * RM::RPW) {
@@ -105,7 +105,7 @@ __global__ void __launch_bounds__(bt::kThreads)
 #pragma unroll
     for (int i = 0; i < RM::NG; ++i) {
       if (ok)
-        ff::load4(x + r * C + 4 * (q + RM::L * i), xv[i]);
+        mm::load4(x + r * C + 4 * (q + RM::L * i), xv[i]);
       else
         xv[i][0] = xv[i][1] = xv[i][2] = xv[i][3] = 0.f;
 #pragma unroll
@@ -171,7 +171,7 @@ __global__ void __launch_bounds__(bt::kThreads)
                      const float* __restrict__ dx2, T* __restrict__ dx, float* __restrict__ dgap,
                      float* __restrict__ dwgp, float* __restrict__ dbgp, int64_t rows) {
   constexpr int H = C / kHD;
-  using RM = ff::RowMap<C>;
+  using RM = mm::RowMap<C>;
   __shared__ float red[8 * C];
   __shared__ float bred[8][H];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q = lane % RM::L;
@@ -193,8 +193,8 @@ __global__ void __launch_bounds__(bt::kThreads)
     for (int i = 0; i < RM::NG; ++i) {
       const int col = 4 * (q + RM::L * i);
       if (ok) {
-        ff::load4(x + r * C + col, n[i]);
-        ff::load4(dg + r * C + col, d[i]);
+        mm::load4(x + r * C + col, n[i]);
+        mm::load4(dg + r * C + col, d[i]);
       } else {
         n[i][0] = n[i][1] = n[i][2] = n[i][3] = 0.f;
         d[i][0] = d[i][1] = d[i][2] = d[i][3] = 0.f;
@@ -745,7 +745,7 @@ cudaError_t launch_bwd(const Layout<T>& s, const T* x, const float* agamma, cons
 
   // 7-9. the attention branch's backward to d_qkv
   const unsigned eblocks = (unsigned)std::min<int64_t>((rlo / 4 + bt::kThreads - 1) / bt::kThreads,
-                                                       132 * 16);
+                                                       mm::kCardSMs * 16);
   freq_dattn_kernel<T><<<eblocks, bt::kThreads, 0, stream>>>(s.dx2, s.da, rlo, rows, C, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 

@@ -15,19 +15,22 @@
 // 4-warp tile of attn_tc.cuh (64 rows a block, 64-row tiles of the other
 // side), the projections and weight gradients on the staged 128-row product
 // of tc_product.cuh. float32 runs every product as three bf16 products of
-// split operands (hi and lo parts, both bf16), about 16 significant bits.
+// split operands (hi and lo parts, both bf16), about 16 significant bits,
+// except the forward's q/k/v product (three parts, below).
 //
-// forward (B4)
-//   1. time_qkv (time_qkv.cuh): norm, q/k/v, RoPE, gates, as at eval.
-//   2. operands: W_out^T as a bf16 operand (float32: also q, k, v split).
-//   3. attn_fwd: per (item * head, 64 queries), two walks over 64-key
-//      tiles: S = Q K^T and each row's maximum m, then p = exp2(S s - m)
-//      (s = 32^-0.5 log2(e) on the float32 product, not on a rounded q),
-//      the probability mask, round_T(p f) repacked into A fragments and
-//      O += P V; l sums the undropped p. p is rounded against its row's
-//      final maximum, as in the plain version. Writes the normalized,
+// forward (B4), 5 launches; 2-4 are K2's too (the eval block, fused_time.cu)
+//   1. operands: W_qkv^T and W_out^T as bf16 operands.
+//   2. rows (time_qkv.cuh): g = round_T(rmsnorm(x) gamma) as an operand and
+//      the gates from the float32 normed rows.
+//   3. qkv (time_qkv.cuh): g W_qkv^T, RoPE in the epilogue; q, k, v saved as
+//      T for the backward (float32: also as two-part operands). In float32
+//      this product takes three-part operands (float32's own precision):
+//      with two, the gate bias's gradient, a sum over rows that cancels,
+//      moved 1.4e-4 from the plain version's at C 32 (the GPU test's limit is
+//      1e-4; PERF.md, Findings, PR 10). The eval block keeps two.
+//   4. attn_fwd (time_attn.cuh): the attention core; writes the normalized,
 //      ungated o (float32), m, l and round_T(o * gate) as an operand.
-//   4. attn_out: round_T(o * gate) W_out^T, then the output mask.
+//   5. attn_out: round_T(o * gate) W_out^T, then the output mask.
 // backward (B5)
 //   a. operands (float32 only): W_out, W_qkv, q, k, v split.
 //   b. pre:   d_branch = round_T(dout * output mask) and round_T(o * gate)
@@ -61,8 +64,7 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "attn_tc.cuh"
-#include "tc_product.cuh"
+#include "time_attn.cuh"
 #include "time_qkv.cuh"
 
 namespace {
@@ -70,192 +72,7 @@ namespace {
 using mm::Operand;
 using bf16 = __nv_bfloat16;
 
-constexpr int kHD = bt::kHeadDim;                          // 32
-constexpr float kScale = 0.17677669529663688f;             // 32^-0.5
-constexpr float kQScale = kScale * 1.4426950408889634f;    // 32^-0.5 * log2(e)
-
-// -- the attention core ----------------------------------------------------------
-
 namespace tc {
-
-// Rows [r0, r0 + kTile) of the (n, 32) matrix `src` into the P tiles `tl`,
-// one per operand part (`lo` elements apart).
-template <int P>
-__device__ __forceinline__ void stage_parts(Tile<kHD>* tl, const bf16* __restrict__ src,
-                                            int64_t lo, int r0, int n) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) stage<kHD>(tl[p], src + p * lo, r0, n);
-}
-
-template <int P>
-__device__ __forceinline__ void load_parts(uint32_t (&a)[P][kHD / 16][4],
-                                           const bf16* __restrict__ src, int64_t lo, int row0,
-                                           int n) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) load_a<kHD>(a[p], src + p * lo, row0, n);
-}
-
-// s = the warp's 16 rows (parts a) times the tile's 64 rows (parts tl),
-// transposed; split: a_lo t_hi + a_hi t_lo + a_hi t_hi.
-template <int P>
-__device__ __forceinline__ void scores(float (&s)[8][4], const uint32_t (&a)[P][kHD / 16][4],
-                                       const Tile<kHD>* tl) {
-  zero_frags(s);
-  if constexpr (P == 2) {
-    product_nt_acc<kHD>(s, a[1], tl[0]);
-    product_nt_acc<kHD>(s, a[0], tl[1]);
-  }
-  product_nt_acc<kHD>(s, a[0], tl[0]);
-}
-
-// acc += the 16 x 64 matrix (parts pa) times the tile (parts tl).
-template <int P>
-__device__ __forceinline__ void accumulate(float (&acc)[kHD / 8][4], const uint32_t (&pa)[P][4][4],
-                                           const Tile<kHD>* tl) {
-  if constexpr (P == 2) {
-    product_nn<kHD>(acc, pa[1], tl[0]);
-    product_nn<kHD>(acc, pa[0], tl[1]);
-  }
-  product_nn<kHD>(acc, pa[0], tl[0]);
-}
-
-// The A fragments of the C fragments s as bf16 parts: round(s), and with
-// two parts also round(s - round(s)).
-template <int P>
-__device__ __forceinline__ void to_parts(uint32_t (&pa)[P][4][4], const float (&s)[8][4]) {
-  to_a(pa[0], s);
-  if constexpr (P == 2) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float* x = &s[2 * kk + (r >> 1)][2 * (r & 1)];
-        const float2 h = bt::unpack_bf16(pa[0][kk][r]);
-        pa[1][kk][r] = bt::pack_bf16(x[0] - h.x, x[1] - h.y);
-      }
-  }
-}
-
-// Bytes of dynamic shared memory of the forward and dq (K and V rings) and
-// of dkv (Q and dO rings, the rows' m and delta, two mask tables).
-template <int P> constexpr size_t fwd_smem() { return 2 * kStages * P * sizeof(Tile<kHD>); }
-template <int P> constexpr size_t dkv_smem() {
-  return fwd_smem<P>() + 2 * kStages * kTile * sizeof(float) + 2 * kTile * (kRows / 4);
-}
-
-// q, k, v: (items * H, n, 32) operands (parts `lo` apart); o (items, n, C)
-// float32; go (items, n, C) operand (parts go_lo apart); m, l (items * H, n).
-template <int P>
-__global__ void __launch_bounds__(kThreads)
-    attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, int64_t lo, const float* __restrict__ gates,
-                    float* __restrict__ o, bf16* __restrict__ go, int64_t go_lo,
-                    float* __restrict__ mrow, float* __restrict__ lrow, int n, int H,
-                    bt::Dropout drop) {
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  Tile<kHD>* ks = reinterpret_cast<Tile<kHD>*>(smem_b);
-  Tile<kHD>* vs = ks + kStages * P;
-  const int bh = blockIdx.x, item = bh / H, h = bh % H;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.y * kRows + 16 * (threadIdx.x >> 5);
-  const size_t base = (size_t)bh * n * kHD;
-  const int tiles = (n + kTile - 1) / kTile;
-  uint32_t qa[P][kHD / 16][4];
-  load_parts<P>(qa, q + base, lo, row0, n);
-
-  // walk 1: each query's maximum score
-  float smax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < tiles) stage_parts<P>(ks + st * P, k + base, lo, st * kTile, n);
-    bt::cp_async_commit();
-  }
-  for (int it = 0; it < tiles; ++it) {
-    const int k0 = it * kTile;
-    bt::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (it + kStages - 1 < tiles)
-      stage_parts<P>(ks + ((it + kStages - 1) % kStages) * P, k + base, lo,
-                     k0 + (kStages - 1) * kTile, n);
-    bt::cp_async_commit();
-    float s[8][4];
-    scores<P>(s, qa, ks + (it % kStages) * P);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (k0 + 8 * j + 2 * t + e < n) {
-          smax[0] = fmaxf(smax[0], s[j][e]);
-          smax[1] = fmaxf(smax[1], s[j][2 + e]);
-        }
-  }
-  // scaling is monotonic, so this is the maximum of the scaled scores
-  const float m[2] = {quad_max(smax[0]) * kQScale, quad_max(smax[1]) * kQScale};
-  bt::cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the buffers walk 2 restages
-
-  // walk 2: p, l and O += P V
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < tiles) {
-      stage_parts<P>(ks + st * P, k + base, lo, st * kTile, n);
-      stage_parts<P>(vs + st * P, v + base, lo, st * kTile, n);
-    }
-    bt::cp_async_commit();
-  }
-  float acc[kHD / 8][4] = {};
-  float l[2] = {0.f, 0.f};
-  for (int it = 0; it < tiles; ++it) {
-    const int k0 = it * kTile, buf = it % kStages;
-    bt::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (it + kStages - 1 < tiles) {
-      const int nb = (it + kStages - 1) % kStages;
-      stage_parts<P>(ks + nb * P, k + base, lo, k0 + (kStages - 1) * kTile, n);
-      stage_parts<P>(vs + nb * P, v + base, lo, k0 + (kStages - 1) * kTile, n);
-    }
-    bt::cp_async_commit();
-    float s[8][4];
-    scores<P>(s, qa, ks + buf * P);
-    uint32_t bits[2] = {0u, 0u};
-    if (drop.on) keep_bits(drop, item, h, row0 + g, k0, bits);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool in = k0 + 8 * j + 2 * t + e < n;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const float p = in ? fast_exp2(s[j][2 * hh + e] * kQScale - m[hh]) : 0.f;
-          l[hh] += p;
-          s[j][2 * hh + e] = drop.on ? p * keep_factor(drop, bits[hh], 2 * j + e) : p;
-        }
-      }
-    uint32_t pa[P][4][4];
-    to_parts<P>(pa, s);
-    accumulate<P>(acc, pa, vs + buf * P);
-  }
-  const float lt[2] = {quad_sum(l[0]), quad_sum(l[1])};
-  const int C = H * kHD;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = row0 + g + 8 * hh;
-    if (r >= n) continue;
-    const int64_t row = (int64_t)item * n + r;
-    if (t == 0) {
-      mrow[(size_t)bh * n + r] = m[hh];
-      lrow[(size_t)bh * n + r] = lt[hh];
-    }
-    const float gate = gates[row * H + h];
-#pragma unroll
-    for (int c = 0; c < kHD / 8; ++c) {
-      const int64_t at = row * C + h * kHD + 8 * c + 2 * t;
-      const float v0 = acc[c][2 * hh] / lt[hh], v1 = acc[c][2 * hh + 1] / lt[hh];
-      *reinterpret_cast<float2*>(o + at) = make_float2(v0, v1);
-      mm::store2<P>(go + at, go_lo, v0 * gate, v1 * gate);
-    }
-  }
-}
 
 // g (the rotation pair i = 4c + t of position r, channels 8c + 2t, +1)
 // pulled back through the rotation, times 32^-0.5, stored as operand parts.
@@ -697,20 +514,23 @@ __global__ void __launch_bounds__(bt::kThreads) attn_bwd_sums_kernel(mm::SumJobs
 // -- scratch layouts and launches ---------------------------------------------
 
 // The forward's scratch (on a null base: its size alone), bf16 operands of
-// P = 2 parts in float32, 1 in bf16: W_out^T (P C C), round_T(o * gate)
-// (P rows C); in float32 also q, k, v split (2 rows C each).
+// Q = 3 parts in float32, 1 in bf16 (the q/k/v product's) W_qkv^T (Q 3C C),
+// W_out^T (Q C C, of which the out projection reads P) and g (Q rows C); of
+// P = 2 parts in float32, 1 in bf16 round_T(o * gate) (P rows C) and, in
+// float32 only, q, k, v (P rows C each; bf16 q, k, v are their own
+// operands).
 struct FwdLayout {
-  bf16 *wt, *go, *q, *k, *v;
+  bf16 *wqkv, *wt, *g, *go, *qkv;
   size_t bytes;
 
   FwdLayout(void* base, bool split, int64_t rows, int C) {
-    const int64_t P = split ? 2 : 1, S = split ? 2 : 0;
+    const int64_t Q = split ? 3 : 1, P = split ? 2 : 1, S = split ? 2 : 0;
     mm::Carver c(base);
-    wt = c.take<bf16>(P * C * C);
+    wqkv = c.take<bf16>(Q * 3 * C * C);
+    wt = c.take<bf16>(Q * C * C);
+    g = c.take<bf16>(Q * rows * C);
     go = c.take<bf16>(P * rows * C);
-    q = c.take<bf16>(S * rows * C);
-    k = c.take<bf16>(S * rows * C);
-    v = c.take<bf16>(S * rows * C);
+    qkv = c.take<bf16>(S * 3 * rows * C);
     bytes = c.bytes;
   }
 };
@@ -765,34 +585,31 @@ cudaError_t launch_fwd(const void* x, const void* agamma, const void* wqkv, cons
                        void* out, void* scratch, int64_t scratch_bytes, int items, int n,
                        bt::Dropout drop, cudaStream_t stream) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
-  constexpr int H = C / kHD, ld = bt::tile_ld(C), P = SPLIT ? 2 : 1, BN = mm::product_n(C);
+  constexpr int H = C / kHD, P = mm::split_parts<T>(), Q = mm::full_parts<T>();
+  constexpr int BN = mm::product_n(C);
   const int64_t rows = (int64_t)items * n, rlo = rows * C;
   const FwdLayout s(scratch, SPLIT, rows, C);
   if ((int64_t)s.bytes > scratch_bytes) return cudaErrorInvalidValue;
-  const unsigned tiles = (unsigned)((rows + bt::kRows - 1) / bt::kRows);
 
-  const size_t smem_qkv = sizeof(float) * (bt::kRows * ld + bt::stage_floats(qkv_cols<C>()));
-  auto k1 = time_qkv_kernel<C, T>;
-  cudaError_t err = bt::allow_smem(k1, smem_qkv);
-  if (err != cudaSuccess) return err;
-  k1<<<tiles, bt::kThreads, smem_qkv, stream>>>(
-      (const T*)x, (const float*)agamma, (const T*)wqkv, (const float*)wg, (const float*)gb,
-      (const float*)cosv, (const float*)sinv, (T*)q, (T*)k, (T*)v, (float*)gates, rows, n);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
+  // the first P of an operand's Q parts are its P-part split
   mm::ConvJobs conv;
+  conv.add(wqkv, s.wqkv, 3 * C, C, 1);
   conv.add(wout, s.wt, C, C, 1);
-  if (SPLIT) {
-    conv.add(q, s.q, rows, C, 0);
-    conv.add(k, s.k, rows, C, 0);
-    conv.add(v, s.v, rows, C, 0);
-  }
-  if ((err = mm::convert<T, SPLIT ? 2 : 1>(conv, stream)) != cudaSuccess) return err;
+  cudaError_t err = mm::convert<T, Q>(conv, stream);
+  if (err != cudaSuccess) return err;
 
-  const bf16* qo = SPLIT ? s.q : (const bf16*)q;
-  const bf16* ko = SPLIT ? s.k : (const bf16*)k;
-  const bf16* vo = SPLIT ? s.v : (const bf16*)v;
-  auto ka = tc::attn_fwd_kernel<P>;
+  // q, k, v saved as T for the backward; float32 also as two-part operands
+  err = tq::qkv_launch<C, T, Q, P>((const T*)x, (const float*)agamma,
+                                   Operand{s.wqkv, 3 * C, (int64_t)3 * C * C}, (const float*)wg,
+                                   (const float*)gb, (const float*)cosv, (const float*)sinv, s.g,
+                                   (float*)gates, (T*)q, (T*)k, (T*)v, SPLIT ? s.qkv : nullptr,
+                                   rows, n, stream);
+  if (err != cudaSuccess) return err;
+
+  const bf16* qo = SPLIT ? s.qkv : (const bf16*)q;
+  const bf16* ko = SPLIT ? s.qkv + P * rlo : (const bf16*)k;
+  const bf16* vo = SPLIT ? s.qkv + 2 * P * rlo : (const bf16*)v;
+  auto ka = tc::attn_fwd_kernel<P, false>;
   if ((err = bt::allow_smem(ka, tc::fwd_smem<P>())) != cudaSuccess) return err;
   ka<<<dim3(items * H, (n + tc::kRows - 1) / tc::kRows), tc::kThreads, tc::fwd_smem<P>(),
        stream>>>(qo, ko, vo, rlo, (const float*)gates, (float*)o, s.go, rlo, (float*)mrow,
@@ -800,7 +617,7 @@ cudaError_t launch_fwd(const void* x, const void* agamma, const void* wqkv, cons
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   auto kb = attn_out_kernel<BN, T>;
-  const size_t smem_out = mm::product_smem<false, BN, SPLIT ? 2 : 1>();
+  const size_t smem_out = mm::product_smem<false, BN, P>();
   if ((err = bt::allow_smem(kb, smem_out)) != cudaSuccess) return err;
   kb<<<dim3((C + BN - 1) / BN, (unsigned)((rows + kTM - 1) / kTM)), bt::kThreads, smem_out,
        stream>>>(Operand{s.go, C, rlo}, Operand{s.wt, C, (int64_t)C * C}, (T*)out, rows, C,
@@ -845,7 +662,8 @@ cudaError_t launch_bwd(const void* x, const void* agamma, const void* wqkv, cons
   // b. d_branch and the gated rows as operands
   const int64_t quads = rlo / 4;
   const unsigned pre_blocks =
-      (unsigned)std::min<int64_t>((quads + bt::kThreads - 1) / bt::kThreads, 132 * 16);
+      (unsigned)std::min<int64_t>((quads + bt::kThreads - 1) / bt::kThreads,
+                                  mm::kCardSMs * 16);
   attn_bwd_pre_kernel<T><<<pre_blocks, bt::kThreads, 0, stream>>>(
       (const T*)dout, (const float*)o, (const float*)gates, s.dbr, s.go, rlo, rows, C, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -28,6 +28,7 @@ constexpr int kTM = 128;    // rows of a product block (M side); rows of a row-p
 constexpr int kTK = 32;     // depth of a staged tile
 constexpr int kStages = 3;  // staged tiles in flight (cp.async ring)
 constexpr int kAlign = 256; // scratch sections start on multiples of this many bytes
+constexpr int kCardSMs = 132;  // streaming multiprocessors of the H100 SXM
 
 // A bf16 matrix operand with row stride `ld`; part p (p > 0: what the parts
 // before it leave of the value, rounded to bf16) lies p `lo` elements after
@@ -41,6 +42,12 @@ struct Operand {
 // one in bf16 (its own operand).
 template <typename T> constexpr int full_parts() {
   return std::is_same<T, float>::value ? 3 : 1;
+}
+
+// The parts of an operand where about 16 bits do (B4 / B5 / B9 and the
+// eval kernels K1 / K2): two in float32 (three bf16 products), one in bf16.
+template <typename T> constexpr int split_parts() {
+  return std::is_same<T, float>::value ? 2 : 1;
 }
 
 // bf16 elements of one staged tile. A is staged [m][k] (k contiguous) or,
@@ -351,6 +358,19 @@ template <int J> __device__ __forceinline__ void column_sums(const SumJobs<J>& s
   }
 }
 
+// Row passes (ff_train.cuh, time_qkv.cuh, fused_freq_train.cu): 8 warps a
+// block; a row takes L = min(32, C / 4) lanes, each over NG = C / (4 L)
+// groups of 4 columns (q + L i for lane q of the row); a warp covers 32 / L
+// rows at once.
+template <int C> struct RowMap {
+  static constexpr int L = C / 4 < 32 ? C / 4 : 32, NG = C / (4 * L), RPW = 32 / L;
+};
+
+template <typename T> __device__ __forceinline__ void load4(const T* p, float (&v)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = bt::to_f(p[e]);
+}
+
 // Columns (of C) per block of a product whose output has C columns.
 __host__ __device__ constexpr int product_n(int C) { return C <= 64 ? 64 : 128; }
 
@@ -381,8 +401,11 @@ struct ConvJob {
   int trans;
 };
 
+constexpr int kConvTile = 32;  // a transposed conversion's square tile per block
+
 // Up to five conversions in one launch of operands_kernel: blocks first[j]
-// .. first[j + 1] - 1 take job j, two elements a thread.
+// .. first[j + 1] - 1 take job j, two elements a thread as it is, a 32 x 32
+// tile a block transposed.
 struct ConvJobs {
   static constexpr int kMax = 5;
   ConvJob job[kMax];
@@ -391,8 +414,10 @@ struct ConvJobs {
 
   void add(const void* src, bf16* dst, int64_t rows, int64_t cols, int trans) {
     job[count] = ConvJob{src, dst, rows, cols, rows * cols, trans};
-    const int64_t pairs = rows * cols / 2;
-    first[count + 1] = first[count] + (unsigned)((pairs + bt::kThreads - 1) / bt::kThreads);
+    const int64_t blocks =
+        trans ? ((rows + kConvTile - 1) / kConvTile) * ((cols + kConvTile - 1) / kConvTile)
+              : (rows * cols / 2 + bt::kThreads - 1) / bt::kThreads;
+    first[count + 1] = first[count] + (unsigned)blocks;
     ++count;
   }
   unsigned blocks() const { return first[count]; }
@@ -409,22 +434,34 @@ __device__ __forceinline__ void store1(bf16* p, int64_t lo, float v) {
 }
 
 // The conversions of a launch of convert<T, P>: matrices of T into P parts.
+// A transposed job goes through a 32 x 32 tile in shared memory, so that
+// both its reads and its writes are coalesced.
 template <typename T, int P>
 __global__ void __launch_bounds__(bt::kThreads) operands_kernel(ConvJobs s) {
+  __shared__ float tile[kConvTile][kConvTile + 1];
   int j = 0;
   while (blockIdx.x >= s.first[j + 1]) ++j;
   const ConvJob& jb = s.job[j];
-  const int64_t i = 2 * ((int64_t)(blockIdx.x - s.first[j]) * bt::kThreads + threadIdx.x);
-  if (i >= jb.rows * jb.cols) return;
   const T* src = static_cast<const T*>(jb.src);
-  const float v0 = bt::to_f(src[i]), v1 = bt::to_f(src[i + 1]);
-  if (!jb.trans) {
-    store2<P>(jb.dst + i, jb.lo, v0, v1);
+  const int64_t b = blockIdx.x - s.first[j];
+  if (jb.trans) {
+    const int64_t tcols = (jb.cols + kConvTile - 1) / kConvTile;
+    const int64_t r0 = b / tcols * kConvTile, c0 = b % tcols * kConvTile;
+    const int tx = threadIdx.x % kConvTile, ty = threadIdx.x / kConvTile;
+    for (int i = ty; i < kConvTile; i += bt::kThreads / kConvTile) {
+      const int64_t r = r0 + i, c = c0 + tx;
+      tile[i][tx] = r < jb.rows && c < jb.cols ? bt::to_f(src[r * jb.cols + c]) : 0.f;
+    }
+    __syncthreads();
+    for (int i = ty; i < kConvTile; i += bt::kThreads / kConvTile) {
+      const int64_t c = c0 + i, r = r0 + tx;
+      if (c < jb.cols && r < jb.rows) store1<P>(jb.dst + c * jb.rows + r, jb.lo, tile[tx][i]);
+    }
     return;
   }
-  const int64_t r = i / jb.cols, c = i % jb.cols;  // cols is even: c + 1 is in row r
-  store1<P>(jb.dst + c * jb.rows + r, jb.lo, v0);
-  store1<P>(jb.dst + (c + 1) * jb.rows + r, jb.lo, v1);
+  const int64_t i = 2 * (b * bt::kThreads + threadIdx.x);
+  if (i >= jb.rows * jb.cols) return;
+  store2<P>(jb.dst + i, jb.lo, bt::to_f(src[i]), bt::to_f(src[i + 1]));
 }
 
 template <typename T, int P> cudaError_t convert(const ConvJobs& jobs, cudaStream_t stream) {

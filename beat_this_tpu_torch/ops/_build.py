@@ -36,8 +36,10 @@ _L = ctypes.c_longlong
 _DROP = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, _I]
 # C entry points: name -> argtypes (all return a cudaError_t as int)
 _SIGNATURES = {
-    "bt_fused_ff": [_I, _I] + [_P] * 7 + [_L, _I, _P],
-    "bt_fused_time": [_I, _I] + [_P] * 19 + [_I, _I, _I, _P],
+    "bt_fused_ff": [_I, _I] + [_P] * 8 + [_L, _L, _I, _P],
+    "bt_fused_ff_scratch": [_I, _I, _L, _I, ctypes.POINTER(_L)],
+    "bt_fused_time": [_I, _I] + [_P] * 15 + [_L, _I, _I, _I, _P],
+    "bt_fused_time_scratch": [_I, _I, _L, _I, ctypes.POINTER(_L)],
     "bt_fused_freq": [_I, _I] + [_P] * 14 + [_L, _I, _I, _P],
     "bt_ff_train_fwd": [_I, _I] + [_P] * 8 + [_L, _L, _I] + _DROP + [_P],
     "bt_ff_train_fwd_scratch": [_I, _I, _L, _I, ctypes.POINTER(_L)],

@@ -1,7 +1,9 @@
 """Fused feed-forward residual `x + W2 gelu(W1 rmsnorm(x) + b1) + b2`.
 
 Counterpart of beat_this_tpu/ops/fused_ff.py:fused_ff. On a CUDA tensor
-`fused_ff` launches the hand-written kernel in `csrc/fused_ff.cu`; on a CPU
+`fused_ff` launches the hand-written kernels of `csrc/fused_ff.cu` (the
+training forward's launches at dropout rate 0, every product on the tensor
+cores; the library lays out the scratch and gives its size); on a CPU
 tensor it runs the plain version `fused_ff_ref`, the composable path.
 
 `fused_ff_train` is the training twin (fused_ff.py:fused_ff_train): dropout
@@ -13,6 +15,7 @@ only the inputs are saved between the passes.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -57,11 +60,23 @@ def stream_of(x: torch.Tensor) -> int:
 
 def ff_params(ff: FeedForward, dtype: torch.dtype) -> list[torch.Tensor]:
     """The feed-forward's parameters as the C entry points take them, in
-    their order (gamma, w1, b1, w2, b2): weights in the compute dtype, the
-    norm gain and biases in float32, as the TPU kernels hold them."""
+    their order (gamma, w1, b1, w2, b2): weights in `dtype` (the training
+    kernels' compute dtype; float32 for the eval kernel, which rounds them
+    itself), the norm gain and biases in float32, as the TPU kernels hold
+    them."""
     norm, lin1, _, _, lin2, _ = ff.net
     return [f32(norm.gamma), kernel_weight(lin1.weight, dtype), f32(lin1.bias),
             kernel_weight(lin2.weight, dtype), f32(lin2.bias)]
+
+
+@functools.lru_cache(maxsize=256)
+def eval_scratch(name: str, code: int, c: int, rows: int, m: int) -> int:
+    """Bytes of an eval kernel's scratch by shape, as the library lays it out
+    (`name`: bt_fused_ff_scratch or bt_fused_time_scratch)."""
+    nbytes = ctypes.c_longlong()
+    _build.check(getattr(_build.load_library(), name)(code, c, rows, m, ctypes.byref(nbytes)),
+                 name)
+    return nbytes.value
 
 
 def fused_ff_ref(x: torch.Tensor, ff: FeedForward) -> torch.Tensor:
@@ -88,13 +103,16 @@ def fused_ff(x: torch.Tensor, ff: FeedForward) -> torch.Tensor:
     code = _check_cuda("fused_ff", x, c)
     lib = _build.load_library()
     xc = x.contiguous()
+    rows, m = xc.numel() // c, ff.net[1].out_features
     out = torch.empty_like(xc)
-    params = ff_params(ff, x.dtype)
+    params = ff_params(ff, torch.float32)  # the kernel rounds the weights itself
+    nbytes = eval_scratch("bt_fused_ff_scratch", code, c, rows, m)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         _build.check(
             lib.bt_fused_ff(
                 code, c, xc.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(),
-                xc.numel() // c, ff.net[1].out_features, stream_of(x),
+                scratch.data_ptr(), nbytes, rows, m, stream_of(x),
             ),
             "bt_fused_ff",
         )

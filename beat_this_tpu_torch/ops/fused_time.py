@@ -2,10 +2,12 @@
 feed-forward residual, over (items, n, C).
 
 Counterpart of beat_this_tpu/ops/fused_time.py:fused_time_roformer. On a
-CUDA tensor `fused_time_roformer` launches the hand-written kernels in
-`csrc/fused_time.cu` (norm + q/k/v + RoPE + gates, flash attention + gate,
-out projection + residual + feed-forward); on a CPU tensor it runs the plain
-version `fused_time_roformer_ref`, the composable path.
+CUDA tensor `fused_time_roformer` launches the hand-written kernels of
+`csrc/fused_time.cu` (weight operands; norm and gates; q/k/v with RoPE; the
+attention core; out projection + residual; the feed-forward residual's
+three launches), every product on the tensor cores, with the intermediates
+in a scratch buffer whose size the library gives; on a CPU tensor it runs
+the plain version `fused_time_roformer_ref`, the composable path.
 
 `fused_time_attention_train` is the training twin of the attention branch
 (fused_time.py:fused_time_attention_train): dropout on the attention
@@ -43,6 +45,7 @@ from beat_this_tpu_torch.ops.rotary import apply_rope
 from beat_this_tpu_torch.ops.fused_ff import (
     SUPPORTED_DIMS,
     dtype_code,
+    eval_scratch,
     f32,
     ff_params,
     ff_wgrad_split,
@@ -93,25 +96,20 @@ def fused_time_roformer(x: torch.Tensor, attn: Attention, ff: FeedForward,
         return fused_time_roformer_ref(x, attn, ff, rope_cos, rope_sin, heads)
     code = _check_time("fused_time_roformer", x, heads)
     items, n, c = x.shape
-    dtype = x.dtype
+    m = ff.net[1].out_features
     lib = _build.load_library()
     xc = x.contiguous()
-    params = block_params(attn, ff, dtype)
+    params = block_params(attn, ff, torch.float32)  # the kernel rounds the weights itself
     cos, sin = f32(rope_cos[:n]), f32(rope_sin[:n])
-    q, k, v = (
-        torch.empty((items, heads, n, HEAD_DIM), dtype=dtype, device=x.device)
-        for _ in range(3)
-    )
-    gates = torch.empty((items * n, heads), dtype=torch.float32, device=x.device)
-    attn_out = torch.empty_like(xc)
     out = torch.empty_like(xc)
+    nbytes = eval_scratch("bt_fused_time_scratch", code, c, items * n, m)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         _build.check(
             lib.bt_fused_time(
                 code, c, xc.data_ptr(), *(p.data_ptr() for p in params),
-                cos.data_ptr(), sin.data_ptr(), q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), gates.data_ptr(), attn_out.data_ptr(), out.data_ptr(),
-                items, n, ff.net[1].out_features, stream_of(x),
+                cos.data_ptr(), sin.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                nbytes, items, n, m, stream_of(x),
             ),
             "bt_fused_time",
         )

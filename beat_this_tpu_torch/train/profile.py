@@ -47,8 +47,9 @@ FAMILIES = (
     ("freq_post", "B7 post"),
     ("freq_sums", "B7 sums"),
     ("fused_freq_kernel", "B6 fused_freq (train fwd)"),
-    ("time_qkv", "B4 time_qkv"),
-    ("operands_kernel", "operands (B4/B5/B7/B8/B9 weights; B4/B5 f32 split q, k, v)"),
+    ("time_rows_kernel", "B4 time_qkv: rows (norm, gates)"),
+    ("time_qkv", "B4 time_qkv: q/k/v product"),
+    ("operands_kernel", "operands (B4/B5/B7/B8/B9 weights; B5 f32 split q, k, v)"),
     ("attn_fwd_kernel", "B4 attn_fwd"),
     ("attn_out_kernel", "B4 attn_out"),
     ("attn_bwd_pre", "B5 pre (d_branch, gated rows)"),

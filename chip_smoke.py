@@ -10,10 +10,13 @@ non-zero without the final `"ok": true` line:
 2. build: compiles the CUDA kernels from this checkout's sources, and
    checks with `cuobjdump -sass` that every bfloat16 instantiation of the
    flash kernels (forward, dq, dk/dv), and every instantiation of the
-   feed-forward training backward's product kernels and of the time-axis
-   attention branch's training kernels (forward attention and out
-   projection; backward d_go, dq, dk/dv and products), bfloat16 and the
-   float32 split products alike, holds tensor-core HMMA instructions;
+   feed-forward kernels' products (training forward and backward, and the
+   eval K1 and K2's tail), of the time-axis attention branch's kernels
+   (the q/k/v product shared by the eval block K2 and the training forward,
+   the attention core's forward at eval and in training, the out
+   projections; backward d_go, dq, dk/dv and products) and of the
+   frequency block's training backward, bfloat16 and the float32 split
+   products alike, holds tensor-core HMMA instructions;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes, in float32 (TF32 off, relative max
    deviation <= 1e-3) and bfloat16 (< 2.5e-2), with median times and the
@@ -178,19 +181,22 @@ ABLATE_BATCH = 16
 ABLATE_FLASH = (512, 1536, 32)
 # bfloat16 instantiations of the tensor-core flash kernels in the library
 FLASH_TC_KERNELS = {"flash_fwd_kernel": 8, "flash_dq_kernel": 2, "flash_dkv_kernel": 2}
-# instantiations of the training kernels' products, each on the tensor cores
-# in both dtypes (float32 as split bf16 products): the feed-forward forward
-# (B8: hidden, out) and backward (B9: hidden, d_g and the weight gradients;
-# the frequency block's backward instantiates B9's hidden and product kernels
-# once more), the attention branch's forward (B4: attention, out projection)
-# and backward (B5: d_go, dq, dk/dv, d_gn and the weight gradients), the
-# frequency block's backward (B7: q/k/v, out projection, d_og, d_g and the
-# weight gradients)
-TRAIN_TC_KERNELS = {"ff_hidden_kernel": 6, "ff_product_kernel": 16, "ff_out_kernel": 4,
-                    "attn_fwd_kernel": 2, "attn_out_kernel": 4, "attn_dgo_kernel": 4,
-                    "attn_dq_kernel": 2, "attn_dkv_kernel": 2, "attn_product_kernel": 8,
-                    "freq_qkv_kernel": 4, "freq_out_kernel": 4, "freq_dog_kernel": 4,
-                    "freq_product_kernel": 8}
+# instantiations of the products of the training kernels and of the eval
+# kernels K1 and K2, each on the tensor cores in both dtypes (float32 as split
+# bf16 products): the feed-forward forward (B8, and at eval K1 and K2's tail:
+# hidden, out, and the depth-sliced output product at small row counts) and
+# backward (B9: hidden, d_g and the weight gradients; the frequency block's
+# backward instantiates B9's hidden and product kernels once more), the q/k/v
+# product (B4's and K2's, in their sources), the
+# attention core's forward (B4, and K2 at eval) and the out projections (B4's
+# attn_out, K2's time_out), the attention branch's backward (B5: d_go, dq,
+# dk/dv, d_gn and the weight gradients), the frequency block's backward (B7:
+# q/k/v, out projection, d_og, d_g and the weight gradients)
+TRAIN_TC_KERNELS = {"ff_hidden_kernel": 10, "ff_product_kernel": 26, "ff_out_kernel": 12,
+                    "time_qkv_kernel": 8, "attn_fwd_kernel": 4, "attn_out_kernel": 4,
+                    "time_out_kernel": 4, "attn_dgo_kernel": 4, "attn_dq_kernel": 2,
+                    "attn_dkv_kernel": 2, "attn_product_kernel": 8, "freq_qkv_kernel": 4,
+                    "freq_out_kernel": 4, "freq_dog_kernel": 4, "freq_product_kernel": 8}
 DEVICE = "cuda"
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): float32 outside
 # the tensor cores, bfloat16 on them, float32 as three bfloat16 products of
@@ -198,13 +204,12 @@ DEVICE = "cuda"
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "f32 split": 989e12 / 3}
 PEAK_BYTES = 3.35e12
 # kernels whose float32 products run as split bfloat16 products (their
-# float32 bound takes that rate; the attention forward's first launch, the
-# q/k/v projection shared with the eval kernel, stays on SIMT float32 FMAs,
-# so its bound is a floor below its method), and kernels whose backward
-# phase 3 times by its device time (torch.profiler's kernel sum) rather
-# than by events around the host's call
-SPLIT_F32 = {"fused_ff_train_fwd", "fused_ff_train_bwd", "fused_time_attention_train_fwd",
-             "fused_time_attention_train_bwd", "fused_freq_roformer_train_bwd"}
+# float32 bound takes that rate), and kernels whose backward phase 3 times by
+# its device time (torch.profiler's kernel sum) rather than by events around
+# the host's call
+SPLIT_F32 = {"fused_ff", "fused_time_roformer", "fused_ff_train_fwd", "fused_ff_train_bwd",
+             "fused_time_attention_train_fwd", "fused_time_attention_train_bwd",
+             "fused_freq_roformer_train_bwd"}
 DEVICE_TIMED = {"fused_ff_train_bwd", "fused_time_attention_train_bwd",
                 "fused_freq_roformer_train_bwd"}
 
@@ -405,9 +410,11 @@ def phase_kernels(smi: str) -> dict:
     dev = torch.device("cuda", 0)
     cases = []
     # K2: a main transformer layer over 2 chunks, frontend block 0's time
-    # direction (B * F = 64 sequences of C = 32)
+    # direction (B * F = 64 sequences of C = 32), a main layer over a whole
+    # forward batch of 16 chunks (inference.py:CHUNK_BATCH: a long piece or
+    # a directory batch)
     for c, heads, n, items in ((512, 16, 1500, 2), (32, 1, 1500, 64), (256, 8, 750, 2),
-                               (384, 12, 750, 2)):
+                               (384, 12, 750, 2), (512, 16, 1500, 16)):
         attn, ff = random_block(c, heads, c + n, dev)
         cos, sin = rope_tables(n, 32, dev)
         cases.append(("fused_time_roformer", f"C={c} heads={heads} n={n} items={items}",
@@ -449,7 +456,8 @@ def phase_kernels(smi: str) -> dict:
                 plain_ms = median_ms(lambda: plain(x))
             dt = "f32" if dtype == torch.float32 else "bf16"
             ok = dev_rel <= limit if dtype == torch.float32 else dev_rel < limit
-            bound_ms, bound_by = bound(*block_work(kind, shape[0] * shape[1], shape[2], seq, dt), dt)
+            bound_ms, bound_by = bound(*block_work(kind, shape[0] * shape[1], shape[2], seq, dt),
+                                       "f32 split" if dt == "f32" and name in SPLIT_F32 else dt)
             print(f"[kernels] {name} {dt} {desc}: rel max dev {dev_rel:.3e} (limit {limit:g}) "
                   f"abs {abs_err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
                   f"{bound_ms:.3f} ms ({bound_by}) [{smi}] {'ok' if ok else 'FAIL'}")

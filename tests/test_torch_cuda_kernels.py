@@ -14,8 +14,10 @@ the GPU machine with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 (the repository's conftest.py imports JAX, which that machine lacks).
-Tolerances: float32 relative max deviation 1e-5 (TF32 off; only the order
-of float32 sums differs), 1e-4 for the training kernels' gradients (sums
+Tolerances: float32 relative max deviation 1e-5 (TF32 off; the eval
+kernels' float32 products, three bf16 products of two-part operands, hold
+about 4e-6: tests/test_torch_eval_tc_design.py), 1e-4 for the training
+kernels' gradients (sums
 over every row, in another order; the float32 products of the feed-forward
 backward and of the attention branch's forward and backward, three bf16
 products of split operands each, hold about 1e-5; those of the
@@ -119,6 +121,97 @@ def test_unsupported_width_raises(device):
     _, ff = _block(96, 3, 0, device)
     with pytest.raises(ValueError, match="supports C"):
         fused_ff(torch.zeros((4, 96), device=device), ff)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("c", [32, 64, 128, 256, 384, 512])
+@pytest.mark.parametrize("rows", [601, 768])
+def test_fused_ff_tensor_core_tiles(device, dtype, tol, c, rows):
+    """K1 on the tensor cores at the masked short piece's rows: 601 valid
+    frames (not a multiple of the 128-row tile) and its 768-frame bucket, at
+    every width; four launches a call, counted once."""
+    _, ff = _block(c, c // 32, c + rows, device)
+    x = _x((1, rows, c), dtype, device, rows)
+    before = fused_ff.launches
+    got = fused_ff(x, ff)
+    assert fused_ff.launches == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, fused_ff_ref(x, ff)) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("c", [32, 64, 128, 256, 384, 512])
+@pytest.mark.parametrize("n,items", [(1500, 1), (601, 2)])
+def test_fused_time_tensor_core_tiles(device, dtype, tol, c, n, items):
+    """K2 on the tensor cores at every width (C / 32 heads) over a chunk's
+    1500 frames and a 601-frame piece: lengths that are not multiples of the
+    64-key tiles, rows that are not multiples of the 128-row tiles."""
+    heads = c // 32
+    attn, ff = _block(c, heads, c + n, device)
+    cos, sin = rope_tables(n, 32, device)
+    x = _x((items, n, c), dtype, device, n + c)
+    before = fused_time_roformer.launches
+    got = fused_time_roformer(x, attn, ff, cos, sin, heads)
+    assert fused_time_roformer.launches == before + 1
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, fused_time_roformer_ref(x, attn, ff, cos, sin, heads)) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_fused_time_at_a_chunk_batch(device, dtype, tol):
+    """K2 at a main layer over a whole forward batch of the chunked
+    predictor: 16 chunks of 1500 frames at C 512, 16 heads
+    (inference.py:CHUNK_BATCH; a long piece or a directory batch)."""
+    c, heads, n, items = 512, 16, 1500, 16
+    attn, ff = _block(c, heads, 16, device)
+    cos, sin = rope_tables(n, 32, device)
+    x = _x((items, n, c), dtype, device, 16)
+    got = fused_time_roformer(x, attn, ff, cos, sin, heads)
+    assert _rel(got, fused_time_roformer_ref(x, attn, ff, cos, sin, heads)) < tol
+
+
+@pytest.mark.parametrize("dtype,parts", [(torch.float32, 2), (torch.bfloat16, 1)])
+def test_eval_scratch_holds_the_operands(device, dtype, parts):
+    """K1's and K2's scratch as the library lays it out, at 2 x 1500 rows of
+    C 512: at least K1's operands (g and the hidden layer, 5 C bf16 values a
+    row in P parts) and K2's (those, q, k, v and the gated output, 9 C, and
+    the float32 y1); and each kernel refuses a scratch one byte short."""
+    import ctypes
+
+    items, n, c, heads = 2, 1500, 512, 16
+    rows, m, code = items * n, 4 * c, ff_ops.dtype_code(dtype)
+    lib = ff_ops._build.load_library()
+    ff_bytes, time_bytes = ctypes.c_longlong(), ctypes.c_longlong()
+    assert lib.bt_fused_ff_scratch(code, c, rows, m, ctypes.byref(ff_bytes)) == 0
+    assert lib.bt_fused_time_scratch(code, c, rows, m, ctypes.byref(time_bytes)) == 0
+    assert parts * 5 * rows * c * 2 < ff_bytes.value < 2e8
+    assert parts * 9 * rows * c * 2 + rows * c * 4 < time_bytes.value < 3e8
+    assert lib.bt_fused_time_scratch(code, 96, rows, m, ctypes.byref(time_bytes)) != 0
+    assert lib.bt_fused_time_scratch(code, c, rows, m, ctypes.byref(time_bytes)) == 0
+    attn, ff = _block(c, heads, 2, device)
+    cos, sin = rope_tables(n, 32, device)
+    x = _x((items, n, c), dtype, device, 3)
+    out = torch.empty_like(x)
+    ffp = ff_ops.ff_params(ff, torch.float32)
+    params = time_ops.block_params(attn, ff, torch.float32)
+    scratch = torch.empty(max(ff_bytes.value, time_bytes.value), dtype=torch.uint8,
+                          device=device)
+
+    def launch_ff(size):
+        return lib.bt_fused_ff(code, c, x.data_ptr(), *(p.data_ptr() for p in ffp),
+                               out.data_ptr(), scratch.data_ptr(), size, rows, m,
+                               ff_ops.stream_of(x))
+
+    def launch_time(size):
+        return lib.bt_fused_time(code, c, x.data_ptr(), *(p.data_ptr() for p in params),
+                                 cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+                                 scratch.data_ptr(), size, items, n, m, ff_ops.stream_of(x))
+
+    assert launch_ff(ff_bytes.value - 1) != 0
+    assert launch_ff(ff_bytes.value) == 0
+    assert launch_time(time_bytes.value - 1) != 0
+    assert launch_time(time_bytes.value) == 0
+    torch.cuda.synchronize()
 
 
 TRAIN_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2.5e-2)]
