@@ -6,8 +6,10 @@ three shapes (C, F) = (32, 32), (64, 16), (128, 8), bfloat16.
     python -m beat_this_tpu_torch.bench.fused_freq_ablate [--batch 16]
         [--stages copy,rms,qkv,ff,attn,full] [--reps N] [--device cuda]
 
-Counterpart of tools/bench_fused_freq_ablate.py. Stages (all on the real
-kernel's grid, blocking and shared-memory size):
+Counterpart of tools/bench_fused_freq_ablate.py. Stages (all but `full` on
+the grid, blocking and shared-memory size of the block's SIMT design,
+`csrc/freq_ablate.cu`; `full` is the block's tensor-core kernel, so the
+other stages no longer add up to it):
   copy   x -> out
   rms    RMSNorm only
   qkv    RMSNorm + the q/k/v projection (q's columns out)
@@ -17,7 +19,7 @@ kernel's grid, blocking and shared-memory size):
   full   the real kernel (`fused_freq_roformer`'s launch, bit for bit)
 
 The tool's `--block` (rows per TPU grid step) has no counterpart: the CUDA
-kernel's 32-row tile is a compile-time constant, so the flag is dropped,
+kernels' row tiles are compile-time constants, so the flag is dropped,
 as is `--scan-len` (copies per TPU dispatch): each timed window is one launch.
 """
 

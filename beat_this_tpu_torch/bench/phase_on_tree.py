@@ -2,14 +2,16 @@
 another checkout, to compare two versions of the kernels in one run on one
 card (for example a parent commit unpacked with `git archive`):
 
-    python3 beat_this_tpu_torch/bench/phase_on_tree.py kernels DIR
-    python3 beat_this_tpu_torch/bench/phase_on_tree.py train-kernels DIR
+    python3 beat_this_tpu_torch/bench/phase_on_tree.py kernels DIR [NAME ...]
+    python3 beat_this_tpu_torch/bench/phase_on_tree.py train-kernels DIR [NAME ...]
 
 Run it as a script, not with `-m`: DIR goes first on `sys.path`, so the
 phase imports (and builds the kernels of) DIR's `beat_this_tpu_torch`, while
 the cases, timings and bounds are this checkout's. `kernels` is phase 3's
 eval kernels (K1, K2, K3), `train-kernels` phase 3b (the six training
-kernels). Prints the phase's lines; needs a CUDA device.
+kernels); NAMEs (the kernel names of `chip_smoke.py`'s KERNELS, for example
+fused_freq_roformer or fused_freq_roformer_train_fwd) keep only their cases.
+Prints the phase's lines; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ PHASES = {"kernels": "phase_kernels", "train-kernels": "phase_train_kernels"}
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 2 or argv[0] not in PHASES:
-        raise SystemExit(f"usage: phase_on_tree.py {{{'|'.join(PHASES)}}} DIR")
-    phase, tree = argv[0], str(Path(argv[1]).resolve())
+    if len(argv) < 2 or argv[0] not in PHASES:
+        raise SystemExit(f"usage: phase_on_tree.py {{{'|'.join(PHASES)}}} DIR [NAME ...]")
+    phase, tree, only = argv[0], str(Path(argv[1]).resolve()), tuple(argv[2:])
     sys.path.insert(0, tree)
     spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
     smoke = importlib.util.module_from_spec(spec)
@@ -42,7 +44,10 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[phase_on_tree] {phase} of {SMOKE} on the package of {tree}")
-    getattr(smoke, PHASES[phase])(smoke.nvidia_smi_line())
+    unknown = set(only) - set(smoke.KERNELS)
+    if unknown:
+        raise SystemExit(f"phase_on_tree: no kernels named {sorted(unknown)}")
+    getattr(smoke, PHASES[phase])(smoke.nvidia_smi_line(), only)
 
 
 if __name__ == "__main__":

@@ -31,7 +31,7 @@ from collections import defaultdict
 TOP = 10  # kernels listed by name per window
 
 # kernel-name fragments -> family, first match wins; the SIMT kernels of
-# earlier versions of K1 and K2 are named too, so that one profile reads
+# earlier versions of K1, K2 and K3 are named too, so that one profile reads
 # either tree
 FAMILIES = (
     ("time_rows_kernel", "K2 rows (norm, gates)"),
@@ -47,6 +47,7 @@ FAMILIES = (
     ("ff_out_kernel", "FF output product"),
     ("ff_product_kernel", "FF output product, depth slices"),
     ("ff_out_sum_kernel", "FF output slices' sum"),
+    ("freq_block_kernel", "K3 fused_freq (tensor cores)"),
     ("fused_freq_kernel", "K3 fused_freq"),
     ("rotate_kernel", "B10 rotate (bf16 pre-pass)"),
     ("flash_fwd", "B10 flash_fwd"),

@@ -1,6 +1,6 @@
 // The warp-level attention tile of the tensor-core attention kernels
 // (flash_attention.cu namespace tc: B10, B11, B14 in bf16; fused_time_train.cu:
-// B4, B5): a block of 4 warps, each owning 16 rows (queries, or keys in a
+// B4, B5; its quad reductions also in fused_freq.cu: K3, B6): a block of 4 warps, each owning 16 rows (queries, or keys in a
 // key-major pass) whose operand fragments stay in registers, over 64-row
 // tiles of the other side staged by cp.async through a 3-deep ring in
 // shared memory and read by ldmatrix; mma.sync m16n8k16 with bf16 operands

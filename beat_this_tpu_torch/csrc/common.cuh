@@ -9,11 +9,11 @@
 // cp = tid % 16 and rg = tid / 16). Activation tiles use a row stride of C + 1
 // floats so that the two row groups of a warp hit different banks.
 //
-// The row-tile kernels are the frequency block's (fused_freq.cu: eval K3 and
-// the training forward B6, which passes a `Dropout` to `ff_tail`) and the
-// bench's ablated block (freq_ablate.cu), and B5's row epilogue loads its
-// rows with `load_rows`; the eval K1 / K2 and the training kernels' products
-// run on the tensor cores (tc_product.cuh), not here.
+// The row-tile kernels are the bench's ablated frequency block
+// (freq_ablate.cu, the SIMT design of the eval block), and B5's row epilogue
+// loads its rows with `load_rows`; the eval kernels K1-K3 and the training
+// kernels' products run on the tensor cores (tc_product.cuh, fused_freq.cu),
+// not here.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -164,19 +164,16 @@ template <int C> __host__ __device__ constexpr int ff_tail_floats() {
 }
 
 // The feed-forward residual over a row tile:
-//   out = y + drop(W2 drop(gelu(W1 round_T(rmsnorm(y) * gamma) + b1)) + b2),
+//   out = y + W2 gelu(W1 round_T(rmsnorm(y) * gamma) + b1) + b2,
 // with the hidden layer streamed kHid units at a time so it never leaves the
 // block. y: kRows x C float tile (stride tile_ld(C)), unchanged. scratch:
 // ff_tail_floats<C>() floats. Weights in torch layout: w1 (M, C), w2 (C, M).
-// `drop` (off at eval) masks the FF hidden and output sites by the row's
-// index in the flattened (rows, C) tensor.
 template <int C, typename T>
 __device__ __forceinline__ void ff_tail(const float* y, float* scratch,
                                         const float* __restrict__ gamma,
                                         const T* __restrict__ w1, const float* __restrict__ b1,
                                         const T* __restrict__ w2, const float* __restrict__ b2,
-                                        int M, T* __restrict__ out, int64_t row0, int nrows,
-                                        const Dropout& drop = Dropout{}) {
+                                        int M, T* __restrict__ out, int64_t row0, int nrows) {
   constexpr int ld = tile_ld(C);
   float* g = scratch;
   float* h = g + kRows * ld;
@@ -200,17 +197,13 @@ __device__ __forceinline__ void ff_tail(const float* y, float* scratch,
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < kHid / 32; ++j) {
-        const int c0 = j0 + 2 * cp + 32 * j;  // even: both columns in one Philox group
-        float f[4];
-        keep4(drop, kSiteFFHidden, 0, 0, (uint32_t)(row0 + rg + 16 * i), c0 >> 2, f);
+      for (int j = 0; j < kHid / 32; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 2 * cp + 32 * j + e;
           h[(rg + 16 * i) * (kHid + 1) + col] =
-              round_to<T>(gelu_exact(hacc[i][2 * j + e] + b1[j0 + col]) * f[(c0 & 3) + e]);
+              round_to<T>(gelu_exact(hacc[i][2 * j + e] + b1[j0 + col]));
         }
-      }
     __syncthreads();
     mm_acc<C, T>(acc, h, kHid + 1, w2 + j0, M, 0, kHid, ws);
   }
@@ -219,16 +212,12 @@ __device__ __forceinline__ void ff_tail(const float* y, float* scratch,
     const int r = rg + 16 * i;
     if (r >= nrows) continue;
 #pragma unroll
-    for (int j = 0; j < C / 32; ++j) {
-      float f[4];
-      keep4(drop, kSiteFFOut, 0, 0, (uint32_t)(row0 + r), (2 * cp + 32 * j) >> 2, f);
+    for (int j = 0; j < C / 32; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 2 * cp + 32 * j + e;
-        out[(row0 + r) * C + col] =
-            from_f<T>(y[r * ld + col] + (acc[i][2 * j + e] + b2[col]) * f[((2 * cp) & 3) + e]);
+        out[(row0 + r) * C + col] = from_f<T>(y[r * ld + col] + (acc[i][2 * j + e] + b2[col]));
       }
-    }
   }
 }
 

@@ -1,5 +1,5 @@
-// The eval frequency-axis block (fused_freq.cu) cut off after a stage, to see
-// which stage its time goes to:
+// The frequency block's SIMT design cut off after a stage, to see which stage
+// its time went to:
 //   copy  out = x                                    (the tile's round trip)
 //   rms   out = round_T(rmsnorm(x) * gamma)
 //   qkv   out = the first C columns (q before the rotation) of
@@ -11,12 +11,14 @@
 //
 // Replaces tools/bench_fused_freq_ablate.py:make_kernel, a Pallas body that
 // returns early after each stage on the grid and blocking of the real TPU
-// kernel. Here every stage keeps the real kernel's grid (one 256-thread
-// block per 32-row tile), its shared-memory layout and size (so as many
-// blocks are resident per SM) and its device code (freq_attn.cuh,
-// common.cuh), so that the differences between stages add up to the real
-// kernel's time. That also means `copy` and `rms` are no streaming kernels:
-// a tile goes through shared memory at the real kernel's low occupancy, and
+// kernel. Here every stage but `full` keeps the grid (one 256-thread block
+// per 32-row tile), the shared-memory layout and the device code
+// (freq_attn.cuh, common.cuh: float32 FMAs, weights streamed 16 inputs at a
+// time) of the eval block as it was before it moved onto the tensor cores.
+// `full` launches that block as it is now (fused_freq.cu: 128-row tiles,
+// mma.sync), so the differences between the other stages add up to the SIMT
+// design's time, not to `full`'s. `copy` and `rms` are no streaming kernels:
+// a tile goes through shared memory at the SIMT design's low occupancy, and
 // what they show is that floor.
 //
 // Bound on the H100: copy and rms move 2 * rows * C values and are bound by
@@ -92,8 +94,7 @@ __global__ void __launch_bounds__(bt::kThreads)
       if (unkept == kNever) out[row0 * C] = bt::from_f<T>(unkept);
     } else {
       static_assert(STAGE == kAttn, "stages: copy, rms, qkv, ff, attn (full is bt_fused_freq)");
-      bt::freq_attention<C, T, false>(y, g, qkv, gate, ws, nullptr, wqkv, wg, gb, wout, cosv,
-                                      sinv, F, qscale, row0, bt::Dropout{});
+      bt::freq_attention<C, T>(y, g, qkv, gate, ws, wqkv, wg, gb, wout, cosv, sinv, F, qscale);
       bt::store_rows<T>(y, ld, C, out, row0, nrows);
     }
   }
@@ -105,7 +106,7 @@ cudaError_t launch(const void* x, const void* agamma, const void* wqkv, const vo
                    const void* b1, const void* w2, const void* b2, const void* cosv,
                    const void* sinv, void* out, int64_t rows, int F, int M,
                    cudaStream_t stream) {
-  constexpr size_t smem = bt::freq_smem_bytes<C, false>();
+  constexpr size_t smem = bt::freq_smem_bytes<C>();
   auto kernel = freq_ablate_kernel<C, T, STAGE>;
   cudaError_t err = bt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;

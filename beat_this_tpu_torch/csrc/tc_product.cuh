@@ -109,6 +109,34 @@ __device__ __forceinline__ void stage(bf16* st, const Operand& A, const Operand&
   }
 }
 
+// c += a b for one m16n8k16 fragment over operands of P parts (a: the
+// parts' A fragments; b0, b1: their two B registers), the products of parts
+// i, j with i + j < P, the small terms first (P = 2: a_lo b_hi, a_hi b_lo,
+// a_hi b_hi). With three parts this step's small terms and its product of
+// the first parts each go into fresh accumulators and reach c by float32
+// adds, so the tensor cores round no sum longer than one k-step
+// (accumulating in c, they drifted by ~2e-5 over thousands of rows:
+// PERF.md, Findings).
+template <int P>
+__device__ __forceinline__ void mma_parts(float (&c)[4], const uint32_t (&a)[P][4],
+                                          const uint32_t (&b0)[P], const uint32_t (&b1)[P]) {
+  if constexpr (P == 3) {
+    float sm[4] = {0.f, 0.f, 0.f, 0.f}, big[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int t = 2; t >= 1; --t)
+#pragma unroll
+      for (int i = t; i >= 0; --i) bt::mma_bf16(sm, a[i], b0[t - i], b1[t - i]);
+    bt::mma_bf16(big, a[0], b0[0], b1[0]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] += big[e] + sm[e];
+  } else {
+#pragma unroll
+    for (int t = P - 1; t >= 0; --t)
+#pragma unroll
+      for (int i = t; i >= 0; --i) bt::mma_bf16(c, a[i], b0[t - i], b1[t - i]);
+  }
+}
+
 // acc += the block's staged A tile times its B tile. The 8 warps are 4 (m)
 // x 2 (n): warp w owns rows 32 (w % 4) .. + 31 and columns BN / 2 (w / 4)
 // .. + BN / 2 - 1; acc[mi][j] is the C fragment of rows 16 mi .. + 15 and
@@ -145,30 +173,15 @@ __device__ __forceinline__ void mma_stage(float (&acc)[2][BN / 16][4], const bf1
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float(&c)[4] = acc[mi][2 * nb + h];
-          if constexpr (P == 3) {
-            // float32's own precision: this k-step's small terms and its
-            // product of the first parts each go into fresh accumulators and
-            // reach c by float32 adds, so the tensor cores round no sum
-            // longer than one k-step (accumulating in c, they drifted by
-            // ~2e-5 over thousands of rows: PERF.md, Findings, PR 9)
-            float sm[4] = {0.f, 0.f, 0.f, 0.f}, big[4] = {0.f, 0.f, 0.f, 0.f};
+          uint32_t am[P][4], b0[P], b1[P];
 #pragma unroll
-            for (int t = 2; t >= 1; --t)
+          for (int p = 0; p < P; ++p) {
 #pragma unroll
-              for (int i = t; i >= 0; --i)
-                bt::mma_bf16(sm, a[i][mi], b[t - i][2 * h], b[t - i][2 * h + 1]);
-            bt::mma_bf16(big, a[0][mi], b[0][2 * h], b[0][2 * h + 1]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) c[e] += big[e] + sm[e];
-          } else {
-            // the small terms first (P = 2: a_lo b_hi, a_hi b_lo, a_hi b_hi)
-#pragma unroll
-            for (int t = P - 1; t >= 0; --t)
-#pragma unroll
-              for (int i = t; i >= 0; --i)
-                bt::mma_bf16(c, a[i][mi], b[t - i][2 * h], b[t - i][2 * h + 1]);
+            for (int r = 0; r < 4; ++r) am[p][r] = a[p][mi][r];
+            b0[p] = b[p][2 * h];
+            b1[p] = b[p][2 * h + 1];
           }
+          mma_parts<P>(acc[mi][2 * nb + h], am, b0, b1);
         }
     }
   }

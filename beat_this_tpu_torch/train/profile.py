@@ -46,6 +46,7 @@ FAMILIES = (
     ("freq_product_kernel<true", "B7 dW_qkv, dW_out"),
     ("freq_post", "B7 post"),
     ("freq_sums", "B7 sums"),
+    ("freq_block_kernel", "B6 fused_freq (train fwd, tensor cores)"),
     ("fused_freq_kernel", "B6 fused_freq (train fwd)"),
     ("time_rows_kernel", "B4 time_qkv: rows (norm, gates)"),
     ("time_qkv", "B4 time_qkv: q/k/v product"),

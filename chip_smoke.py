@@ -191,12 +191,14 @@ FLASH_TC_KERNELS = {"flash_fwd_kernel": 8, "flash_dq_kernel": 2, "flash_dkv_kern
 # attention core's forward (B4, and K2 at eval) and the out projections (B4's
 # attn_out, K2's time_out), the attention branch's backward (B5: d_go, dq,
 # dk/dv, d_gn and the weight gradients), the frequency block's backward (B7:
-# q/k/v, out projection, d_og, d_g and the weight gradients)
+# q/k/v, out projection, d_og, d_g and the weight gradients) and its forward
+# (K3 at eval, B6 in training: one kernel, 3 widths x 2 dtypes x eval / train)
 TRAIN_TC_KERNELS = {"ff_hidden_kernel": 10, "ff_product_kernel": 26, "ff_out_kernel": 12,
                     "time_qkv_kernel": 8, "attn_fwd_kernel": 4, "attn_out_kernel": 4,
                     "time_out_kernel": 4, "attn_dgo_kernel": 4, "attn_dq_kernel": 2,
                     "attn_dkv_kernel": 2, "attn_product_kernel": 8, "freq_qkv_kernel": 4,
-                    "freq_out_kernel": 4, "freq_dog_kernel": 4, "freq_product_kernel": 8}
+                    "freq_out_kernel": 4, "freq_dog_kernel": 4, "freq_product_kernel": 8,
+                    "freq_block_kernel": 12}
 DEVICE = "cuda"
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): float32 outside
 # the tensor cores, bfloat16 on them, float32 as three bfloat16 products of
@@ -207,8 +209,9 @@ PEAK_BYTES = 3.35e12
 # float32 bound takes that rate), and kernels whose backward phase 3 times by
 # its device time (torch.profiler's kernel sum) rather than by events around
 # the host's call
-SPLIT_F32 = {"fused_ff", "fused_time_roformer", "fused_ff_train_fwd", "fused_ff_train_bwd",
-             "fused_time_attention_train_fwd", "fused_time_attention_train_bwd",
+SPLIT_F32 = {"fused_ff", "fused_time_roformer", "fused_freq_roformer", "fused_ff_train_fwd",
+             "fused_ff_train_bwd", "fused_time_attention_train_fwd",
+             "fused_time_attention_train_bwd", "fused_freq_roformer_train_fwd",
              "fused_freq_roformer_train_bwd"}
 DEVICE_TIMED = {"fused_ff_train_bwd", "fused_time_attention_train_bwd",
                 "fused_freq_roformer_train_bwd"}
@@ -399,7 +402,10 @@ def random_block(c: int, heads: int, seed: int, device):
     return attn.to(device).requires_grad_(False), ff.to(device).requires_grad_(False)
 
 
-def phase_kernels(smi: str) -> dict:
+def phase_kernels(smi: str, only: tuple = ()) -> dict:
+    """Each eval kernel (K1, K2, K3) against its plain version in both
+    dtypes at the main paths' shapes, with median times; `only`: the kernel
+    names to run (all when empty)."""
     import torch
 
     from beat_this_tpu_torch.ops.fused_ff import fused_ff, fused_ff_ref
@@ -441,6 +447,7 @@ def phase_kernels(smi: str) -> dict:
                       lambda x, f=ff: fused_ff_ref(x, f)))
 
     results = {name: [] for name in KERNELS}
+    cases = [case for case in cases if not only or case[0] in only]
     for dtype, limit in ((torch.float32, F32_LIMIT), (torch.bfloat16, BF16_LIMIT)):
         for name, desc, shape, (kind, seq), kernel, plain in cases:
             gen = torch.Generator(device=dev).manual_seed(len(results[name]))
@@ -898,10 +905,11 @@ def train_cases(dev, dtype, dt: str):
                     block_work("block", rows, c, f_bins, dt, True)))
 
 
-def phase_train_kernels(smi: str) -> dict:
+def phase_train_kernels(smi: str, only: tuple = ()) -> dict:
     """Each training kernel pair (forward and backward) against its plain
     version on the same inputs, seeds and cotangent: the output, dx and
-    every parameter gradient, at dropout 0 and on; median times."""
+    every parameter gradient, at dropout 0 and on; median times. `only`:
+    the kernel names whose pairs run (all when empty)."""
     import torch
 
     dev = torch.device(DEVICE)
@@ -910,6 +918,8 @@ def phase_train_kernels(smi: str) -> dict:
         dt = "f32" if dtype == torch.float32 else "bf16"
         for i, (names, desc, params, kernel, plain, shape, pnames, rate, work) in enumerate(
                 train_cases(dev, dtype, dt)):
+            if only and not set(names) & set(only):
+                continue
             gen = torch.Generator(device=dev).manual_seed(2 * i + (dtype == torch.float32))
             x = torch.randn(shape, generator=gen, device=dev).to(dtype)
             cot = torch.randn(shape, generator=gen, device=dev)

@@ -4,6 +4,8 @@ resampling, the beat TSV writer, the metrics, the checkpoint key maps, the
 click corpus writer, the training batches of the data module and the DBN
 decoder's state-space construction; and the checkpoint release host."""
 
+import time
+
 import jax
 import numpy as np
 import pytest
@@ -94,15 +96,52 @@ def test_key_maps_round_trip(partial):
         assert np.array_equal(a, b) and np.array_equal(a, c)
 
 
-def test_click_corpus_bytes(tmp_path):
+# any fixed instant: the clock both corpus writers see
+PINNED_CLOCK = 1_700_000_000.0
+
+
+def _write_corpora(tmp_path, between=None):
+    """Write the port's and the JAX package's click corpora into tmp_path / "a"
+    and "b" (calling `between()` after the first); return their file lists.
+
+    `ZipFile.writestr` stamps each .npz member with time.localtime(time.time())
+    at 2-second resolution, so corpora written on either side of a 2-second
+    boundary differ in those stamps alone; the caller pins the clock."""
     ours = write_click_corpus(tmp_path / "a", n_pieces=3, n_val_pieces=1, frames=300, seed=4)
+    if between is not None:
+        between()
     theirs = jax_write_click_corpus(tmp_path / "b", n_pieces=3, n_val_pieces=1, frames=300,
                                     seed=4)
     assert ours == theirs
-    files = sorted(p.relative_to(tmp_path / "a") for p in (tmp_path / "a").rglob("*")
-                   if p.is_file())
-    assert files == sorted(p.relative_to(tmp_path / "b") for p in (tmp_path / "b").rglob("*")
-                           if p.is_file())
+    return [sorted(p.relative_to(tmp_path / d) for p in (tmp_path / d).rglob("*") if p.is_file())
+            for d in ("a", "b")]
+
+
+def test_click_corpus_bytes(tmp_path, monkeypatch):
+    monkeypatch.setattr(time, "time", lambda: PINNED_CLOCK)
+    files, theirs = _write_corpora(tmp_path)
+    assert files == theirs
+    for rel in files:
+        assert (tmp_path / "a" / rel).read_bytes() == (tmp_path / "b" / rel).read_bytes(), rel
+
+
+def test_click_corpus_bytes_across_a_clock_boundary(tmp_path, monkeypatch):
+    """The second corpus is written only once the real clock has entered a
+    later 2-second window than the first one ended in; under the pinned
+    clock the bytes still agree."""
+    real_time = time.time
+    monkeypatch.setattr(time, "time", lambda: PINNED_CLOCK)
+    windows = []
+
+    def wait_for_the_next_window():
+        first = int(real_time() // 2)
+        while int(real_time() // 2) == first:
+            time.sleep(0.02)
+        windows.extend([first, int(real_time() // 2)])
+
+    files, theirs = _write_corpora(tmp_path, wait_for_the_next_window)
+    assert windows[1] > windows[0]
+    assert files == theirs and files
     for rel in files:
         assert (tmp_path / "a" / rel).read_bytes() == (tmp_path / "b" / rel).read_bytes(), rel
 

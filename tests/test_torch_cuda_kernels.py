@@ -107,12 +107,18 @@ def test_fused_time(device, dtype, tol, heads, n, items):
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("f,c,items", [(32, 32, 5), (16, 64, 7), (8, 128, 37), (4, 64, 9)])
+@pytest.mark.parametrize("f,c,items", [(32, 32, 5), (16, 64, 7), (8, 128, 37), (4, 64, 9),
+                                       (32, 32, 133), (16, 64, 77), (8, 128, 301), (2, 32, 21),
+                                       (1, 128, 45)])
 def test_fused_freq(device, dtype, tol, f, c, items):
+    """K3 at the three frequency shapes and every F dividing 32, over item
+    counts whose rows end in a partial 128-row tile."""
     attn, ff = _block(c, c // 32, f * c, device)
     cos, sin = rope_tables(f, 32, device)
     x = _x((items, f, c), dtype, device, f)
+    before = fused_freq_roformer.launches
     got = fused_freq_roformer(x, attn, ff, cos, sin)
+    assert fused_freq_roformer.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     assert _rel(got, fused_freq_roformer_ref(x, attn, ff, cos, sin)) < tol
 
@@ -443,7 +449,8 @@ def test_training_backward_is_deterministic(device):
 @pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("f,c,items", [(32, 32, 5), (16, 64, 7), (8, 128, 37), (4, 64, 9),
-                                       (2, 32, 21), (1, 128, 45)])
+                                       (2, 32, 21), (1, 128, 45), (32, 32, 133), (16, 64, 77),
+                                       (8, 128, 301)])
 def test_fused_freq_train(device, dtype, tol, rate, f, c, items):
     """B6 and B7 against fused_freq_roformer_train_ref: output, dx and the
     ten parameter gradients, every F dividing 32, ragged row tiles."""
@@ -575,6 +582,73 @@ def test_fused_freq_train_backward_masks_match_the_plain_version(device, dtype):
         assert not bool(go[:, f:].any())
         assert torch.equal(dw2.abs().sum(1) != 0, ff_out[r0])
         assert torch.equal(dw2.abs().sum(0) != 0, ff_hid[r0])
+
+
+def _freq_params(c, m, device, **given):
+    """The ten parameters of the frequency block as freq_train_fwd takes
+    them, zeros unless given: norm gains of ones, the rest by name."""
+    heads = c // 32
+    params = dict(ga=torch.ones(c, device=device), wqkv=torch.zeros(3 * c, c, device=device),
+                  wg=torch.zeros(heads, c, device=device), gb=torch.zeros(heads, device=device),
+                  wout=torch.zeros(c, c, device=device), gf=torch.ones(c, device=device),
+                  w1=torch.zeros(m, c, device=device), b1=torch.zeros(m, device=device),
+                  w2=torch.zeros(c, m, device=device), b2=torch.zeros(c, device=device))
+    params.update(given)
+    return tuple(params.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_freq_train_forward_masks_match_the_plain_version(device, dtype):
+    """The four masks of B6, read off its output, equal the plain version's
+    bit for bit. x's rows are one-hot (row r at column r % F), so that
+    every branch value below is a multiple of 1/8 that x + branch keeps in
+    bfloat16 too. Attention: W_q = W_k = 0 (every p = 1, l = F), W_g = 0 (gate 1/2), W_out
+    = I and the FF off; with W_v mapping the one-hot g to v_j = e_j in each
+    head, out - x at (r, 32 h + j) is nonzero iff the output mask and the
+    probability mask of (item, h, r % F, j) keep it; with v = 1 everywhere,
+    iff the output mask keeps (r, c) and some key of (r, head) is kept. FF
+    (W_out = 0): W1 = 0, b1 = 1; with W2 = 0 and b2 = 1 out - x is the FF
+    output's keep factor, with W2 picking hidden unit q C + j for column j
+    it is gelu(1) times the hidden and output keep factors."""
+    c, f, items, rate, seed = 64, 16, 7, 0.5, 37
+    heads, rows, m = c // 32, items * f, 4 * c
+    r = torch.arange(rows, device=device)
+    x = torch.zeros(rows, c, device=device)
+    x[r, r % f] = 1.0
+    x = x.to(dtype)
+    cos, sin = rope_tables(f, 32, device)
+    kw = dict(device=device, salt=drop.SALT_FREQ, rate=rate)
+    attn_out = _kept(seed, drop.SITE_ATTN_OUT, 1, 1, rows, c, **kw)
+    ff_out = _kept(seed, drop.SITE_FF_OUT, 1, 1, rows, c, **kw)
+    ff_hid = _kept(seed, drop.SITE_FF_HIDDEN, 1, 1, rows, m, **kw)
+    probs = _kept(seed, drop.SITE_ATTN_PROBS, items, heads, f, f, **kw)
+
+    def branch(**given):
+        params = _freq_params(c, m, device, **given)
+        out = freq_ops.freq_train_fwd(x, params, cos, sin, f, rate, seed)
+        return (out.float() - x.float()) != 0
+
+    eye, keys = torch.eye(c, device=device), torch.arange(f, device=device)
+    wqkv = torch.zeros(3 * c, c, device=device)
+    for h in range(heads):
+        wqkv[2 * c + 32 * h + keys, keys] = c**-0.5
+    got = branch(wqkv=wqkv, wout=eye).reshape(items, f, heads, 32)
+    want = probs.permute(0, 2, 1, 3) & attn_out.reshape(items, f, heads, 32)[..., :f]
+    assert torch.equal(got[..., :f], want)
+    assert not bool(got[..., f:].any())
+    wqkv = torch.zeros(3 * c, c, device=device)
+    wqkv[2 * c:, :f] = c**-0.5
+    some_key = probs.any(-1).permute(0, 2, 1).reshape(rows, heads, 1)
+    got = branch(wqkv=wqkv, wout=eye)
+    assert torch.equal(got, attn_out & some_key.expand(rows, heads, 32).reshape(rows, c))
+    ones = torch.ones(m, device=device)
+    assert torch.equal(branch(b1=ones, b2=torch.ones(c, device=device)), ff_out)
+    cols = torch.arange(c, device=device)
+    for q in range(4):
+        w2 = torch.zeros(c, m, device=device)
+        w2[cols, q * c + cols] = 1.0
+        got = branch(b1=ones, w2=w2)
+        assert torch.equal(got, ff_hid[:, q * c:(q + 1) * c] & ff_out)
 
 
 @pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)

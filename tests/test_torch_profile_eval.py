@@ -1,6 +1,6 @@
 """The eval profile's kernel families (`beat_this_tpu_torch/bench/profile_eval.py`):
 every kernel an eval forward launches, by the names the library compiles
-(the redesigned K1 and K2 and the SIMT kernels before them), falls in its
+(the redesigned K1, K2 and K3 and the SIMT kernels before them), falls in its
 family, and the feed-forward launches that K1 and K2's tail share go to
 whichever ran in the window. The profile itself needs the card."""
 
@@ -18,6 +18,9 @@ from beat_this_tpu_torch.bench import profile_eval as pe
     ("void (anonymous namespace)::tc::attn_fwd_kernel<2, true>(...)", "K2 attention core", "K2"),
     ("void (anonymous namespace)::time_out_kernel<128, float, 2>(...)",
      "K2 out projection (y1)", "K2"),
+    # K3 (fused_freq.cu) on the tensor cores
+    ("void (anonymous namespace)::freq_block_kernel<128, __nv_bfloat16, false>(...)",
+     "K3 fused_freq (tensor cores)", "K3"),
     # the SIMT kernels of earlier trees
     ("void (anonymous namespace)::time_attn_kernel<float>(...)", "K2 attention (SIMT)", "K2"),
     ("void (anonymous namespace)::time_out_ff_kernel<512, float>(...)",
