@@ -16,7 +16,7 @@ Counterpart of tools/bench_flash_ablate.py. Modes:
 
 `block_k` is part of each function's meaning where the tool's arithmetic
 depends on it: `mxu_only` divides by ceil(n / block_k). The CUDA kernels
-(float32 on the SIMT cores, bfloat16 on the tensor cores) always walk
+(on the tensor cores, float32 as split bfloat16 products) always walk
 64-key tiles, so the tool's (block_q, block_k) sweep has no
 counterpart here and is dropped; `--block-k` only sets that denominator.
 """

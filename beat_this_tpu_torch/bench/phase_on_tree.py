@@ -4,13 +4,18 @@ card (for example a parent commit unpacked with `git archive`):
 
     python3 beat_this_tpu_torch/bench/phase_on_tree.py kernels DIR [NAME ...]
     python3 beat_this_tpu_torch/bench/phase_on_tree.py train-kernels DIR [NAME ...]
+    python3 beat_this_tpu_torch/bench/phase_on_tree.py attn-kernels DIR [NAME ...]
+    python3 beat_this_tpu_torch/bench/phase_on_tree.py ablation-kernels DIR [NAME ...]
 
 Run it as a script, not with `-m`: DIR goes first on `sys.path`, so the
 phase imports (and builds the kernels of) DIR's `beat_this_tpu_torch`, while
 the cases, timings and bounds are this checkout's. `kernels` is phase 3's
 eval kernels (K1, K2, K3), `train-kernels` phase 3b (the six training
-kernels); NAMEs (the kernel names of `chip_smoke.py`'s KERNELS, for example
-fused_freq_roformer or fused_freq_roformer_train_fwd) keep only their cases.
+kernels), `attn-kernels` phase 3c (B10-B12 at the head_dim 16 shapes),
+`ablation-kernels` phase 3d (B13-B15 in both dtypes, without the bench
+entry points); NAMEs (the kernel names of `chip_smoke.py`'s KERNELS, for
+example fused_freq_roformer, fused_freq_roformer_train_fwd or
+flash_attention_bwd) keep only their cases.
 Prints the phase's lines; needs a CUDA device.
 """
 
@@ -21,7 +26,9 @@ import sys
 from pathlib import Path
 
 SMOKE = Path(__file__).resolve().parents[2] / "chip_smoke.py"
-PHASES = {"kernels": "phase_kernels", "train-kernels": "phase_train_kernels"}
+PHASES = {"kernels": "phase_kernels", "train-kernels": "phase_train_kernels",
+          "attn-kernels": "phase_attention_kernels",
+          "ablation-kernels": "phase_ablation_kernels"}
 
 
 def main(argv=None) -> None:
@@ -47,6 +54,8 @@ def main(argv=None) -> None:
     unknown = set(only) - set(smoke.KERNELS)
     if unknown:
         raise SystemExit(f"phase_on_tree: no kernels named {sorted(unknown)}")
+    if phase == "ablation-kernels" and not only:
+        only = smoke.ABLATION_KERNELS  # the cases, not the entry points
     getattr(smoke, PHASES[phase])(smoke.nvidia_smi_line(), only)
 
 

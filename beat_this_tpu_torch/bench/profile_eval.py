@@ -49,7 +49,7 @@ FAMILIES = (
     ("ff_out_sum_kernel", "FF output slices' sum"),
     ("freq_block_kernel", "K3 fused_freq (tensor cores)"),
     ("fused_freq_kernel", "K3 fused_freq"),
-    ("rotate_kernel", "B10 rotate (bf16 pre-pass)"),
+    ("rotate_kernel", "B10 pre-pass (rotation, operand parts)"),
     ("flash_fwd", "B10 flash_fwd"),
     ("small_fwd", "B12 small_fwd"),
 )

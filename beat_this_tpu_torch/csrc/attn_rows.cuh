@@ -1,8 +1,8 @@
-// Per-thread rows of D = 16 or 32 head channels for the attention kernels on
-// (entries, seq, D) tensors (flash_attention.cu, small_attention.cu): the
-// softmax scales, 16-byte row loads and stores, and the rotation (RoPE,
-// interleaved pairs, half-width float32 tables of (seq, D / 2); null tables
-// mean no rotation) with its inverse for the gradients.
+// Per-thread rows of D = 16 or 32 head channels for the SIMT attention kernel
+// on (entries, seq, D) tensors (small_attention.cu): 16-byte row loads and
+// stores, and the rotation (RoPE, interleaved pairs, half-width float32
+// tables of (seq, D / 2); null tables mean no rotation) with its inverse for
+// the gradients. Also the softmax scales, which flash_attention.cu takes too.
 #pragma once
 
 #include "common.cuh"

@@ -1,16 +1,21 @@
 // The warp-level attention tile of the tensor-core attention kernels
-// (flash_attention.cu namespace tc: B10, B11, B14 in bf16; fused_time_train.cu:
-// B4, B5; its quad reductions also in fused_freq.cu: K3, B6): a block of 4 warps, each owning 16 rows (queries, or keys in a
-// key-major pass) whose operand fragments stay in registers, over 64-row
-// tiles of the other side staged by cp.async through a 3-deep ring in
-// shared memory and read by ldmatrix; mma.sync m16n8k16 with bf16 operands
-// and float32 accumulators (mma.cuh). Also the dropout bits of the
-// probability site (bt::kSiteAttnProbs, coordinates (key / 4, query, item,
-// head)) in C fragments and as a key-major bit table.
+// (flash_attention.cu: B10, B11, B14; fused_time_train.cu: B4, B5;
+// fused_time.cu: K2; its quad reductions also in fused_freq.cu: K3, B6): a
+// block of 4 warps, each owning 16 rows (queries, or keys in a key-major
+// pass) whose operand fragments stay in registers, over 64-row tiles of the
+// other side staged by cp.async through a 3-deep ring in shared memory and
+// read by ldmatrix; mma.sync m16n8k16 with bf16 operands and float32
+// accumulators (mma.cuh). An operand has P bf16 parts (tc_product.cuh): P = 1
+// is bf16 itself, float32 takes two (a_lo b_hi + a_hi b_lo + a_hi b_hi, about
+// 16 significant bits) or three (the six products of parts i, j with i + j
+// <= 2, each k-step summed into fresh accumulators: float32's 24 bits). Also
+// the dropout bits of the probability site (bt::kSiteAttnProbs, coordinates
+// (key / 4, query, item, head)) in C fragments and as a key-major bit table.
 #pragma once
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "tc_product.cuh"
 
 namespace {
 namespace tc {
@@ -113,6 +118,135 @@ __device__ __forceinline__ void to_a(uint32_t (&pa)[4][4], const float (&s)[8][4
     pa[kk][2] = bt::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
     pa[kk][3] = bt::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
   }
+}
+
+// -- operands of P parts ---------------------------------------------------------
+
+// Rows [r0, r0 + kTile) of the (n, D) matrix `src` into the P tiles `tl`,
+// one per operand part (`lo` elements apart).
+template <int D, int P>
+__device__ __forceinline__ void stage_parts(Tile<D>* tl, const bf16* __restrict__ src, int64_t lo,
+                                            int r0, int n) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) stage<D>(tl[p], src + p * lo, r0, n);
+}
+
+template <int D, int P>
+__device__ __forceinline__ void load_parts(uint32_t (&a)[P][D / 16][4],
+                                           const bf16* __restrict__ src, int64_t lo, int row0,
+                                           int n) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) load_a<D>(a[p], src + p * lo, row0, n);
+}
+
+// s = the warp's 16 rows (parts a) times the tile's 64 rows (parts tl),
+// transposed. Two parts: a_lo t_hi + a_hi t_lo, then a_hi t_hi; three: per
+// k-step mm::mma_parts (the small terms and a_0 t_0 in fresh accumulators).
+template <int D, int P>
+__device__ __forceinline__ void scores(float (&s)[8][4], const uint32_t (&a)[P][D / 16][4],
+                                       const Tile<D>* tl) {
+  zero_frags(s);
+  if constexpr (P == 3) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t b[P][4], b0[P], b1[P], b2[P], b3[P];
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          bt::ldsm_x4(b[q], &tl[q][16 * p + 8 * (lane >> 4) + (lane & 7)]
+                                  [16 * kk + 8 * ((lane >> 3) & 1)]);
+          b0[q] = b[q][0];
+          b1[q] = b[q][1];
+          b2[q] = b[q][2];
+          b3[q] = b[q][3];
+        }
+        uint32_t ak[P][4];
+#pragma unroll
+        for (int q = 0; q < P; ++q)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) ak[q][r] = a[q][kk][r];
+        mm::mma_parts<P>(s[2 * p], ak, b0, b1);
+        mm::mma_parts<P>(s[2 * p + 1], ak, b2, b3);
+      }
+  } else {
+    if constexpr (P == 2) {
+      product_nt_acc<D>(s, a[1], tl[0]);
+      product_nt_acc<D>(s, a[0], tl[1]);
+    }
+    product_nt_acc<D>(s, a[0], tl[0]);
+  }
+}
+
+// acc += the 16 x 64 matrix (parts pa) times the tile (parts tl), in the
+// order of `scores`.
+template <int D, int P>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const uint32_t (&pa)[P][4][4],
+                                           const Tile<D>* tl) {
+  if constexpr (P == 3) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        uint32_t b[P][4], b0[P], b1[P], b2[P], b3[P];
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          bt::ldsm_x4_t(b[q], &tl[q][16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)]
+                                    [16 * c + 8 * (lane >> 4)]);
+          b0[q] = b[q][0];
+          b1[q] = b[q][1];
+          b2[q] = b[q][2];
+          b3[q] = b[q][3];
+        }
+        uint32_t ak[P][4];
+#pragma unroll
+        for (int q = 0; q < P; ++q)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) ak[q][r] = pa[q][kk][r];
+        mm::mma_parts<P>(acc[2 * c], ak, b0, b1);
+        mm::mma_parts<P>(acc[2 * c + 1], ak, b2, b3);
+      }
+  } else {
+    if constexpr (P == 2) {
+      product_nn<D>(acc, pa[1], tl[0]);
+      product_nn<D>(acc, pa[0], tl[1]);
+    }
+    product_nn<D>(acc, pa[0], tl[0]);
+  }
+}
+
+// The A fragments of the C fragments s as P bf16 parts: round(s), then what
+// the parts before leave, rounded.
+template <int P>
+__device__ __forceinline__ void to_parts(uint32_t (&pa)[P][4][4], const float (&s)[8][4]) {
+  to_a(pa[0], s);
+  if constexpr (P > 1) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float* x = &s[2 * kk + (r >> 1)][2 * (r & 1)];
+        const float2 h = bt::unpack_bf16(pa[0][kk][r]);
+        float r0 = x[0] - h.x, r1 = x[1] - h.y;
+        pa[1][kk][r] = bt::pack_bf16(r0, r1);
+        if constexpr (P == 3) {
+          const float2 h1 = bt::unpack_bf16(pa[1][kk][r]);
+          r0 -= h1.x;
+          r1 -= h1.y;
+          pa[2][kk][r] = bt::pack_bf16(r0, r1);
+        }
+      }
+  }
+}
+
+// Bytes of dynamic shared memory of a query-major pass (K and V rings) and
+// of a key-major pass (Q and dO rings, the rows' m or lse and delta, two
+// mask tables).
+template <int D, int P> constexpr size_t fwd_smem() { return 2 * kStages * P * sizeof(Tile<D>); }
+template <int D, int P> constexpr size_t dkv_smem() {
+  return fwd_smem<D, P>() + 2 * kStages * kTile * sizeof(float) + 2 * kTile * (kRows / 4);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -130,8 +130,8 @@ cudaError_t launch(const void* x, const void* agamma, const void* wqkv, const vo
   if (err != cudaSuccess) return err;
 
   auto ka = tc::attn_fwd_kernel<P, true>;
-  if ((err = bt::allow_smem(ka, tc::fwd_smem<P>())) != cudaSuccess) return err;
-  ka<<<dim3(items * H, (n + tc::kRows - 1) / tc::kRows), tc::kThreads, tc::fwd_smem<P>(),
+  if ((err = bt::allow_smem(ka, tc::fwd_smem<tq::kHD, P>())) != cudaSuccess) return err;
+  ka<<<dim3(items * H, (n + tc::kRows - 1) / tc::kRows), tc::kThreads, tc::fwd_smem<tq::kHD, P>(),
        stream>>>(s.qkv, s.qkv + P * rlo, s.qkv + 2 * P * rlo, rlo, s.gates, nullptr, s.go, rlo,
                  nullptr, nullptr, n, H, off);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -104,14 +104,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < tiles) {
-      stage_parts<P>(ks + st * P, k + base, lo, st * kTile, n);
-      stage_parts<P>(vs + st * P, v + base, lo, st * kTile, n);
+      stage_parts<kHD, P>(ks + st * P, k + base, lo, st * kTile, n);
+      stage_parts<kHD, P>(vs + st * P, v + base, lo, st * kTile, n);
     }
     bt::cp_async_commit();
   }
   uint32_t qa[P][kHD / 16][4], da[P][kHD / 16][4];
-  load_parts<P>(qa, q + base, lo, row0, n);
-  load_parts<P>(da, dol + base, lo, row0, n);
+  load_parts<kHD, P>(qa, q + base, lo, row0, n);
+  load_parts<kHD, P>(da, dol + base, lo, row0, n);
   float m[2], dl[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -126,13 +126,13 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (it + kStages - 1 < tiles) {
       const int nb = (it + kStages - 1) % kStages;
-      stage_parts<P>(ks + nb * P, k + base, lo, k0 + (kStages - 1) * kTile, n);
-      stage_parts<P>(vs + nb * P, v + base, lo, k0 + (kStages - 1) * kTile, n);
+      stage_parts<kHD, P>(ks + nb * P, k + base, lo, k0 + (kStages - 1) * kTile, n);
+      stage_parts<kHD, P>(vs + nb * P, v + base, lo, k0 + (kStages - 1) * kTile, n);
     }
     bt::cp_async_commit();
     float s[8][4], dp[8][4];
-    scores<P>(s, qa, ks + buf * P);
-    scores<P>(dp, da, vs + buf * P);
+    scores<kHD, P>(s, qa, ks + buf * P);
+    scores<kHD, P>(dp, da, vs + buf * P);
     uint32_t bits[2] = {0u, 0u};
     if (drop.on) keep_bits(drop, item, h, row0 + g, k0, bits);
 #pragma unroll
@@ -149,7 +149,7 @@ __global__ void __launch_bounds__(kThreads)
         }
     uint32_t pa[P][4][4];
     to_parts<P>(pa, s);
-    accumulate<P>(acc, pa, ks + buf * P);
+    accumulate<kHD, P>(acc, pa, ks + buf * P);
   }
   const int C = H * kHD;
 #pragma unroll
@@ -188,8 +188,8 @@ __global__ void __launch_bounds__(kThreads)
   // stages tile `st` (queries st * kTile ...) into buffer st % kStages
   auto stage_tile = [&](int st) {
     const int b = st % kStages, q0 = st * kTile;
-    stage_parts<P>(qs + b * P, q + base, lo, q0, n);
-    stage_parts<P>(dos + b * P, dol + base, lo, q0, n);
+    stage_parts<kHD, P>(qs + b * P, q + base, lo, q0, n);
+    stage_parts<kHD, P>(dos + b * P, dol + base, lo, q0, n);
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
       lss[b * kTile + i] = q0 + i < n ? mr[q0 + i] : 0.f;
       dls[b * kTile + i] = q0 + i < n ? dr[q0 + i] : 0.f;
@@ -202,8 +202,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (drop.on) keep_table(keepb[0], drop, item, h, kb0, 0);
   uint32_t ka[P][kHD / 16][4], va[P][kHD / 16][4];
-  load_parts<P>(ka, k + base, lo, row0, n);
-  load_parts<P>(va, v + base, lo, row0, n);
+  load_parts<kHD, P>(ka, k + base, lo, row0, n);
+  load_parts<kHD, P>(va, v + base, lo, row0, n);
   float dk[kHD / 8][4] = {}, dv[kHD / 8][4] = {};
   for (int it = 0; it < tiles; ++it) {
     const int q0 = it * kTile, buf = it % kStages;
@@ -214,8 +214,8 @@ __global__ void __launch_bounds__(kThreads)
     // the next tile's bits into the table the previous tile used
     if (drop.on && it + 1 < tiles) keep_table(keepb[(it + 1) & 1], drop, item, h, kb0, q0 + kTile);
     float s[8][4], dp[8][4];
-    scores<P>(s, ka, qs + buf * P);    // S^T: the warp's 16 keys x 64 queries
-    scores<P>(dp, va, dos + buf * P);  // dP^T
+    scores<kHD, P>(s, ka, qs + buf * P);    // S^T: the warp's 16 keys x 64 queries
+    scores<kHD, P>(dp, va, dos + buf * P);  // dP^T
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -236,9 +236,9 @@ __global__ void __launch_bounds__(kThreads)
       }
     uint32_t pa[P][4][4];
     to_parts<P>(pa, s);
-    accumulate<P>(dv, pa, dos + buf * P);
+    accumulate<kHD, P>(dv, pa, dos + buf * P);
     to_parts<P>(pa, dp);
-    accumulate<P>(dk, pa, qs + buf * P);
+    accumulate<kHD, P>(dk, pa, qs + buf * P);
   }
   const int C = H * kHD;
 #pragma unroll
@@ -610,8 +610,8 @@ cudaError_t launch_fwd(const void* x, const void* agamma, const void* wqkv, cons
   const bf16* ko = SPLIT ? s.qkv + P * rlo : (const bf16*)k;
   const bf16* vo = SPLIT ? s.qkv + 2 * P * rlo : (const bf16*)v;
   auto ka = tc::attn_fwd_kernel<P, false>;
-  if ((err = bt::allow_smem(ka, tc::fwd_smem<P>())) != cudaSuccess) return err;
-  ka<<<dim3(items * H, (n + tc::kRows - 1) / tc::kRows), tc::kThreads, tc::fwd_smem<P>(),
+  if ((err = bt::allow_smem(ka, tc::fwd_smem<kHD, P>())) != cudaSuccess) return err;
+  ka<<<dim3(items * H, (n + tc::kRows - 1) / tc::kRows), tc::kThreads, tc::fwd_smem<kHD, P>(),
        stream>>>(qo, ko, vo, rlo, (const float*)gates, (float*)o, s.go, rlo, (float*)mrow,
                  (float*)lrow, n, H, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -680,14 +680,14 @@ cudaError_t launch_bwd(const void* x, const void* agamma, const void* wqkv, cons
   // d, e. the attention core
   const dim3 agrid(items * H, (n + tc::kRows - 1) / tc::kRows);
   auto kd = tc::attn_dq_kernel<P>;
-  if ((err = bt::allow_smem(kd, tc::fwd_smem<P>())) != cudaSuccess) return err;
-  kd<<<agrid, tc::kThreads, tc::fwd_smem<P>(), stream>>>(
+  if ((err = bt::allow_smem(kd, tc::fwd_smem<kHD, P>())) != cudaSuccess) return err;
+  kd<<<agrid, tc::kThreads, tc::fwd_smem<kHD, P>(), stream>>>(
       qo, ko, vo, s.dol, rlo, (const float*)mrow, s.delta, (const float*)cosv,
       (const float*)sinv, s.dqkv, 3 * rlo, n, H, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   auto ke = tc::attn_dkv_kernel<P>;
-  if ((err = bt::allow_smem(ke, tc::dkv_smem<P>())) != cudaSuccess) return err;
-  ke<<<agrid, tc::kThreads, tc::dkv_smem<P>(), stream>>>(
+  if ((err = bt::allow_smem(ke, tc::dkv_smem<kHD, P>())) != cudaSuccess) return err;
+  ke<<<agrid, tc::kThreads, tc::dkv_smem<kHD, P>(), stream>>>(
       qo, ko, vo, s.dol, rlo, (const float*)mrow, s.delta, (const float*)cosv,
       (const float*)sinv, s.dqkv, 3 * rlo, n, H, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

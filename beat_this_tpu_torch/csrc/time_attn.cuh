@@ -9,9 +9,10 @@
 // sums the rounded p; the two differ by bf16's rounding of p, well inside
 // the bf16 limit). p is rounded against its row's final maximum, as in the
 // plain versions. The result is written as round_T(o * gate), an operand of
-// the out projection. Operands of P bf16 parts: float32 takes two (a_lo b_hi
-// + a_hi b_lo + a_hi b_hi, about 16 significant bits), bf16 one. Also the
-// helpers of the backward's core (fused_time_train.cu).
+// the out projection. Operands of P bf16 parts (attn_tc.cuh's helpers, shared
+// with the backward's core in fused_time_train.cu and the flash kernels):
+// float32 takes two (a_lo b_hi + a_hi b_lo + a_hi b_hi, about 16 significant
+// bits), bf16 one.
 #pragma once
 
 #include "attn_tc.cuh"
@@ -26,71 +27,6 @@ constexpr float kQScale = kScale * 1.4426950408889634f;    // 32^-0.5 * log2(e)
 // -- the attention core ----------------------------------------------------------
 
 namespace tc {
-
-// Rows [r0, r0 + kTile) of the (n, 32) matrix `src` into the P tiles `tl`,
-// one per operand part (`lo` elements apart).
-template <int P>
-__device__ __forceinline__ void stage_parts(Tile<kHD>* tl, const bf16* __restrict__ src,
-                                            int64_t lo, int r0, int n) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) stage<kHD>(tl[p], src + p * lo, r0, n);
-}
-
-template <int P>
-__device__ __forceinline__ void load_parts(uint32_t (&a)[P][kHD / 16][4],
-                                           const bf16* __restrict__ src, int64_t lo, int row0,
-                                           int n) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) load_a<kHD>(a[p], src + p * lo, row0, n);
-}
-
-// s = the warp's 16 rows (parts a) times the tile's 64 rows (parts tl),
-// transposed; split: a_lo t_hi + a_hi t_lo + a_hi t_hi.
-template <int P>
-__device__ __forceinline__ void scores(float (&s)[8][4], const uint32_t (&a)[P][kHD / 16][4],
-                                       const Tile<kHD>* tl) {
-  zero_frags(s);
-  if constexpr (P == 2) {
-    product_nt_acc<kHD>(s, a[1], tl[0]);
-    product_nt_acc<kHD>(s, a[0], tl[1]);
-  }
-  product_nt_acc<kHD>(s, a[0], tl[0]);
-}
-
-// acc += the 16 x 64 matrix (parts pa) times the tile (parts tl).
-template <int P>
-__device__ __forceinline__ void accumulate(float (&acc)[kHD / 8][4], const uint32_t (&pa)[P][4][4],
-                                           const Tile<kHD>* tl) {
-  if constexpr (P == 2) {
-    product_nn<kHD>(acc, pa[1], tl[0]);
-    product_nn<kHD>(acc, pa[0], tl[1]);
-  }
-  product_nn<kHD>(acc, pa[0], tl[0]);
-}
-
-// The A fragments of the C fragments s as bf16 parts: round(s), and with
-// two parts also round(s - round(s)).
-template <int P>
-__device__ __forceinline__ void to_parts(uint32_t (&pa)[P][4][4], const float (&s)[8][4]) {
-  to_a(pa[0], s);
-  if constexpr (P == 2) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float* x = &s[2 * kk + (r >> 1)][2 * (r & 1)];
-        const float2 h = bt::unpack_bf16(pa[0][kk][r]);
-        pa[1][kk][r] = bt::pack_bf16(x[0] - h.x, x[1] - h.y);
-      }
-  }
-}
-
-// Bytes of dynamic shared memory of the forward and dq (K and V rings) and
-// of dkv (Q and dO rings, the rows' m and delta, two mask tables).
-template <int P> constexpr size_t fwd_smem() { return 2 * kStages * P * sizeof(Tile<kHD>); }
-template <int P> constexpr size_t dkv_smem() {
-  return fwd_smem<P>() + 2 * kStages * kTile * sizeof(float) + 2 * kTile * (kRows / 4);
-}
 
 // q, k, v: (items * H, n, 32) operands (parts `lo` apart); go (items, n, C)
 // operand (parts go_lo apart). The training forward (EVAL false) also writes
@@ -114,13 +50,13 @@ __global__ void __launch_bounds__(kThreads)
   const int tiles = (n + kTile - 1) / kTile;
   const bool on = !EVAL && drop.on;
   uint32_t qa[P][kHD / 16][4];
-  load_parts<P>(qa, q + base, lo, row0, n);
+  load_parts<kHD, P>(qa, q + base, lo, row0, n);
 
   // walk 1: each query's maximum score
   float smax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < tiles) stage_parts<P>(ks + st * P, k + base, lo, st * kTile, n);
+    if (st < tiles) stage_parts<kHD, P>(ks + st * P, k + base, lo, st * kTile, n);
     bt::cp_async_commit();
   }
   for (int it = 0; it < tiles; ++it) {
@@ -128,11 +64,11 @@ __global__ void __launch_bounds__(kThreads)
     bt::cp_async_wait<kStages - 2>();
     __syncthreads();
     if (it + kStages - 1 < tiles)
-      stage_parts<P>(ks + ((it + kStages - 1) % kStages) * P, k + base, lo,
+      stage_parts<kHD, P>(ks + ((it + kStages - 1) % kStages) * P, k + base, lo,
                      k0 + (kStages - 1) * kTile, n);
     bt::cp_async_commit();
     float s[8][4];
-    scores<P>(s, qa, ks + (it % kStages) * P);
+    scores<kHD, P>(s, qa, ks + (it % kStages) * P);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -151,8 +87,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < tiles) {
-      stage_parts<P>(ks + st * P, k + base, lo, st * kTile, n);
-      stage_parts<P>(vs + st * P, v + base, lo, st * kTile, n);
+      stage_parts<kHD, P>(ks + st * P, k + base, lo, st * kTile, n);
+      stage_parts<kHD, P>(vs + st * P, v + base, lo, st * kTile, n);
     }
     bt::cp_async_commit();
   }
@@ -164,12 +100,12 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (it + kStages - 1 < tiles) {
       const int nb = (it + kStages - 1) % kStages;
-      stage_parts<P>(ks + nb * P, k + base, lo, k0 + (kStages - 1) * kTile, n);
-      stage_parts<P>(vs + nb * P, v + base, lo, k0 + (kStages - 1) * kTile, n);
+      stage_parts<kHD, P>(ks + nb * P, k + base, lo, k0 + (kStages - 1) * kTile, n);
+      stage_parts<kHD, P>(vs + nb * P, v + base, lo, k0 + (kStages - 1) * kTile, n);
     }
     bt::cp_async_commit();
     float s[8][4];
-    scores<P>(s, qa, ks + buf * P);
+    scores<kHD, P>(s, qa, ks + buf * P);
     uint32_t bits[2] = {0u, 0u};
     if (on) keep_bits(drop, item, h, row0 + g, k0, bits);
 #pragma unroll
@@ -186,7 +122,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     uint32_t pa[P][4][4];
     to_parts<P>(pa, s);
-    accumulate<P>(acc, pa, vs + buf * P);
+    accumulate<kHD, P>(acc, pa, vs + buf * P);
   }
   const float lt[2] = {quad_sum(l[0]), quad_sum(l[1])};
   const int C = H * kHD;

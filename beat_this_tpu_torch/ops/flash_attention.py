@@ -6,10 +6,11 @@ Counterpart of beat_this_tpu/ops/flash_attention.py:flash_attention, which
 frames when the fused time kernels decline the shape (a head width other
 than 32). On a CUDA tensor `flash_attention` launches the hand-written
 kernels in `csrc/flash_attention.cu` (a softmax in base 2, never an (n, n)
-tensor in device memory; float32 online on the SIMT cores, bfloat16 on the
-tensor cores with each query's maximum score taken in a first walk over
-the keys, after a pre-pass that writes the rotated q and k to scratch this
-module allocates); on a CPU tensor it runs the plain version
+tensor in device memory; every product on the tensor cores, float32 as
+split bfloat16 products, each query's maximum score taken in a first walk
+over the keys, after a pre-pass that writes the rotated q and k, and in
+float32 also v and the cotangent, as bfloat16 parts to scratch this module
+allocates); on a CPU tensor it runs the plain version
 `flash_attention_ref`. It is differentiable: the forward saves q, k, v, o
 and the base-2 log-sum-exp per query, the backward is a query-major dq
 kernel and a key-major dk/dv kernel.
@@ -137,12 +138,22 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def rotation_scratch(q: torch.Tensor) -> Optional[torch.Tensor]:
-    """The bfloat16 kernels' scratch for the rotated q and k, (2, *q.shape);
-    None for float32, whose kernels rotate in place."""
-    if q.dtype != torch.bfloat16:
-        return None
-    return torch.empty((2, *q.shape), dtype=q.dtype, device=q.device)
+# bfloat16 parts of a float32 operand in the kernels' forward (its 1e-5
+# limits need float32's own precision) and backward (about 16 bits hold
+# its 1e-4): tests/test_torch_flash_f32_design.py
+FWD_PARTS, BWD_PARTS = 3, 2
+
+
+def rotation_scratch(q: torch.Tensor, backward: bool = False) -> torch.Tensor:
+    """The pre-pass's bfloat16 scratch, (planes, *q.shape): in bfloat16 the
+    rotated q and k (2 planes; v and the cotangent are read in place); in
+    float32 the rotated q, k and v, and in the backward the cotangent, each
+    as FWD_PARTS (forward: 9 planes) or BWD_PARTS (backward: 8) parts."""
+    if q.dtype == torch.bfloat16:
+        planes = 2
+    else:
+        planes = 4 * BWD_PARTS if backward else 3 * FWD_PARTS
+    return torch.empty((planes, *q.shape), dtype=torch.bfloat16, device=q.device)
 
 
 def _launch_fwd(q, k, v, cos, sin, rate, seed, heads, lse):
@@ -190,7 +201,7 @@ def flash_bwd(q, k, v, cos, sin, out, lse, dout, rate, seed, heads):
     delta = (dout.float() * out.float()).sum(-1)
     dout = aligned(dout.to(q.dtype))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    scratch = rotation_scratch(q)
+    scratch = rotation_scratch(q, backward=True)
     with torch.cuda.device(q.device):
         _build.check(
             lib.bt_flash_bwd(

@@ -16,7 +16,7 @@ kernels by device time, grouped by the port's kernel families (B4/B5
 `ff_train.cuh`, whose B9 families also hold B7's feed-forward half, run by
 the same kernels; the shared operand conversions; at `--head-dim 16`, where
 the fused attention kernels decline every block, B10/B11
-`flash_attention.cu` (in bfloat16 with its rotation pre-pass) and B12
+`flash_attention.cu` (with its pre-pass of rotation and operand parts) and B12
 `small_attention.cu`) and everything else (cuBLAS, cuDNN, elementwise,
 optimizer). Needs a CUDA device.
 """
@@ -70,7 +70,7 @@ FAMILIES = (
     ("ff_product_kernel<true", "B9 dW1, dW2"),
     ("ff_post_kernel", "B9 post"),
     ("column_sums", "B9 column_sums"),
-    ("rotate_kernel", "B10/B11 rotate (bf16 pre-pass)"),
+    ("rotate_kernel", "B10/B11 pre-pass (rotation, operand parts)"),
     ("flash_fwd", "B10 flash_fwd"),
     ("flash_dq", "B11 flash_dq"),
     ("flash_dkv", "B11 flash_dkv"),

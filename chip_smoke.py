@@ -8,8 +8,8 @@ non-zero without the final `"ok": true` line:
 
 1. environment: GPU name and power limit, torch / CUDA / nvcc versions;
 2. build: compiles the CUDA kernels from this checkout's sources, and
-   checks with `cuobjdump -sass` that every bfloat16 instantiation of the
-   flash kernels (forward, dq, dk/dv), and every instantiation of the
+   checks with `cuobjdump -sass` that every instantiation of the flash
+   kernels (forward, dq, dk/dv; float32 and bfloat16), and every one of the
    feed-forward kernels' products (training forward and backward, and the
    eval K1 and K2's tail), of the time-axis attention branch's kernels
    (the q/k/v product shared by the eval block K2 and the training forward,
@@ -43,10 +43,10 @@ non-zero without the final `"ok": true` line:
    `--transformer-dim` reaches), at small row counts. Then the ablation
    kernels of `beat_this_tpu_torch/bench/`: every stage of the frequency
    block, every mode of the flash forward, every softmax variant and pass,
-   at the benches' full sizes in bfloat16 (the passes in float32), each
-   against its plain version; the `full` stage bit-equal to the block's own
-   kernel; then the three bench entry points through their `main()` at
-   default flags, with exact launch counts;
+   at the benches' full sizes in bfloat16 and float32 (the passes in
+   float32 only), each against its plain version; the `full` stage
+   bit-equal to the block's own kernel; then the three bench entry points
+   through their `main()` at default flags, with exact launch counts;
 4. end to end: the full-width BeatThisConfig() model from a numpy-seeded
    synthetic checkpoint runs the port's CLI in-process on a 75 s click
    track (three chunks) and a 12 s one (the short-piece path), in float32
@@ -179,7 +179,9 @@ EVAL_CHUNKS, TRAIN_CROPS = 3, 8
 # launch, and the flash forward's (entries, seq, head_dim)
 ABLATE_BATCH = 16
 ABLATE_FLASH = (512, 1536, 32)
-# bfloat16 instantiations of the tensor-core flash kernels in the library
+# instantiations of the tensor-core flash kernels in the library per dtype
+# (float32 as split bf16 products): the forward's four modes at D 16 and 32,
+# dq and dk/dv at both
 FLASH_TC_KERNELS = {"flash_fwd_kernel": 8, "flash_dq_kernel": 2, "flash_dkv_kernel": 2}
 # instantiations of the products of the training kernels and of the eval
 # kernels K1 and K2, each on the tensor cores in both dtypes (float32 as split
@@ -212,7 +214,8 @@ PEAK_BYTES = 3.35e12
 SPLIT_F32 = {"fused_ff", "fused_time_roformer", "fused_freq_roformer", "fused_ff_train_fwd",
              "fused_ff_train_bwd", "fused_time_attention_train_fwd",
              "fused_time_attention_train_bwd", "fused_freq_roformer_train_fwd",
-             "fused_freq_roformer_train_bwd"}
+             "fused_freq_roformer_train_bwd", "flash_attention_fwd", "flash_attention_fwd_lse",
+             "flash_attention_bwd", "flash_ablate"}
 DEVICE_TIMED = {"fused_ff_train_bwd", "fused_time_attention_train_bwd",
                 "fused_freq_roformer_train_bwd"}
 
@@ -337,6 +340,20 @@ def sass_hmma_counts(lib: Path) -> dict:
     return counts
 
 
+def flash_dtype(name: str, kernel: str) -> Optional[str]:
+    """The dtype of a flash kernel's name, by its template arguments <D, T,
+    ...>: mangled (`kernelILi16EfLi0EE...` is float at D 16) or demangled."""
+    if kernel + "<" in name:
+        args = name.split(kernel + "<", 1)[1].split(",")[1].strip()
+    else:
+        args = name.split(kernel + "ILi", 1)[-1].split("E", 1)[-1]
+    if args.startswith("f"):
+        return "float32"
+    if args.startswith(("13__nv_bfloat16", "__nv_bfloat16")):
+        return "bfloat16"
+    return None
+
+
 def phase_build() -> None:
     from beat_this_tpu_torch.ops import _build
 
@@ -349,19 +366,19 @@ def phase_build() -> None:
         for line in log.read_text().splitlines():
             if "spill" in line and not line.strip().endswith("0 bytes spill loads"):
                 print(f"[build] ptxas: {line.strip()}")
-    # the bfloat16 flash kernels run on the tensor cores: every instantiation
-    # (the forward's four modes at D 16 and 32, dq and dk/dv at both) holds
-    # HMMA instructions
+    # the flash kernels run on the tensor cores in both dtypes: every
+    # instantiation holds HMMA instructions, and none is left without
     counts = sass_hmma_counts(path)
     for kernel, expect in FLASH_TC_KERNELS.items():
-        found = {name: n for name, n in counts.items()
-                 if kernel in name and "__nv_bfloat16" in name}
-        f32 = [n for name, n in counts.items() if kernel in name and "__nv_bfloat16" not in name]
-        print(f"[build] HMMA per bfloat16 instantiation of {kernel}: "
-              f"{sorted(found.values())}; float32 (SIMT) instantiations: {f32}")
-        check(len(found) == expect and all(n > 0 for n in found.values()),
-              f"{kernel}: {len(found)} bfloat16 instantiations (expected {expect}), HMMA "
-              f"counts {found}")
+        found = {name: n for name, n in counts.items() if kernel in name}
+        by_dtype = {dt: sorted(n for name, n in found.items() if flash_dtype(name, kernel) == dt)
+                    for dt in ("float32", "bfloat16")}
+        print(f"[build] HMMA per instantiation of {kernel}: float32 {by_dtype['float32']}; "
+              f"bfloat16 {by_dtype['bfloat16']}")
+        check(all(len(v) == expect for v in by_dtype.values()) and len(found) == 2 * expect
+              and all(n > 0 for n in found.values()),
+              f"{kernel}: {len(found)} instantiations (expected {expect} per dtype, each with "
+              f"HMMA), HMMA counts {found}")
     for kernel, expect in TRAIN_TC_KERNELS.items():
         found = {name: n for name, n in counts.items() if kernel in name}
         print(f"[build] HMMA per instantiation of {kernel}: "
@@ -1030,13 +1047,14 @@ def attention_cases():
                    (per_crop * TRAIN_CROPS, seq, H16), heads, rate, True)
 
 
-def phase_attention_kernels(smi: str) -> dict:
+def phase_attention_kernels(smi: str, only: tuple = ()) -> dict:
     """flash_attention and small_attention against their plain versions at
     the h16 model's shapes, on the same inputs, seed and cotangent: the
     output (eval) or the output and dq, dk, dv (training); median times of
     the kernel, the plain version and one `scaled_dot_product_attention`
     call on rotated q and k (the library's time for the same function,
-    used on no path)."""
+    used on no path). `only`: the kernel names whose cases run (all when
+    empty)."""
     import torch
     import torch.nn.functional as F
 
@@ -1048,6 +1066,8 @@ def phase_attention_kernels(smi: str) -> dict:
         dt = "f32" if dtype == torch.float32 else "bf16"
         for i, (names, kernel, plain, shape, heads, rate, training) in enumerate(
                 attention_cases()):
+            if only and not set(names) & set(only):
+                continue
             entries, seq, d = shape
             gen = torch.Generator(device=dev).manual_seed(100 + 2 * i + (dtype == torch.float32))
             qkv = [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3)]
@@ -1090,8 +1110,9 @@ def phase_attention_kernels(smi: str) -> dict:
             torch.cuda.empty_cache()
             worst = max(devs.values())
             ok = finite and (worst <= limit if dtype == torch.float32 else worst < limit)
-            bounds = [bound(*attention_work(entries, seq, d, dt, k == 1), dt)
-                      for k in range(len(names))]
+            bounds = [bound(*attention_work(entries, seq, d, dt, k == 1),
+                            "f32 split" if dt == "f32" and name in SPLIT_F32 else dt)
+                      for k, name in enumerate(names)]
             desc = f"rate {rate} x ({entries}, {seq}, {d}) heads {heads}"
             print(f"[attention-kernels] {' + '.join(names)} {dt} {desc}: rel max dev "
                   + " ".join(f"{g} {v:.2e}" for g, v in devs.items()) + f" (limit {limit:g}); "
@@ -1124,12 +1145,13 @@ def freq_stage_work(stage: str, rows: int, c: int, f_bins: int, size: int):
     return rows * per_row, (2 * rows * c + weights) * size
 
 
-def phase_ablation_kernels(smi: str) -> tuple[dict, dict]:
+def phase_ablation_kernels(smi: str, only: tuple = ()) -> tuple[dict, dict]:
     """Every stage, mode, variant and pass of the bench kernels against its
-    plain version on the card at the benches' full sizes (bfloat16; the
-    standalone passes float32), with median times; then the three entry
-    points through `main()` at default flags. Returns (results, the entry
-    points' launches)."""
+    plain version on the card at the benches' full sizes (bfloat16, then
+    float32; the standalone passes float32), with median times; then the
+    three entry points through `main()` at default flags. `only`: the
+    kernel names whose cases run, without the entry points (all when
+    empty). Returns (results, the entry points' launches)."""
     import torch
     import torch.nn.functional as F
 
@@ -1138,20 +1160,24 @@ def phase_ablation_kernels(smi: str) -> tuple[dict, dict]:
 
     dev = torch.device(DEVICE)
     results = {name: [] for name in ABLATION_KERNELS}
-    bf16 = torch.bfloat16
+
+    def want(name):
+        return not only or name in only
 
     def record(name, desc, got, want, limit, kernel, plain, work, dt, library=None, note="",
-               headline=False):
+               headline=False, split=False):
         """Holds one case, times it and appends it to `results[name]`; the
         first `headline` case of a kernel stands for it on the `kernels`
-        line. `library`: one PyTorch call that computes the same function."""
+        line. `library`: one PyTorch call that computes the same function;
+        `split`: the case's float32 products run as split bf16 products."""
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got.float()).all()), f"{name} {desc}: non-finite")
         dev_rel = rel_dev(got, want)
         abs_err = float((got.float() - want.float()).abs().max())
         ms, plain_ms = median_ms(kernel), median_ms(plain, 5)
         lib_ms = median_ms(library) if library is not None else None
-        bound_ms, bound_by = bound(*work, dt)
+        split = split or name in SPLIT_F32
+        bound_ms, bound_by = bound(*work, "f32 split" if dt == "f32" and split else dt)
         ok = dev_rel <= limit if dt == "f32" else dev_rel < limit
         print(f"[ablation-kernels] {name} {dt} {desc}: rel max dev {dev_rel:.3e} (limit "
               f"{limit:g}){note}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
@@ -1164,117 +1190,131 @@ def phase_ablation_kernels(smi: str) -> tuple[dict, dict]:
                               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
                               "headline": headline})
 
-    with torch.inference_mode():
-        # B13: the frequency block cut after each stage, 16 chunks of 1500 frames
-        rng = np.random.RandomState(0)
-        items = ABLATE_BATCH * 1500
-        for c, f_bins in fused_freq_ablate.SHAPES:
-            x, params, (cos, sin) = fused_freq_ablate.make_case(rng, c, f_bins, items, dev)
-            for stage in fused_freq_ablate.STAGES:
-                def kernel(st=stage):
-                    return fused_freq_ablate.ablate_stage(x, params, st, cos, sin)
+    for dtype, limit, dt, size in ((torch.bfloat16, BF16_LIMIT, "bf16", 2),
+                                   (torch.float32, F32_LIMIT, "f32", 4)):
+        with torch.inference_mode():
+            # B13: the frequency block cut after each stage, 16 chunks of 1500 frames
+            rng = np.random.RandomState(0)
+            items = ABLATE_BATCH * 1500
+            for c, f_bins in fused_freq_ablate.SHAPES if want("freq_ablate") else ():
+                x, params, (cos, sin) = fused_freq_ablate.make_case(rng, c, f_bins, items, dev,
+                                                                    dtype)
+                for stage in fused_freq_ablate.STAGES:
+                    def kernel(st=stage):
+                        return fused_freq_ablate.ablate_stage(x, params, st, cos, sin)
 
-                def plain(st=stage):
-                    return fused_freq_ablate.ablate_stage_ref(x, params, st, cos, sin)
+                    def plain(st=stage):
+                        return fused_freq_ablate.ablate_stage_ref(x, params, st, cos, sin)
 
-                got = kernel()
-                if stage == "full":
-                    check(torch.equal(got, fused_freq_roformer(x, *params, cos, sin)),
-                          f"freq_ablate full C={c}: not the bits of fused_freq_roformer")
-                library = None  # one call only for the first two stages
-                if stage == "copy":
-                    library = x.clone
-                elif stage == "rms" and hasattr(F, "rms_norm"):
-                    gamma = params[0].norm.gamma.to(bf16)
+                    got = kernel()
+                    if stage == "full":
+                        check(torch.equal(got, fused_freq_roformer(x, *params, cos, sin)),
+                              f"freq_ablate full C={c} {dt}: not the bits of fused_freq_roformer")
+                    library = None  # one call only for the first two stages
+                    if stage == "copy":
+                        library = x.clone
+                    elif stage == "rms" and hasattr(F, "rms_norm"):
+                        gamma = params[0].norm.gamma.to(dtype)
 
-                    def library(gamma=gamma, c=c):
-                        return F.rms_norm(x, (c,), gamma, 1e-24)
-                record("freq_ablate", f"{stage} C={c} F={f_bins} items={items}", got, plain(),
-                       BF16_LIMIT, kernel, plain,
-                       freq_stage_work(stage, items * f_bins, c, f_bins, 2), "bf16", library,
-                       headline=stage == "full")
-            del x, params
-        torch.cuda.empty_cache()
+                        def library(gamma=gamma, c=c):
+                            return F.rms_norm(x, (c,), gamma, 1e-24)
+                    # `full` is B2's launch, its float32 products split
+                    record("freq_ablate", f"{stage} C={c} F={f_bins} items={items}", got,
+                           plain(), limit, kernel, plain,
+                           freq_stage_work(stage, items * f_bins, c, f_bins, size), dt, library,
+                           headline=stage == "full", split=stage == "full")
+                del x, params
+            torch.cuda.empty_cache()
 
-        # B14: the flash forward with parts left out
-        bh, n, d = ABLATE_FLASH
-        q, k, v, cos, sin = flash_ablate.make_inputs(bh, n, d, dev)
-        lib_shape = (bh // 8, 8, n, d)
-        work = (4 * bh * n * n * d, 4 * bh * n * d * 2)
-        for mode in flash_ablate.MODES:
-            def kernel(md=mode):
-                return flash_ablate.flash_variant(q, k, v, cos, sin, md, flash_ablate.BLOCK_K)
+            # B14: the flash forward with parts left out
+            bh, n, d = ABLATE_FLASH
+            q, k, v, cos, sin = flash_ablate.make_inputs(bh, n, d, dev, dtype)
+            lib_shape = (bh // 8, 8, n, d)
+            work = (4 * bh * n * n * d, 4 * bh * n * d * size)
+            for mode in flash_ablate.MODES if want("flash_ablate") else ():
+                def kernel(md=mode):
+                    return flash_ablate.flash_variant(q, k, v, cos, sin, md,
+                                                      flash_ablate.BLOCK_K)
 
-            def plain(md=mode):
-                return flash_ablate.flash_variant_ref(q, k, v, cos, sin, md, flash_ablate.BLOCK_K)
+                def plain(md=mode):
+                    return flash_ablate.flash_variant_ref(q, k, v, cos, sin, md,
+                                                          flash_ablate.BLOCK_K)
 
-            got, want, note = kernel(), plain(), ""
-            if mode == "noexp":
-                # o = acc / l with l = sum(s), which crosses zero: where |l| is small, the
-                # order of a float32 sum of 1536 scores moves o by percents on either
-                # side. The denominators and the numerators o * l (each side with its
-                # own l) are held on every row, o where |l| >= 1.
-                got, den = flash_ablate.flash_variant(q, k, v, cos, sin, mode,
-                                                      flash_ablate.BLOCK_K, with_denominator=True)
-                want, want_den = flash_ablate.flash_variant_ref(
-                    q, k, v, cos, sin, mode, flash_ablate.BLOCK_K, with_denominator=True)
-                den_dev = float((den - want_den).abs().max() / want_den.abs().max())
-                check(den_dev <= F32_LIMIT,
-                      f"flash_ablate noexp: denominators deviate {den_dev:.3e}")
-                num_dev = rel_dev(got.float() * den[..., None], want.float() * want_den[..., None])
-                check(num_dev < BF16_LIMIT,
-                      f"flash_ablate noexp: numerators deviate {num_dev:.3e}")
-                keep = want_den.abs() >= 1.0
-                note = (f", on the {int(keep.sum())} of {keep.numel()} rows with |l| >= 1; on "
-                        f"every row denominators rel max dev {den_dev:.3e}, numerators "
-                        f"{num_dev:.3e}")
-                got, want = got[keep], want[keep]
-            library = None
-            if mode == "full":  # cos = 1, sin = 0: q and k are their own rotations
-                def library():
-                    return F.scaled_dot_product_attention(
-                        q.reshape(lib_shape), k.reshape(lib_shape), v.reshape(lib_shape))
-            record("flash_ablate", f"{mode} ({bh}, {n}, {d}) block_k {flash_ablate.BLOCK_K}", got,
-                   want, BF16_LIMIT, kernel, plain, work, "bf16", library, note, mode == "full")
-        del q, k, v
-        torch.cuda.empty_cache()
-
-        # B15a: the softmax pass variants at the model's two geometries
-        rng = np.random.RandomState(0)
-        n = softmax_variants.N_PAD
-        mask, mask_col = softmax_variants.make_masks(n, softmax_variants.N_VALID, dev)
-        for name, items, gh in softmax_variants.GEOMETRIES:
-            q, k, v = softmax_variants.make_qkv(rng, items, n, gh, dev)
-            for var in softmax_variants.VARIANTS:
-                def kernel(vr=var):
-                    return softmax_variants.attention_variant(q, k, v, mask, vr, gh, mask_col)
-
-                def plain(vr=var):
-                    return softmax_variants.attention_variant_ref(q, k, v, mask, vr, gh, mask_col)
-
-                qk_cols = 33 if var in softmax_variants.FOLDED else 32
-                pv_cols = 34 if var == "tmxusum" else 33
-                work = (2 * n * n * (qk_cols + pv_cols) * items * gh, 4 * items * n * gh * 32 * 2)
+                got, want_o, note = kernel(), plain(), ""
+                if mode == "noexp":
+                    # o = acc / l with l = sum(s), which crosses zero: where |l| is small, the
+                    # order of a float32 sum of 1536 scores moves o by percents on either
+                    # side. The denominators and the numerators o * l (each side with its
+                    # own l) are held on every row, o where |l| >= 1.
+                    got, den = flash_ablate.flash_variant(
+                        q, k, v, cos, sin, mode, flash_ablate.BLOCK_K, with_denominator=True)
+                    want_o, want_den = flash_ablate.flash_variant_ref(
+                        q, k, v, cos, sin, mode, flash_ablate.BLOCK_K, with_denominator=True)
+                    den_dev = float((den - want_den).abs().max() / want_den.abs().max())
+                    check(den_dev <= F32_LIMIT,
+                          f"flash_ablate noexp {dt}: denominators deviate {den_dev:.3e}")
+                    num_dev = rel_dev(got.float() * den[..., None],
+                                      want_o.float() * want_den[..., None])
+                    check(num_dev <= limit if dt == "f32" else num_dev < limit,
+                          f"flash_ablate noexp {dt}: numerators deviate {num_dev:.3e}")
+                    keep = want_den.abs() >= 1.0
+                    note = (f", on the {int(keep.sum())} of {keep.numel()} rows with |l| >= 1; "
+                            f"on every row denominators rel max dev {den_dev:.3e}, numerators "
+                            f"{num_dev:.3e}")
+                    got, want_o = got[keep], want_o[keep]
                 library = None
-                if var == "full":
-                    lib_mask = mask.to(bf16)[None, None, None, :]
-
-                    def split(t):
-                        return t.reshape(items, n, gh, 32).transpose(1, 2)
-
+                if mode == "full":  # cos = 1, sin = 0: q and k are their own rotations
                     def library():
                         return F.scaled_dot_product_attention(
-                            split(q), split(k), split(v), attn_mask=lib_mask, scale=1.0)
-                record("softmax_variants", f"{var} {items} items x {gh} heads n={n}", kernel(),
-                       plain(), BF16_LIMIT, kernel, plain, work, "bf16", library,
-                       headline=var == "full")
+                            q.reshape(lib_shape), k.reshape(lib_shape), v.reshape(lib_shape))
+                record("flash_ablate", f"{mode} ({bh}, {n}, {d}) block_k {flash_ablate.BLOCK_K}",
+                       got, want_o, limit, kernel, plain, work, dt, library, note,
+                       mode == "full")
             del q, k, v
-        torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
 
+            # B15a: the softmax pass variants at the model's two geometries
+            rng = np.random.RandomState(0)
+            n = softmax_variants.N_PAD
+            mask, mask_col = softmax_variants.make_masks(n, softmax_variants.N_VALID, dev)
+            for name, items, gh in (softmax_variants.GEOMETRIES
+                                    if want("softmax_variants") else ()):
+                q, k, v = softmax_variants.make_qkv(rng, items, n, gh, dev, dtype)
+                for var in softmax_variants.VARIANTS:
+                    def kernel(vr=var):
+                        return softmax_variants.attention_variant(q, k, v, mask, vr, gh,
+                                                                  mask_col)
+
+                    def plain(vr=var):
+                        return softmax_variants.attention_variant_ref(q, k, v, mask, vr, gh,
+                                                                      mask_col)
+
+                    qk_cols = 33 if var in softmax_variants.FOLDED else 32
+                    pv_cols = 34 if var == "tmxusum" else 33
+                    work = (2 * n * n * (qk_cols + pv_cols) * items * gh,
+                            4 * items * n * gh * 32 * size)
+                    library = None
+                    if var == "full":
+                        lib_mask = mask.to(dtype)[None, None, None, :]
+
+                        def split(t):
+                            return t.reshape(items, n, gh, 32).transpose(1, 2)
+
+                        def library():
+                            return F.scaled_dot_product_attention(
+                                split(q), split(k), split(v), attn_mask=lib_mask, scale=1.0)
+                    record("softmax_variants", f"{var} {items} items x {gh} heads n={n}",
+                           kernel(), plain(), limit, kernel, plain, work, dt, library,
+                           headline=var == "full")
+                del q, k, v
+            torch.cuda.empty_cache()
+
+    with torch.inference_mode():
         # B15b: one pass alone over a score-sized float32 array
         rows, out_cols = softmax_variants.PASS_ROWS, softmax_variants.PASS_OUT_COLS
+        rng, n = np.random.RandomState(0), softmax_variants.N_PAD
         x = torch.from_numpy((rng.rand(rows, n) * 2 - 1).astype(np.float32)).to(dev)
-        for op in softmax_variants.PASSES:
+        for op in softmax_variants.PASSES if want("softmax_passes") else ():
             def kernel(o=op):
                 return softmax_variants.softmax_pass(x, o, out_cols)
 
@@ -1292,6 +1332,8 @@ def phase_ablation_kernels(smi: str) -> tuple[dict, dict]:
         del x
         torch.cuda.empty_cache()
 
+    if only:
+        return results, {}
     # the entry points at default flags: per timed variant 3 warm-ups and
     # `reps` windows of one launch
     wrappers = {"freq_ablate": fused_freq_ablate.ablate_stage,

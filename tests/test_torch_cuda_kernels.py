@@ -22,10 +22,13 @@ over every row, in another order; the float32 products of the feed-forward
 backward and of the attention branch's forward and backward, three bf16
 products of split operands each, hold about 1e-5; those of the
 feed-forward forward and of the frequency block's backward, six products
-of three-part operands, about 1e-6), bfloat16 < 2.5e-2 (the two sides
-round intermediates to bfloat16 at different places). The masks of the
-feed-forward forward and the frequency block's backward are read off
-their outputs and held to the plain version's bit for bit. The ablation kernels of
+of three-part operands, about 1e-6; the flash forward's six products hold
+its forward modes within 1e-5 and its backward's three its gradients
+within 1e-4: tests/test_torch_flash_f32_design.py), bfloat16 < 2.5e-2 (the
+two sides round intermediates to bfloat16 at different places). The masks
+of the feed-forward forward, the frequency block's backward and the flash
+forward are read off their outputs and held to the plain version's bit for
+bit. The ablation kernels of
 `beat_this_tpu_torch/bench/` (every stage, mode, variant and pass) and the
 DBN decoder on the card against the CPU are held here too."""
 
@@ -728,21 +731,50 @@ def test_flash_attention(device, dtype, tol, rate, n, d, bh, heads, rope):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("heads,rope", [(1, True), (1, False), (2, True), (2, False)])
 @pytest.mark.parametrize("n", [1, 17, 63, 64, 65, 1500])
-@pytest.mark.parametrize("d", [16, 32])
-def test_flash_attention_bf16_tensor_cores(device, d, n, heads, rope, rate):
-    """The bfloat16 kernels (tensor cores): B10 with lse and B11 (output, dq,
-    dk, dv), then B10 without lse (the same output bits), against
-    flash_attention_ref within 2.5e-2, at lengths around the 64-row tiles and
-    the model's 1500."""
+@pytest.mark.parametrize("d,dtype,tol", [
+    pytest.param(16, torch.bfloat16, 2.5e-2, id="16"),
+    pytest.param(32, torch.bfloat16, 2.5e-2, id="32"),
+    pytest.param(16, torch.float32, 1e-4, id="16-float32"),
+    pytest.param(32, torch.float32, 1e-4, id="32-float32"),
+])
+def test_flash_attention_bf16_tensor_cores(device, d, dtype, tol, n, heads, rope, rate):
+    """The tensor-core kernels in both dtypes (float32 as split bf16
+    products): B10 with lse and B11 (output, dq, dk, dv), then B10 without
+    lse (the same output bits), against flash_attention_ref within the
+    training limits (2.5e-2 bfloat16, 1e-4 float32), at lengths around the
+    64-row tiles and the model's 1500."""
     cos, sin = rope_tables(n, d, device) if rope else (None, None)
     shape = (2 * heads, n, d)
     got = _compare_qkv(
         lambda q, k, v: flash_ops.flash_attention(q, k, v, cos, sin, rate, 5, heads),
         lambda q, k, v: flash_ops.flash_attention_ref(q, k, v, cos, sin, rate, 5, heads),
-        shape, torch.bfloat16, 2.5e-2, device, 7 * n + d)
-    q, k, v = (_x(shape, torch.bfloat16, device, 7 * n + d + i) for i in range(3))
+        shape, dtype, tol, device, 7 * n + d)
+    q, k, v = (_x(shape, dtype, device, 7 * n + d + i) for i in range(3))
     with torch.no_grad():
         assert torch.equal(flash_ops.flash_attention(q, k, v, cos, sin, rate, 5, heads), got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_masks_match_the_plain_version(device, dtype):
+    """B10's probability mask, read off its output, equals the plain
+    version's bit for bit. q = k = 0, so every p = 1 and l = n; v is one-hot
+    on a window of D keys (key w D + j at channel j, zero elsewhere), so
+    o at (entry, query, j) is nonzero iff the mask keeps key w D + j. The
+    windows cover every key of a length that spans ragged 64-key tiles."""
+    bh, n, d, heads, rate, seed = 6, 200, 16, 3, 0.2, 23
+    cos, sin = rope_tables(n, d, device)
+    zeros = torch.zeros((bh, n, d), dtype=dtype, device=device)
+    want = flash_ops.probs_keep(seed, 0, bh, heads, n, n, rate, device) != 0
+    before = flash_ops.flash_fwd.launches
+    for w in range(-(-n // d)):
+        keys = torch.arange(w * d, min((w + 1) * d, n), device=device)
+        v = zeros.clone()
+        v[:, keys, keys - w * d] = 1.0
+        with torch.no_grad():
+            out = flash_ops.flash_attention(zeros, zeros, v, cos, sin, rate, seed, heads)
+        assert torch.equal(out[..., : len(keys)] != 0, want[..., keys])
+        assert not bool(out[..., len(keys):].any())
+    assert flash_ops.flash_fwd.launches == before + -(-n // d)
 
 
 @pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)

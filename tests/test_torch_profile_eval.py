@@ -29,6 +29,11 @@ from beat_this_tpu_torch.bench import profile_eval as pe
     ("void (anonymous namespace)::fused_freq_kernel<32, float, false>(...)", "K3 fused_freq",
      "K3"),
     ("void (anonymous namespace)::flash_fwd_kernel<16, 0>(...)", "B10 flash_fwd", "B10"),
+    # B10 on the tensor cores in both dtypes, with its pre-pass
+    ("void (anonymous namespace)::tc::flash_fwd_kernel<16, float, 0>(...)", "B10 flash_fwd",
+     "B10"),
+    ("void (anonymous namespace)::tc::rotate_kernel<16, float, 3>(...)",
+     "B10 pre-pass (rotation, operand parts)", "B10"),
     ("void (anonymous namespace)::small_fwd_kernel<16>(...)", "B12 small_fwd", "B12"),
     ("ampere_sgemm_128x64_nn", pe.OTHER, "rest"),
     ("void at::native::elementwise_kernel<128, 2>(...)", pe.OTHER, "rest"),
