@@ -10,12 +10,28 @@
 // 16 significant bits) or three (the six products of parts i, j with i + j
 // <= 2, each k-step summed into fresh accumulators: float32's 24 bits). Also
 // the dropout bits of the probability site (bt::kSiteAttnProbs, coordinates
-// (key / 4, query, item, head)) in C fragments and as a key-major bit table.
+// (key / 4, query, item, head)) in C fragments and as a key-major bit table,
+// and the softmax scales of a head width (bt::scale, bt::qscale: the flash
+// and small-sequence attention kernels').
 #pragma once
 
 #include "common.cuh"
 #include "mma.cuh"
 #include "tc_product.cuh"
+
+namespace bt {
+
+// D^-0.5 and D^-0.5 * log2(e), each rounded once to float32
+template <int D> __host__ __device__ constexpr double scale_of() {
+  static_assert(D == 16 || D == 32, "head widths 16 and 32 are instantiated");
+  return D == 16 ? 0.25 : 0.17677669529663688;
+}
+template <int D> __host__ __device__ constexpr float scale() { return (float)scale_of<D>(); }
+template <int D> __host__ __device__ constexpr float qscale() {
+  return (float)(scale_of<D>() * 1.4426950408889634);
+}
+
+}  // namespace bt
 
 namespace {
 namespace tc {

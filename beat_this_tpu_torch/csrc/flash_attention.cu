@@ -64,7 +64,6 @@
 // 32-bit multiplies): at D = 16 these weigh as much as the products.
 #include <type_traits>
 
-#include "attn_rows.cuh"
 #include "attn_tc.cuh"
 
 namespace {

@@ -11,7 +11,8 @@
 // bt_freq_train_fwd; its backward is fused_freq_train.cu). The TPU kernel
 // packs 128 / F items into one masked 128-row score tile for its matrix
 // unit; here 32 / F items share one 32 x 32 score tile with a
-// block-diagonal mask, the size of two m16n8k16 fragments across.
+// block-diagonal mask, the size of two m16n8k16 fragments across (the
+// tile's products and keep bits: small_tile.cuh, shared with B12).
 //
 // Bound on the H100: operations at C 64 and 128 (24 C^2 FLOPs a row in the
 // four projections, against 2 C values of x and out), bytes at C 32 in
@@ -66,8 +67,7 @@
 // ops/dropout.py): the probabilities at (item, head, query, key), a 4-key
 // group drawn once for two lanes of a fragment; the attention output, FF
 // hidden and FF output at (row of the (items F, C) view, column).
-#include "attn_tc.cuh"
-#include "tc_product.cuh"
+#include "small_tile.cuh"
 
 namespace {
 
@@ -95,39 +95,6 @@ template <int C, typename T, bool TRAIN> struct Shape {
       sizeof(float) * kTM * LDX + sizeof(bf16) * (2 * KV + 2 * P * SLICE);
 };
 
-// Register r of A fragment a as P bf16 parts of (v0, v1): part 0 rounded to
-// nearest even (round_T for bf16), each next part what the ones before leave.
-template <int P>
-__device__ __forceinline__ void set_parts(uint32_t (&a)[P][4], int r, float v0, float v1) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    a[p][r] = bt::pack_bf16(v0, v1);
-    if (p + 1 < P) {
-      const float2 h = bt::unpack_bf16(a[p][r]);
-      v0 -= h.x;
-      v1 -= h.y;
-    }
-  }
-}
-
-// The A fragments (16 x 16 steps, P parts) of the 16 x (16 NK) matrix whose
-// C fragments (8-column groups) are s.
-template <int P, int NK>
-__device__ __forceinline__ void frags_to_a(uint32_t (&a)[P][NK][4], const float (&s)[2 * NK][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    uint32_t r[P][4];
-    set_parts<P>(r, 0, s[2 * kk][0], s[2 * kk][1]);
-    set_parts<P>(r, 1, s[2 * kk][2], s[2 * kk][3]);
-    set_parts<P>(r, 2, s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    set_parts<P>(r, 3, s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[p][kk][i] = r[p][i];
-  }
-}
-
 // A fragments (P parts) of step k0 .. k0 + 15 of round_T((rows * rs) *
 // gamma) for the warp's rows r0 + g and r0 + g + 8 of a float32 tile (row
 // stride ld); rs: the two rows' norm scales.
@@ -143,34 +110,10 @@ __device__ __forceinline__ void a_from_rows(uint32_t (&a)[P][4], const float* xs
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const float2 v = *reinterpret_cast<const float2*>(xs + (r0 + g + 8 * hh) * ld + c);
-      set_parts<P>(a, 2 * half + hh, bt::round_to<T>(v.x * rs[hh] * gm.x),
+      st::set_parts<P>(a, 2 * half + hh, bt::round_to<T>(v.x * rs[hh] * gm.x),
                    bt::round_to<T>(v.y * rs[hh] * gm.y));
     }
   }
-}
-
-// acc[2 np], acc[2 np + 1] += a times rows 16 np .. 16 np + 15 of the [n][k]
-// operand w (P parts `lo` apart, row stride ldb), depth k0 .. k0 + 15,
-// transposed.
-template <int P>
-__device__ __forceinline__ void mma_nt(float (&c0)[4], float (&c1)[4], const uint32_t (&a)[P][4],
-                                       const bf16* w, int lo, int ldb, int np, int k0) {
-  const int lane = threadIdx.x & 31;
-  uint32_t b[P][4];
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-    bt::ldsm_x4(b[p], w + p * lo + (16 * np + 8 * (lane >> 4) + (lane & 7)) * ldb + k0 +
-                          8 * ((lane >> 3) & 1));
-  uint32_t b00[P], b01[P], b10[P], b11[P];
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    b00[p] = b[p][0];
-    b01[p] = b[p][1];
-    b10[p] = b[p][2];
-    b11[p] = b[p][3];
-  }
-  mm::mma_parts<P>(c0, a, b00, b01);
-  mm::mma_parts<P>(c1, a, b10, b11);
 }
 
 // The warp's 16 x 32 product g W^T for a staged slice w (32 rows of C, row
@@ -188,7 +131,8 @@ __device__ __forceinline__ void rows_product(float (&acc)[4][4], const float* xs
     uint32_t a[P][4];
     a_from_rows<T, P>(a, xs, C + 8, r0, rs, gamma, k0);
 #pragma unroll
-    for (int np = 0; np < 2; ++np) mma_nt<P>(acc[2 * np], acc[2 * np + 1], a, w, lo, C + 8, np, k0);
+    for (int np = 0; np < 2; ++np)
+      st::mma_nt<P>(acc[2 * np], acc[2 * np + 1], a, w, lo, C + 8, np, k0);
   }
 }
 
@@ -206,7 +150,7 @@ __device__ __forceinline__ void slice_product(float (&acc)[C / 8][4], const uint
       for (int i = 0; i < 4; ++i) ak[p][i] = a[p][kk][i];
 #pragma unroll
     for (int np = 0; np < C / 16; ++np)
-      mma_nt<P>(acc[2 * np], acc[2 * np + 1], ak, w, lo, kHD + 8, np, 16 * kk);
+      st::mma_nt<P>(acc[2 * np], acc[2 * np + 1], ak, w, lo, kHD + 8, np, 16 * kk);
   }
 }
 
@@ -224,45 +168,6 @@ __device__ __forceinline__ void rope_frags(float (&s)[4][4], int hh, int pos,
     const float a = bt::round_to<T>(s[j][2 * hh]), b = bt::round_to<T>(s[j][2 * hh + 1]);
     s[j][2 * hh] = bt::round_to<T>(a * cs - b * sn);
     s[j][2 * hh + 1] = bt::round_to<T>(b * cs + a * sn);
-  }
-}
-
-// The keep bits of this lane's scores of head h: rows ql = qb + g and qb + g
-// + 8 of the 32-row group that starts at global row grow0 (and on an item
-// boundary), keys 8 j + 2 t + e of the group; bit 2 j + e of bits[hh]. A
-// 4-key group spans lanes t = 2 u and 2 u + 1: the even lane draws row g's,
-// the odd lane row g + 8's, only where the group holds keys of the row's
-// item, and they trade by one shuffle. Philox coordinates (item, head,
-// query, key) as freq_attn.cuh and ops/dropout.py. Every lane must call it.
-__device__ __forceinline__ void prob_bits(const bt::Dropout& d, int64_t grow0, int qb, int F,
-                                          int h, uint32_t (&bits)[2]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, odd = t & 1, u = t >> 1;
-  const int ql = qb + g + 8 * odd, first = ql - ql % F;
-  const uint32_t item = (uint32_t)((grow0 + ql) / F), query = (uint32_t)(ql % F);
-  uint32_t mine = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int key0 = 8 * j + 4 * u;
-    const bool need = F >= 4 ? key0 / F == ql / F : key0 == (ql & ~3);
-    if (need) {
-      const uint4 b = bt::philox4x32_10(
-          make_uint4(F >= 4 ? (uint32_t)(key0 - first) >> 2 : 0u, query, item,
-                     (bt::kSiteAttnProbs << 16) | (uint32_t)h),
-          d.seed, d.salt);
-      uint32_t m4 = (uint32_t)(b.x < d.thr) | ((uint32_t)(b.y < d.thr) << 1) |
-                    ((uint32_t)(b.z < d.thr) << 2) | ((uint32_t)(b.w < d.thr) << 3);
-      if (F < 4) m4 = (m4 & ((1u << F) - 1u)) << (first - key0);  // keys of the item only
-      mine |= m4 << (4 * j);
-    }
-  }
-  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
-  // this lane's two keys are elements 2 odd and 2 odd + 1 of each group
-  const uint32_t r0 = (odd ? other : mine) >> (2 * odd), r1 = (odd ? mine : other) >> (2 * odd);
-  bits[0] = bits[1] = 0u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    bits[0] |= ((r0 >> (4 * j)) & 3u) << (2 * j);
-    bits[1] |= ((r1 >> (4 * j)) & 3u) << (2 * j);
   }
 }
 
@@ -477,7 +382,7 @@ __global__ void __launch_bounds__(bt::kThreads, 1)
         }
       }
       if (kind == 0) {
-        frags_to_a<P, 2>(qa, acc);
+        st::frags_to_a<P, 2>(qa, acc);
       } else {
         bf16* dst = kind == 1 ? ks : vs;
 #pragma unroll
@@ -504,7 +409,7 @@ __global__ void __launch_bounds__(bt::kThreads, 1)
         for (int i = 0; i < 4; ++i) ak[p][i] = qa[p][kk][i];
 #pragma unroll
       for (int np = 0; np < 2; ++np)
-        mma_nt<P>(sc4[2 * np], sc4[2 * np + 1], ak, ks + grp * kLDH, kvlo, kLDH, np, 16 * kk);
+        st::mma_nt<P>(sc4[2 * np], sc4[2 * np + 1], ak, ks + grp * kLDH, kvlo, kLDH, np, 16 * kk);
     }
     const int qb = rw - grp;  // the warp's first query in the group
     float m[2] = {-INFINITY, -INFINITY};
@@ -522,7 +427,10 @@ __global__ void __launch_bounds__(bt::kThreads, 1)
     m[1] = tc::quad_max(m[1]) * kQScale;
     uint32_t bits[2] = {0u, 0u};
     if constexpr (TRAIN)
-      if (drop.on) prob_bits(drop, row0 + grp, qb, F, h, bits);
+      if (drop.on) {
+        const int ql = st::draw_row(qb);
+        st::prob_bits<32>(drop, ql, (uint32_t)((row0 + grp + ql) / F), (uint32_t)h, F, bits);
+      }
     float l[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -544,7 +452,7 @@ __global__ void __launch_bounds__(bt::kThreads, 1)
     float o[4][4];
     {
       uint32_t pa[P][2][4];
-      frags_to_a<P, 2>(pa, sc4);
+      st::frags_to_a<P, 2>(pa, sc4);
 #pragma unroll
       for (int j = 0; j < 4; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 #pragma unroll
@@ -555,24 +463,8 @@ __global__ void __launch_bounds__(bt::kThreads, 1)
 #pragma unroll
           for (int i = 0; i < 4; ++i) ak[p][i] = pa[p][kk][i];
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          uint32_t b[P][4];
-#pragma unroll
-          for (int p = 0; p < P; ++p)
-            bt::ldsm_x4_t(b[p], vs + p * kvlo +
-                                    (grp + 16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * kLDH +
-                                    16 * c + 8 * (lane >> 4));
-          uint32_t b00[P], b01[P], b10[P], b11[P];
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            b00[p] = b[p][0];
-            b01[p] = b[p][1];
-            b10[p] = b[p][2];
-            b11[p] = b[p][3];
-          }
-          mm::mma_parts<P>(o[2 * c], ak, b00, b01);
-          mm::mma_parts<P>(o[2 * c + 1], ak, b10, b11);
-        }
+        for (int c = 0; c < 2; ++c)
+          st::mma_nn<P>(o[2 * c], o[2 * c + 1], ak, vs + grp * kLDH, kvlo, kLDH, 16 * kk, 16 * c);
       }
     }
     const float lt[2] = {tc::quad_sum(l[0]), tc::quad_sum(l[1])};
@@ -585,7 +477,7 @@ __global__ void __launch_bounds__(bt::kThreads, 1)
           o[j][2 * hh + e] =
               bt::round_to<T>(bt::round_to<T>(o[j][2 * hh + e] / lt[hh]) * gt[hh]);
     uint32_t ga[P][2][4];
-    frags_to_a<P, 2>(ga, o);
+    st::frags_to_a<P, 2>(ga, o);
     slice_product<C, P>(y, ga, w, wlo);
     st.finish(W, s, wb, wlo);
   }
@@ -633,7 +525,7 @@ __global__ void __launch_bounds__(bt::kThreads, 1)
           acc[j][2 * hh + 1] = bt::gelu_exact(acc[j][2 * hh + 1] + bb.y) * f[hh][1];
         }
       }
-      frags_to_a<P, 2>(ha, acc);  // part 0 is round_T(h)
+      st::frags_to_a<P, 2>(ha, acc);  // part 0 is round_T(h)
       st.finish(W, s, wb, wlo);
     }
     const bf16* w = st.begin(W, s, wb, wlo);

@@ -6,10 +6,11 @@ Counterpart of beat_this_tpu/ops/small_attention.py:small_attention, which
 `attention_block` takes for unmasked sequences whose length divides 128 and
 is at most 32 when the fused frequency kernel declines the shape (a head
 width other than 32). On a CUDA tensor `small_attention` launches the
-hand-written kernels in `csrc/small_attention.cu` (one thread per (item,
-row), nothing between items computed; F any divisor of 32); on a CPU tensor
-it runs the plain version `small_attention_ref`. Differentiable: the
-backward kernel recomputes the softmax from q, k, v.
+hand-written kernels in `csrc/small_attention.cu` (every product on the
+tensor cores over block-diagonal score tiles of 16 or 32 keys, float32 as
+split bf16 products; F any divisor of 32); on a CPU tensor it runs the
+plain version `small_attention_ref`. Differentiable: the backward kernel
+recomputes the softmax from q, k, v.
 
 The rotation of q and k, the dropout of the probabilities (SALT_ATTN,
 SITE_ATTN_PROBS, coordinates (item // heads, item % heads, query, key)) and
@@ -29,6 +30,9 @@ from beat_this_tpu_torch.ops import flash_attention as flash
 from beat_this_tpu_torch.ops.fused_ff import stream_of
 
 SUPPORTED_SEQ = (1, 2, 4, 8, 16, 32)
+# bfloat16 parts of a float32 operand in the kernels' forward and backward,
+# and of dv's operands in either dtype (tests/test_torch_small_tc_design.py)
+FWD_PARTS, BWD_PARTS, DV_PARTS = 3, 2, 3
 
 
 def small_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -9,7 +9,9 @@ non-zero without the final `"ok": true` line:
 1. environment: GPU name and power limit, torch / CUDA / nvcc versions;
 2. build: compiles the CUDA kernels from this checkout's sources, and
    checks with `cuobjdump -sass` that every instantiation of the flash
-   kernels (forward, dq, dk/dv; float32 and bfloat16), and every one of the
+   kernels (forward, dq, dk/dv; float32 and bfloat16) and of the
+   small-sequence kernels (forward, backward; F 1-32, D 16 and 32, float32
+   and bfloat16; ptxas's registers and spills printed), and every one of the
    feed-forward kernels' products (training forward and backward, and the
    eval K1 and K2's tail), of the time-axis attention branch's kernels
    (the q/k/v product shared by the eval block K2 and the training forward,
@@ -36,7 +38,9 @@ non-zero without the final `"ok": true` line:
    small_attention's forward at an eval batch of 3 chunks, flash_attention
    with lse and its backward and small_attention forward and backward
    (output, dq, dk, dv) at a training microbatch of 8 crops, flash_attention
-   with lse and its backward also at head_dim 32 (512, 1536, 32); beside them
+   with lse and its backward also at head_dim 32 (512, 1536, 32),
+   small_attention also at head_dim 32 (12000, 32, 32; small_attention timed
+   by device time, its kernels taking microseconds); beside them
    the time of one `scaled_dot_product_attention` call on rotated q and k
    (a yardstick for the table, on no path). The eval kernels, the
    attention branch and the feed-forward also at C 256 and 384 (the widths
@@ -94,6 +98,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -174,6 +179,9 @@ FREQ_SHAPES = ((12000, 32, 32), (12000, 16, 64), (12000, 8, 128))
 H16 = 16
 H16_FLASH = ((32, 1500, 32), (64, 1500, 2))
 H16_SMALL = ((3000, 32, 2), (6000, 16, 4), (12000, 8, 8))
+# small_attention at head width 32, (entries, seq, D): the stock frontend's
+# first frequency block at 8 crops of 1500 frames, F 32, one head
+SMALL_D32 = (12000, 32, 32)
 EVAL_CHUNKS, TRAIN_CROPS = 3, 8
 # the ablation benches' sizes: chunks of 1500 frames per frequency-block
 # launch, and the flash forward's (entries, seq, head_dim)
@@ -183,6 +191,9 @@ ABLATE_FLASH = (512, 1536, 32)
 # (float32 as split bf16 products): the forward's four modes at D 16 and 32,
 # dq and dk/dv at both
 FLASH_TC_KERNELS = {"flash_fwd_kernel": 8, "flash_dq_kernel": 2, "flash_dkv_kernel": 2}
+# and of the small-sequence attention kernels (B12): F 1, 2, 4, 8, 16, 32 x D
+# 16 and 32 per dtype; the dtype is their third template argument
+SMALL_TC_KERNELS = {"small_fwd_kernel": 12, "small_bwd_kernel": 12}
 # instantiations of the products of the training kernels and of the eval
 # kernels K1 and K2, each on the tensor cores in both dtypes (float32 as split
 # bf16 products): the feed-forward forward (B8, and at eval K1 and K2's tail:
@@ -215,7 +226,7 @@ SPLIT_F32 = {"fused_ff", "fused_time_roformer", "fused_freq_roformer", "fused_ff
              "fused_ff_train_bwd", "fused_time_attention_train_fwd",
              "fused_time_attention_train_bwd", "fused_freq_roformer_train_fwd",
              "fused_freq_roformer_train_bwd", "flash_attention_fwd", "flash_attention_fwd_lse",
-             "flash_attention_bwd", "flash_ablate"}
+             "flash_attention_bwd", "flash_ablate", "small_attention_fwd", "small_attention_bwd"}
 DEVICE_TIMED = {"fused_ff_train_bwd", "fused_time_attention_train_bwd",
                 "fused_freq_roformer_train_bwd"}
 
@@ -340,18 +351,38 @@ def sass_hmma_counts(lib: Path) -> dict:
     return counts
 
 
-def flash_dtype(name: str, kernel: str) -> Optional[str]:
-    """The dtype of a flash kernel's name, by its template arguments <D, T,
-    ...>: mangled (`kernelILi16EfLi0EE...` is float at D 16) or demangled."""
+def template_dtype(name: str, kernel: str, index: int = 1) -> Optional[str]:
+    """The dtype of a kernel's name by its template argument `index` (after
+    that many integers: a flash kernel's <D, T, ...>, a small-sequence
+    kernel's <F, D, T>), mangled (`kernelILi16EfLi0EE...` is float at D 16)
+    or demangled."""
     if kernel + "<" in name:
-        args = name.split(kernel + "<", 1)[1].split(",")[1].strip()
+        args = name.split(kernel + "<", 1)[1].split(",")[index].strip()
     else:
-        args = name.split(kernel + "ILi", 1)[-1].split("E", 1)[-1]
+        args = re.sub(r"^(Li-?\d+E){%d}" % index, "", name.split(kernel + "I", 1)[-1])
     if args.startswith("f"):
         return "float32"
     if args.startswith(("13__nv_bfloat16", "__nv_bfloat16")):
         return "bfloat16"
     return None
+
+
+def ptxas_lines(log: str, kernel: str) -> list:
+    """One entry per compiled instantiation of `kernel` in ptxas's -v log:
+    its mangled template arguments, registers and spill bytes."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1) if kernel in entry.group(1) else None
+        elif name and "spill" in line:
+            spill = "/".join(re.findall(r"(\d+) bytes spill", line))
+        elif name and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            args = name.split(kernel + "I", 1)[-1].split("EEv", 1)[0]
+            out.append(f"{args} {regs.group(1) if regs else '?'} r, {spill}")
+            name = None
+    return out
 
 
 def phase_build() -> None:
@@ -363,15 +394,22 @@ def phase_build() -> None:
     print(f"[build] {path} in {time.perf_counter() - t0:.1f} s")
     log = path.parent / "build.log"
     if log.exists():
-        for line in log.read_text().splitlines():
+        text = log.read_text()
+        for line in text.splitlines():
             if "spill" in line and not line.strip().endswith("0 bytes spill loads"):
                 print(f"[build] ptxas: {line.strip()}")
+        for kernel in SMALL_TC_KERNELS:
+            print(f"[build] ptxas {kernel} <F, D, T>: registers, spill stores / loads: "
+                  + "; ".join(ptxas_lines(text, kernel)))
     # the flash kernels run on the tensor cores in both dtypes: every
     # instantiation holds HMMA instructions, and none is left without
     counts = sass_hmma_counts(path)
-    for kernel, expect in FLASH_TC_KERNELS.items():
+    per_dtype = [(kernel, expect, 1) for kernel, expect in FLASH_TC_KERNELS.items()]
+    per_dtype += [(kernel, expect, 2) for kernel, expect in SMALL_TC_KERNELS.items()]
+    for kernel, expect, index in per_dtype:
         found = {name: n for name, n in counts.items() if kernel in name}
-        by_dtype = {dt: sorted(n for name, n in found.items() if flash_dtype(name, kernel) == dt)
+        by_dtype = {dt: sorted(n for name, n in found.items()
+                               if template_dtype(name, kernel, index) == dt)
                     for dt in ("float32", "bfloat16")}
         print(f"[build] HMMA per instantiation of {kernel}: float32 {by_dtype['float32']}; "
               f"bfloat16 {by_dtype['bfloat16']}")
@@ -848,26 +886,40 @@ def fwd_bwd_ms(fn, x, params, cot, reps: int) -> tuple[float, float]:
     return fwd, bwd
 
 
-def bwd_device_ms(fn, x, params, cot, reps: int) -> float:
-    """Device time in ms of one backward on a retained graph: the kernel
-    time torch.profiler sums over `reps` backwards after one warm-up,
-    divided by `reps`; the host's launch and autograd time is not in it."""
+def call_device_ms(fn, reps: int = 20, windows: int = 3) -> float:
+    """Device time in ms of one call of `fn`: the kernel time torch.profiler
+    sums over a window of `reps` calls, divided by `reps`, the median over
+    `windows` windows after one warm-up call (a window's trace now and then
+    loses launches and reads low or empty: the median passes over it); the
+    host's launch and autograd time is not in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            per_call.append(us / 1e3 / reps)
+    check(len(per_call) > windows // 2, "torch.profiler recorded no device time")
+    return statistics.median(per_call)
+
+
+def bwd_device_ms(fn, x, params, cot, reps: int) -> float:
+    """Device time in ms of one backward on a retained graph
+    (call_device_ms)."""
+    import torch
 
     xg = x.detach().clone().requires_grad_(True)
     out = fn(xg)
     inputs, cot = [xg] + params, cot.to(out.dtype)
-    torch.autograd.grad(out, inputs, cot, retain_graph=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            torch.autograd.grad(out, inputs, cot, retain_graph=True)
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "torch.profiler recorded no device time")
-    return us / 1e3 / reps
+    return call_device_ms(lambda: torch.autograd.grad(out, inputs, cot, retain_graph=True), reps)
 
 
 def train_cases(dev, dtype, dt: str):
@@ -984,15 +1036,17 @@ def phase_train_kernels(smi: str, only: tuple = ()) -> dict:
 # -- phase 3c: the attention kernels of the head_dim 16 configuration ------------
 
 
-def attention_work(entries: int, seq: int, d: int, dt: str, backward: bool):
+def attention_work(entries: int, seq: int, d: int, dt: str, backward: bool,
+                   stats: bool = True):
     """(FLOPs, bytes) of attention over (entries, seq, d): the QK^T and PV
     products forward (4 seq^2 d per entry), the five products of the
     backward (10 seq^2 d); q, k, v read and o written once (backward: q, k,
-    v, dout read and dq, dk, dv written, plus the float32 lse and delta)."""
+    v, dout read and dq, dk, dv written, plus with `stats` the float32 lse
+    and delta, which small_attention's backward recomputes)."""
     size = 2 if dt == "bf16" else 4
     rows = entries * seq * d * size
     if backward:
-        return 10 * entries * seq * seq * d, 7 * rows + 2 * entries * seq * 4
+        return 10 * entries * seq * seq * d, 7 * rows + stats * 2 * entries * seq * 4
     return 4 * entries * seq * seq * d, 4 * rows
 
 
@@ -1045,6 +1099,19 @@ def attention_cases():
         for rate in (0.0, 0.1):
             yield (("small_attention_fwd", "small_attention_bwd"), *small,
                    (per_crop * TRAIN_CROPS, seq, H16), heads, rate, True)
+    yield (("small_attention_fwd", "small_attention_bwd"), *small, SMALL_D32, 1, 0.1, True)
+
+
+def qkv_device_ms(fn, qkv, cot, reps: int = 10) -> tuple[float, float]:
+    """Device time of a forward (with the autograd graph built) and of a
+    backward on a retained graph (call_device_ms)."""
+    import torch
+
+    inputs = [t.detach().clone().requires_grad_(True) for t in qkv]
+    out, cot = fn(*inputs), cot.to(qkv[0].dtype)
+    return (call_device_ms(lambda: fn(*inputs), reps),
+            call_device_ms(lambda: torch.autograd.grad(out, inputs, cot, retain_graph=True),
+                           reps))
 
 
 def phase_attention_kernels(smi: str, only: tuple = ()) -> dict:
@@ -1053,8 +1120,10 @@ def phase_attention_kernels(smi: str, only: tuple = ()) -> dict:
     output (eval) or the output and dq, dk, dv (training); median times of
     the kernel, the plain version and one `scaled_dot_product_attention`
     call on rotated q and k (the library's time for the same function,
-    used on no path). `only`: the kernel names whose cases run (all when
-    empty)."""
+    used on no path). small_attention's cases, whose kernels take a few
+    microseconds against the host's tens around each call, are timed by
+    device time (call_device_ms), with the events around the call beside
+    them. `only`: the kernel names whose cases run (all when empty)."""
     import torch
     import torch.nn.functional as F
 
@@ -1107,10 +1176,23 @@ def phase_attention_kernels(smi: str, only: tuple = ()) -> dict:
                     ms = (median_ms(lambda: run(kernel, *qkv)),)
                     plain_ms = (median_ms(lambda: run(plain, *qkv), 5),)
                     lib_ms = (median_ms(lambda: library(*lib_in)),)
+            by_device = names[0].startswith("small")
+            events = (ms, plain_ms, lib_ms)
+            if by_device:
+                if training:
+                    ms = qkv_device_ms(lambda *t: run(kernel, *t), qkv, cot)
+                    plain_ms = qkv_device_ms(lambda *t: run(plain, *t), qkv, cot, 5)
+                    lib_ms = qkv_device_ms(library, lib_in, cot.reshape(lib_shape))
+                else:
+                    with torch.inference_mode():
+                        ms = (call_device_ms(lambda: run(kernel, *qkv)),)
+                        plain_ms = (call_device_ms(lambda: run(plain, *qkv), 5),)
+                        lib_ms = (call_device_ms(lambda: library(*lib_in)),)
             torch.cuda.empty_cache()
             worst = max(devs.values())
             ok = finite and (worst <= limit if dtype == torch.float32 else worst < limit)
-            bounds = [bound(*attention_work(entries, seq, d, dt, k == 1),
+            bounds = [bound(*attention_work(entries, seq, d, dt, k == 1,
+                                            not name.startswith("small")),
                             "f32 split" if dt == "f32" and name in SPLIT_F32 else dt)
                       for k, name in enumerate(names)]
             desc = f"rate {rate} x ({entries}, {seq}, {d}) heads {heads}"
@@ -1119,6 +1201,9 @@ def phase_attention_kernels(smi: str, only: tuple = ()) -> dict:
                   + "; ".join(
                       f"{name} kernel {ms[k]:.3f} ms plain {plain_ms[k]:.3f} ms library "
                       f"{lib_ms[k]:.3f} ms bound {bounds[k][0]:.3f} ms ({bounds[k][1]})"
+                      + (f" (device time; events around the call: kernel {events[0][k]:.3f} "
+                         f"plain {events[1][k]:.3f} library {events[2][k]:.3f})"
+                         if by_device else "")
                       for k, name in enumerate(names))
                   + f" [{smi}] {'ok' if ok else 'FAIL'}", flush=True)
             check(ok, f"{names[0]} {dt} {desc}: deviation {worst:.3e} over {limit:g}"
@@ -1128,6 +1213,10 @@ def phase_attention_kernels(smi: str, only: tuple = ()) -> dict:
                     "case": f"{dt} {desc}", "rel_max_dev": worst, "max_abs_err": abs_err,
                     "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bounds[k][0],
                     "bound_by": bounds[k][1], "library_ms": lib_ms[k]})
+                if by_device:
+                    results[name][-1].update({"timed_by": "device", "events_ms": events[0][k],
+                                              "plain_events_ms": events[1][k],
+                                              "library_events_ms": events[2][k]})
     return results
 
 

@@ -32,6 +32,8 @@ bit. The ablation kernels of
 `beat_this_tpu_torch/bench/` (every stage, mode, variant and pass) and the
 DBN decoder on the card against the CPU are held here too."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -124,6 +126,61 @@ def test_fused_freq(device, dtype, tol, f, c, items):
     assert fused_freq_roformer.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     assert _rel(got, fused_freq_roformer_ref(x, attn, ff, cos, sin)) < tol
+
+
+def _freq_digest(kind: str, dtype, f: int, c: int, items: int, device) -> str:
+    """sha256 of the bytes of K3's output (kind "eval") or B6's (kind
+    "train", rate 0.2, seed 19) on seeded inputs."""
+    attn, ff = _block(c, c // 32, 7 * c + f, device)
+    cos, sin = rope_tables(f, 32, device)
+    x = _x((items, f, c), dtype, device, 3 * f + items)
+    with torch.no_grad():
+        if kind == "eval":
+            out = fused_freq_roformer(x, attn, ff, cos, sin)
+        else:
+            out = freq_ops.fused_freq_roformer_train(x, attn, ff, cos, sin, 0.2, 19)
+    return hashlib.sha256(out.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+# K3's and B6's outputs on the card, taken from freq_block_kernel before the
+# packed score tile's helpers moved into csrc/small_tile.cuh (sm_90a, nvcc
+# 12.9): the move keeps every bit. (kind, dtype, F, C, items) -> sha256
+FREQ_CASES = [(kind, dtype, f, c, items) for kind, shapes in (
+    ("eval", ((32, 32, 133), (8, 128, 301), (2, 32, 21))),
+    ("train", ((16, 64, 77), (4, 64, 9), (1, 128, 45))))
+    for f, c, items in shapes for dtype in ("float32", "bfloat16")]
+FREQ_DIGESTS = {
+    ("eval", "float32", 32, 32, 133):
+        "31a6eb3eff0b4e91872b32bcb2873bc95bd9d468ef229e1e8f56591ab0777e5c",
+    ("eval", "bfloat16", 32, 32, 133):
+        "d6fef274a6cf9e5a06c0847ffdac53f057806c5e9f0400f7f3a3d7d8f54ee908",
+    ("eval", "float32", 8, 128, 301):
+        "3f4523f0bffb4f4931db24837f0d4d1d78cf740df8d511b6b1116695b3609b1c",
+    ("eval", "bfloat16", 8, 128, 301):
+        "fd399b823fcb06223bb797cba48d4d6df633f68cd2485cf5e59650633bdd35c5",
+    ("eval", "float32", 2, 32, 21):
+        "6b87b06a61b9794e5a9f89f48f8d8bc9417429e7765d7865ace088e651b9d45d",
+    ("eval", "bfloat16", 2, 32, 21):
+        "5e8269b3bc86462f0e8a6b0319bcdea18cc5e796813090c600e0306c4aab35f6",
+    ("train", "float32", 16, 64, 77):
+        "61e6ac23250d8f87f59e66a9767cde323389a77518409452eb0f2276b8aaf57a",
+    ("train", "bfloat16", 16, 64, 77):
+        "506938162ce0248bef390cef97ff223f82853c2c5ed0d7b6c249e2e7b8b964ca",
+    ("train", "float32", 4, 64, 9):
+        "95e025a8f9334750f89fba15fda8e3aeac4ef10efa7276bee8219e8109d2b0cf",
+    ("train", "bfloat16", 4, 64, 9):
+        "8b078d0180ce2f035145c62f2adfa9f129fe0b3ef57c296124fa6a2c1c241343",
+    ("train", "float32", 1, 128, 45):
+        "805e5f61a7c6f3c75d40c2c90347384f970e5a0186ae976699f89bacb391ffab",
+    ("train", "bfloat16", 1, 128, 45):
+        "7e0264d1d1824a9da4df8c9ac3041567a037fb71405e61da7fc11ee87877dcbe",
+}
+
+
+@pytest.mark.parametrize("case", FREQ_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_fused_freq_keeps_its_bits(device, case):
+    kind, dtype, f, c, items = case
+    assert _freq_digest(kind, getattr(torch, dtype), f, c, items, device) == FREQ_DIGESTS[case]
 
 
 def test_unsupported_width_raises(device):
@@ -775,6 +832,31 @@ def test_flash_forward_masks_match_the_plain_version(device, dtype):
         assert torch.equal(out[..., : len(keys)] != 0, want[..., keys])
         assert not bool(out[..., len(keys):].any())
     assert flash_ops.flash_fwd.launches == before + -(-n // d)
+
+
+@pytest.mark.parametrize("f", [32, 8, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_forward_masks_match_the_plain_version(device, dtype, f):
+    """B12's probability mask, read off its output, equals the plain
+    version's bit for bit. q = k = 0, so every p = 1 and l = F; v is one-hot
+    on a window of D keys (key w D + j at channel j, zero elsewhere), so o at
+    (item, query, j) is nonzero iff the mask keeps key w D + j. Ragged
+    64-row blocks; 16 / F items a 16-key tile at F 8 and 1, one item a 32-key
+    tile at F 32."""
+    items, d, heads, rate, seed = 45, 16, 3, 0.2, 29
+    cos, sin = rope_tables(f, d, device)
+    zeros = torch.zeros((items, f, d), dtype=dtype, device=device)
+    want = flash_ops.probs_keep(seed, 0, items, heads, f, f, rate, device) != 0
+    before = small_ops.small_fwd.launches
+    for w in range(-(-f // d)):
+        keys = torch.arange(w * d, min((w + 1) * d, f), device=device)
+        v = zeros.clone()
+        v[:, keys, keys - w * d] = 1.0
+        with torch.no_grad():
+            out = small_ops.small_attention(zeros, zeros, v, cos, sin, rate, seed, heads)
+        assert torch.equal(out[..., : len(keys)] != 0, want[..., keys])
+        assert not bool(out[..., len(keys):].any())
+    assert small_ops.small_fwd.launches == before + -(-f // d)
 
 
 @pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
