@@ -6,10 +6,12 @@ three shapes (C, F) = (32, 32), (64, 16), (128, 8), bfloat16.
     python -m beat_this_tpu_torch.bench.fused_freq_ablate [--batch 16]
         [--stages copy,rms,qkv,ff,attn,full] [--reps N] [--device cuda]
 
-Counterpart of tools/bench_fused_freq_ablate.py. Stages (all but `full` on
-the grid, blocking and shared-memory size of the block's SIMT design,
-`csrc/freq_ablate.cu`; `full` is the block's tensor-core kernel, so the
-other stages no longer add up to it):
+Counterpart of tools/bench_fused_freq_ablate.py. Each stage is the block's
+own tensor-core kernel cut after it (`csrc/freq_block.cuh`, launched by
+`csrc/freq_ablate.cu`): the same grid of 128-row tiles as `full` and its
+blocks per SM (a cut whose fewer registers would let more blocks share an
+SM takes more shared memory; `blocks_per_sm`), so attn + ff - copy stands
+for `full`:
   copy   x -> out
   rms    RMSNorm only
   qkv    RMSNorm + the q/k/v projection (q's columns out)
@@ -26,6 +28,7 @@ as is `--scan-len` (copies per TPU dispatch): each timed window is one launch.
 from __future__ import annotations
 
 import argparse
+import ctypes
 
 import numpy as np
 import torch
@@ -42,7 +45,7 @@ from beat_this_tpu_torch.model.layers import (
 )
 from beat_this_tpu_torch.ops import _build
 from beat_this_tpu_torch.ops.flash_attention import LOG2E
-from beat_this_tpu_torch.ops.fused_ff import f32, stream_of
+from beat_this_tpu_torch.ops.fused_ff import dtype_code, f32, stream_of
 from beat_this_tpu_torch.ops.fused_freq import _check_freq
 from beat_this_tpu_torch.ops.fused_time import block_params
 from beat_this_tpu_torch.ops.rotary import apply_rope, rope_tables
@@ -105,9 +108,9 @@ def ablate_stage(x: torch.Tensor, params, stage: str, rope_cos: torch.Tensor,
                  rope_sin: torch.Tensor) -> torch.Tensor:
     """The eval frequency block over x (items, F, C) cut off after `stage`
     (one of STAGES); params = (Attention, FeedForward) of C // 32 heads,
-    rope tables (>= F, 16). CUDA tensors launch `csrc/freq_ablate.cu` (F
-    dividing 32, C in (32, 64, 128), float32 or bfloat16) or raise; CPU
-    tensors run the plain version."""
+    rope tables (>= F, 16). CUDA tensors launch `csrc/freq_ablate.cu` (the
+    block's kernel cut after the stage; F dividing 32, C in (32, 64, 128),
+    float32 or bfloat16) or raise; CPU tensors run the plain version."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
     if x.device.type == "cpu":
@@ -134,6 +137,18 @@ def ablate_stage(x: torch.Tensor, params, stage: str, rope_cos: torch.Tensor,
 
 
 ablate_stage.launches = 0
+
+
+def blocks_per_sm(c: int, stage: str, dtype: torch.dtype) -> int:
+    """The blocks of `ablate_stage`'s launch at C and dtype that one SM of
+    the current card holds: each cut as many as `full`, where its registers
+    let it."""
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+    blocks = ctypes.c_int()
+    _build.check(_build.load_library().bt_freq_ablate_blocks(
+        dtype_code(dtype), c, STAGES.index(stage), ctypes.byref(blocks)), "bt_freq_ablate_blocks")
+    return blocks.value
 
 
 def make_case(rng: np.random.RandomState, c: int, f: int, items: int, device: torch.device,

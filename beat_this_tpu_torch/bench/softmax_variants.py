@@ -15,7 +15,10 @@ Counterpart of tools/bench_softmax_variants.py:
 
 Variants: nosmax nomax noexp b16exp full kfold b16s b16sfold (eval-shaped)
 and tfull tmxusum tb16sum (a separate row sum, as training needs it); the
-arithmetic of each is in `attention_variant_ref`. The tool folds the mask
+arithmetic of each is in `attention_variant_ref`. On the card they run on
+the tile of the tensor-core attention kernels (`csrc/softmax_variants.cu`
+on `csrc/attn_tc.cuh`, every product on `mma.sync`), so their differences
+are what the passes cost beside products on the tensor cores. The tool folds the mask
 into the score product for b16s as well as b16sfold, so the two are one
 function. The tool's `--scan` (copies scanned per dispatch) is dropped: each
 timed window is one launch.
@@ -115,8 +118,9 @@ def attention_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: t
     additive key mask `mask` (n,) float32 and the softmax pass `variant`
     (one of VARIANTS). The folded variants take the mask from `mask_col`
     (n,), rounded to the dtype (default: `mask`). CUDA tensors launch
-    `csrc/softmax_variants.cu` (float32 or bfloat16) or raise; CPU tensors
-    run the plain version."""
+    `csrc/softmax_variants.cu` (float32 or bfloat16: every product on the
+    tensor cores, float32 as split bf16 products) or raise; CPU tensors run
+    the plain version."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if q.device.type == "cpu":

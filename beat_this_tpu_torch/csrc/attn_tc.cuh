@@ -1,6 +1,7 @@
 // The warp-level attention tile of the tensor-core attention kernels
 // (flash_attention.cu: B10, B11, B14; fused_time_train.cu: B4, B5;
-// fused_time.cu: K2; its quad reductions also in fused_freq.cu: K3, B6): a
+// fused_time.cu: K2; softmax_variants.cu: B15a; its quad reductions also in
+// fused_freq.cu: K3, B6): a
 // block of 4 warps, each owning 16 rows (queries, or keys in a key-major
 // pass) whose operand fragments stay in registers, over 64-row tiles of the
 // other side staged by cp.async through a 3-deep ring in shared memory and
@@ -46,6 +47,21 @@ constexpr int kStages = 3;     // staged tiles in flight
 // rows an ldmatrix reads at one column fall in 8 different bank groups.
 template <int D> using Tile = bf16[kTile][D + 8];
 
+// Element pair e (elements 2e, 2e + 1) of a float32 or bf16 array as float2,
+// and a pair stored at p, rounded to the array's type.
+__device__ __forceinline__ float2 load_pair(const float* p, int64_t e) {
+  return reinterpret_cast<const float2*>(p)[e];
+}
+__device__ __forceinline__ float2 load_pair(const bf16* p, int64_t e) {
+  return bt::unpack_bf16(reinterpret_cast<const uint32_t*>(p)[e]);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = bt::pack_bf16(a, b);
+}
+
 // Rows [r0, r0 + kTile) of the (n, D) matrix `src` into `dst` by cp.async,
 // zeros past n.
 template <int D>
@@ -55,6 +71,19 @@ __device__ __forceinline__ void stage(Tile<D>& dst, const bf16* __restrict__ src
     const int r = e / kChunks, c = e % kChunks;
     const bool ok = r0 + r < n;
     bt::cp_async16(&dst[r][8 * c], src + (size_t)(ok ? r0 + r : 0) * D + 8 * c, ok);
+  }
+}
+
+// The same for a matrix whose rows lie `ld` elements apart (a head's column
+// slice of a wider matrix).
+template <int D>
+__device__ __forceinline__ void stage_strided(Tile<D>& dst, const bf16* __restrict__ src,
+                                              int64_t ld, int r0, int n) {
+  constexpr int kChunks = D / 8;
+  for (int e = threadIdx.x; e < kTile * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = e % kChunks;
+    const bool ok = r0 + r < n;
+    bt::cp_async16(&dst[r][8 * c], src + (ok ? (r0 + r) * ld : 0) + 8 * c, ok);
   }
 }
 

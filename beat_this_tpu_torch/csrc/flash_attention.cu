@@ -83,19 +83,6 @@ template <typename T> __host__ __device__ constexpr int bwd_parts() {
   return std::is_same<T, float>::value ? 2 : 1;
 }
 
-__device__ __forceinline__ float2 load_pair(const float* p, int64_t e) {
-  return reinterpret_cast<const float2*>(p)[e];
-}
-__device__ __forceinline__ float2 load_pair(const bf16* p, int64_t e) {
-  return bt::unpack_bf16(reinterpret_cast<const uint32_t*>(p)[e]);
-}
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = bt::pack_bf16(a, b);
-}
-
 // The pre-pass over bh * n rows of D (row r at position r % n), one channel
 // pair per thread and step: qr = rope(q) * qmul and kr = rope(k) as P parts
 // each (`lo` elements apart); with P > 1 also v and, unless null, dout; null

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "bt_fused_time": [_I, _I] + [_P] * 15 + [_L, _I, _I, _I, _P],
     "bt_fused_time_scratch": [_I, _I, _L, _I, ctypes.POINTER(_L)],
     "bt_fused_freq": [_I, _I] + [_P] * 14 + [_L, _I, _I, _P],
+    "bt_fused_freq_blocks": [_I, _I, ctypes.POINTER(_I)],
     "bt_ff_train_fwd": [_I, _I] + [_P] * 8 + [_L, _L, _I] + _DROP + [_P],
     "bt_ff_train_fwd_scratch": [_I, _I, _L, _I, ctypes.POINTER(_L)],
     "bt_ff_train_bwd": [_I, _I, _I] + [_P] * 13 + [_L, _L, _I, _L] + _DROP + [_P],
@@ -62,6 +63,7 @@ _SIGNATURES = {
     # the ablation kernels of beat_this_tpu_torch/bench/
     "bt_flash_ablate": [_I, _I, _I] + [_P] * 7 + [_I, _I, ctypes.c_float, _P, _P],
     "bt_freq_ablate": [_I, _I, _I] + [_P] * 14 + [_L, _I, _I, _P],
+    "bt_freq_ablate_blocks": [_I, _I, _I, ctypes.POINTER(_I)],
     "bt_attn_variant": [_I, _I] + [_P] * 5 + [_I, _I, _I, _P],
     "bt_softmax_pass": [_I, _P, _P, _L, _I, _I, _P],
 }

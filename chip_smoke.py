@@ -16,9 +16,12 @@ non-zero without the final `"ok": true` line:
    eval K1 and K2's tail), of the time-axis attention branch's kernels
    (the q/k/v product shared by the eval block K2 and the training forward,
    the attention core's forward at eval and in training, the out
-   projections; backward d_go, dq, dk/dv and products) and of the
-   frequency block's training backward, bfloat16 and the float32 split
-   products alike, holds tensor-core HMMA instructions;
+   projections; backward d_go, dq, dk/dv and products), of the
+   frequency block's kernel (K3, B6, and B13's qkv / ff / attn cuts; its
+   copy and rms cuts hold none) and training backward, and of the 11
+   softmax variants (B15a), bfloat16 and the float32 split products alike,
+   holds tensor-core HMMA instructions (ptxas's registers and spills
+   printed for B12, B13 and B15a);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' shapes, in float32 (TF32 off, relative max
    deviation <= 1e-3) and bfloat16 (< 2.5e-2), with median times and the
@@ -49,7 +52,9 @@ non-zero without the final `"ok": true` line:
    block, every mode of the flash forward, every softmax variant and pass,
    at the benches' full sizes in bfloat16 and float32 (the passes in
    float32 only), each against its plain version; the `full` stage
-   bit-equal to the block's own kernel; then the three bench entry points
+   bit-equal to the block's own kernel, and beside it the sum of its cuts
+   (attn + ff - copy, by device time), each cut at `full`'s blocks per SM;
+   then the three bench entry points
    through their `main()` at default flags, with exact launch counts;
 4. end to end: the full-width BeatThisConfig() model from a numpy-seeded
    synthetic checkpoint runs the port's CLI in-process on a 75 s click
@@ -210,8 +215,16 @@ TRAIN_TC_KERNELS = {"ff_hidden_kernel": 10, "ff_product_kernel": 26, "ff_out_ker
                     "time_qkv_kernel": 8, "attn_fwd_kernel": 4, "attn_out_kernel": 4,
                     "time_out_kernel": 4, "attn_dgo_kernel": 4, "attn_dq_kernel": 2,
                     "attn_dkv_kernel": 2, "attn_product_kernel": 8, "freq_qkv_kernel": 4,
-                    "freq_out_kernel": 4, "freq_dog_kernel": 4, "freq_product_kernel": 8,
-                    "freq_block_kernel": 12}
+                    "freq_out_kernel": 4, "freq_dog_kernel": 4, "freq_product_kernel": 8}
+# the frequency block's kernel by its STAGE argument (csrc/freq_block.cuh):
+# instantiations, and whether they hold products. 5, the whole block: K3 at
+# eval and B6 in training, 3 widths x 2 dtypes x 2; the cuts of B13 (eval, 3
+# widths x 2 dtypes): 2 qkv, 3 ff, 4 attn with products, 0 copy and 1 rms
+# without
+FREQ_BLOCK_STAGES = {5: (12, True), 2: (6, True), 3: (6, True), 4: (6, True), 0: (6, False),
+                     1: (6, False)}
+# B15a's kernel, <T, variant>: the 11 softmax variants per dtype
+VARIANT_TC_KERNELS = {"attn_variant_kernel": 11}
 DEVICE = "cuda"
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): float32 outside
 # the tensor cores, bfloat16 on them, float32 as three bfloat16 products of
@@ -226,7 +239,8 @@ SPLIT_F32 = {"fused_ff", "fused_time_roformer", "fused_freq_roformer", "fused_ff
              "fused_ff_train_bwd", "fused_time_attention_train_fwd",
              "fused_time_attention_train_bwd", "fused_freq_roformer_train_fwd",
              "fused_freq_roformer_train_bwd", "flash_attention_fwd", "flash_attention_fwd_lse",
-             "flash_attention_bwd", "flash_ablate", "small_attention_fwd", "small_attention_bwd"}
+             "flash_attention_bwd", "flash_ablate", "small_attention_fwd", "small_attention_bwd",
+             "softmax_variants"}
 DEVICE_TIMED = {"fused_ff_train_bwd", "fused_time_attention_train_bwd",
                 "fused_freq_roformer_train_bwd"}
 
@@ -401,11 +415,16 @@ def phase_build() -> None:
         for kernel in SMALL_TC_KERNELS:
             print(f"[build] ptxas {kernel} <F, D, T>: registers, spill stores / loads: "
                   + "; ".join(ptxas_lines(text, kernel)))
+        for kernel, args in (("attn_variant_kernel", "<T, variant>"),
+                             ("freq_block_kernel", "<C, T, TRAIN, STAGE>")):
+            print(f"[build] ptxas {kernel} {args}: registers, spill stores / loads: "
+                  + "; ".join(ptxas_lines(text, kernel)))
     # the flash kernels run on the tensor cores in both dtypes: every
     # instantiation holds HMMA instructions, and none is left without
     counts = sass_hmma_counts(path)
     per_dtype = [(kernel, expect, 1) for kernel, expect in FLASH_TC_KERNELS.items()]
     per_dtype += [(kernel, expect, 2) for kernel, expect in SMALL_TC_KERNELS.items()]
+    per_dtype += [(kernel, expect, 0) for kernel, expect in VARIANT_TC_KERNELS.items()]
     for kernel, expect, index in per_dtype:
         found = {name: n for name, n in counts.items() if kernel in name}
         by_dtype = {dt: sorted(n for name, n in found.items()
@@ -423,6 +442,20 @@ def phase_build() -> None:
               + ", ".join(f"{name} {n}" for name, n in sorted(found.items())))
         check(len(found) == expect and all(n > 0 for n in found.values()),
               f"{kernel}: {len(found)} instantiations (expected {expect}), HMMA counts {found}")
+    by_stage = {}
+    for name, n in counts.items():
+        stage = re.search(r"freq_block_kernel(?:ILi\d+E(?:f|13__nv_bfloat16)Lb[01]ELi(\d+)E|"
+                          r"<\d+, (?:float|__nv_bfloat16), (?:true|false), (\d+)>)", name)
+        if stage:
+            by_stage.setdefault(int(stage.group(1) or stage.group(2)), []).append(n)
+    print(f"[build] HMMA per instantiation of freq_block_kernel by STAGE: {by_stage}")
+    for stage, (expect, products) in FREQ_BLOCK_STAGES.items():
+        found = by_stage.get(stage, [])
+        check(len(found) == expect and all((n > 0) == products for n in found),
+              f"freq_block_kernel STAGE {stage}: {len(found)} instantiations (expected {expect}, "
+              f"{'each with' if products else 'none with'} HMMA), HMMA counts {found}")
+    check(sorted(by_stage) == sorted(FREQ_BLOCK_STAGES),
+          f"freq_block_kernel: STAGE arguments {sorted(by_stage)}")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -911,6 +944,35 @@ def call_device_ms(fn, reps: int = 20, windows: int = 3) -> float:
     return statistics.median(per_call)
 
 
+def kernel_device_ms(fn, name: str, reps: int = 10, windows: int = 3) -> float:
+    """Device time in ms of the one kernel whose name holds `name` that each
+    call of `fn` launches (the call's other launches not counted): the mean
+    of the launches of it that torch.profiler recorded in a window of 2 reps
+    calls, the median over `windows` windows with at least `reps` of them.
+    In a long process the profiler drops launches from its windows, so a sum
+    over a window would read low; each launch it records is whole."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(2 * windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2 * reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.device_time_total for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        if len(us) >= reps:
+            per_call.append(sum(us) / len(us) / 1e3)
+        if len(per_call) == windows:
+            break
+    check(len(per_call) == windows,
+          f"torch.profiler recorded under {reps} launches of {name} in a window")
+    return statistics.median(per_call)
+
+
 def bwd_device_ms(fn, x, params, cot, reps: int) -> float:
     """Device time in ms of one backward on a retained graph
     (call_device_ms)."""
@@ -1237,10 +1299,10 @@ def freq_stage_work(stage: str, rows: int, c: int, f_bins: int, size: int):
 def phase_ablation_kernels(smi: str, only: tuple = ()) -> tuple[dict, dict]:
     """Every stage, mode, variant and pass of the bench kernels against its
     plain version on the card at the benches' full sizes (bfloat16, then
-    float32; the standalone passes float32), with median times; then the
-    three entry points through `main()` at default flags. `only`: the
-    kernel names whose cases run, without the entry points (all when
-    empty). Returns (results, the entry points' launches)."""
+    float32; the standalone passes float32), with median times (B13's by
+    device time); then the three entry points through `main()` at default
+    flags. `only`: the kernel names whose cases run, without the entry
+    points (all when empty). Returns (results, the entry points' launches)."""
     import torch
     import torch.nn.functional as F
 
@@ -1254,17 +1316,22 @@ def phase_ablation_kernels(smi: str, only: tuple = ()) -> tuple[dict, dict]:
         return not only or name in only
 
     def record(name, desc, got, want, limit, kernel, plain, work, dt, library=None, note="",
-               headline=False, split=False):
+               headline=False, split=False, device=None):
         """Holds one case, times it and appends it to `results[name]`; the
         first `headline` case of a kernel stands for it on the `kernels`
         line. `library`: one PyTorch call that computes the same function;
-        `split`: the case's float32 products run as split bf16 products."""
+        `split`: the case's float32 products run as split bf16 products;
+        `device`: the kernel timed by the device time of its launch whose
+        name holds it (`kernel_device_ms`, not the wrapper's host time and
+        casts), plain and library by events as always."""
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got.float()).all()), f"{name} {desc}: non-finite")
         dev_rel = rel_dev(got, want)
         abs_err = float((got.float() - want.float()).abs().max())
-        ms, plain_ms = median_ms(kernel), median_ms(plain, 5)
+        ms = kernel_device_ms(kernel, device) if device else median_ms(kernel)
+        plain_ms = median_ms(plain, 5)
         lib_ms = median_ms(library) if library is not None else None
+        note += " (kernel by device time)" if device else ""
         split = split or name in SPLIT_F32
         bound_ms, bound_by = bound(*work, "f32 split" if dt == "f32" and split else dt)
         ok = dev_rel <= limit if dt == "f32" else dev_rel < limit
@@ -1288,6 +1355,7 @@ def phase_ablation_kernels(smi: str, only: tuple = ()) -> tuple[dict, dict]:
             for c, f_bins in fused_freq_ablate.SHAPES if want("freq_ablate") else ():
                 x, params, (cos, sin) = fused_freq_ablate.make_case(rng, c, f_bins, items, dev,
                                                                     dtype)
+                stage_ms = {}
                 for stage in fused_freq_ablate.STAGES:
                     def kernel(st=stage):
                         return fused_freq_ablate.ablate_stage(x, params, st, cos, sin)
@@ -1307,11 +1375,28 @@ def phase_ablation_kernels(smi: str, only: tuple = ()) -> tuple[dict, dict]:
 
                         def library(gamma=gamma, c=c):
                             return F.rms_norm(x, (c,), gamma, 1e-24)
-                    # `full` is B2's launch, its float32 products split
+                    # every stage with products runs K3's code, its float32 products split;
+                    # the stage's kernel by its device time (events around a call hold the
+                    # wrapper's host time, longer than copy's kernel)
                     record("freq_ablate", f"{stage} C={c} F={f_bins} items={items}", got,
                            plain(), limit, kernel, plain,
                            freq_stage_work(stage, items * f_bins, c, f_bins, size), dt, library,
-                           headline=stage == "full", split=stage == "full")
+                           headline=stage == "full", split=stage not in ("copy", "rms"),
+                           device="freq_")
+                    stage_ms[stage] = results["freq_ablate"][-1]["ms"]
+                # the cuts of one kernel: its attention and its FF, each with the tile's
+                # round trip, add up to the whole block, each at the block's blocks per SM
+                # (not read from an older package, as `phase_on_tree.py` may run)
+                blocks = ({st: fused_freq_ablate.blocks_per_sm(c, st, dtype)
+                           for st in fused_freq_ablate.STAGES}
+                          if hasattr(fused_freq_ablate, "blocks_per_sm") else {})
+                print(f"[ablation-kernels] freq_ablate {dt} C={c}: attn + ff - copy = "
+                      f"{stage_ms['attn'] + stage_ms['ff'] - stage_ms['copy']:.3f} ms, full "
+                      f"{stage_ms['full']:.3f} ms (device time); blocks per SM "
+                      f"{' '.join(f'{st} {n}' for st, n in blocks.items()) or 'not read'} "
+                      f"[{smi}]", flush=True)
+                check(len(set(blocks.values())) <= 1,
+                      f"freq_ablate {dt} C={c}: blocks per SM differ from full's: {blocks}")
                 del x, params
             torch.cuda.empty_cache()
 
@@ -1378,8 +1463,8 @@ def phase_ablation_kernels(smi: str, only: tuple = ()) -> tuple[dict, dict]:
                         return softmax_variants.attention_variant_ref(q, k, v, mask, vr, gh,
                                                                       mask_col)
 
-                    qk_cols = 33 if var in softmax_variants.FOLDED else 32
-                    pv_cols = 34 if var == "tmxusum" else 33
+                    # the PV product's column of ones is tmxusum's l too
+                    qk_cols, pv_cols = 33 if var in softmax_variants.FOLDED else 32, 33
                     work = (2 * n * n * (qk_cols + pv_cols) * items * gh,
                             4 * items * n * gh * 32 * size)
                     library = None

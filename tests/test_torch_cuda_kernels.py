@@ -944,6 +944,19 @@ def test_freq_ablate_stage(device, dtype, tol, stage, c, f, items):
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("c,f,items", [(32, 32, 5), (64, 16, 7), (128, 8, 37)])
+def test_freq_ablate_stages_add_up(device, dtype, tol, c, f, items):
+    """The cuts are the block's own kernel cut: ff over attn's output is
+    `full` (in bfloat16 up to the rounding of y1 to the dtype)."""
+    from beat_this_tpu_torch.bench import fused_freq_ablate as fa
+
+    x, params, (cos, sin) = fa.make_case(np.random.RandomState(c), c, f, items, device, dtype)
+    y1 = fa.ablate_stage(x, params, "attn", cos, sin)
+    got = fa.ablate_stage(y1, params, "ff", cos, sin)
+    assert _rel(got, fa.ablate_stage(x, params, "full", cos, sin)) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("mode", ["full", "norope", "noexp", "mxu_only"])
 @pytest.mark.parametrize("bh,n,d,block_k,rope", [(3, 200, 32, 64, True), (2, 256, 32, 128, False),
                                                  (4, 77, 16, 32, True)])
@@ -972,7 +985,8 @@ def test_flash_variant(device, dtype, tol, mode, bh, n, d, block_k, rope):
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("variant", ["nosmax", "nomax", "noexp", "b16exp", "full", "kfold", "b16s",
                                      "b16sfold", "tfull", "tmxusum", "tb16sum"])
-@pytest.mark.parametrize("items,n,valid,heads", [(3, 200, 170, 2), (2, 128, 128, 1)])
+@pytest.mark.parametrize("items,n,valid,heads", [(3, 200, 170, 2), (2, 128, 128, 1),
+                                                 (1, 200, 150, 4), (2, 77, 70, 1)])
 def test_attention_variant(device, dtype, tol, variant, items, n, valid, heads):
     from beat_this_tpu_torch.bench import softmax_variants as sv
 
@@ -985,6 +999,30 @@ def test_attention_variant(device, dtype, tol, variant, items, n, valid, heads):
     want = sv.attention_variant_ref(q, k, v, mask, variant, heads, mask_col)
     assert bool(torch.isfinite(got.float()).all())
     assert _rel(got, want) < tol
+
+
+def test_attention_variants_are_pairwise_distinguishable(device):
+    """As tests/test_torch_bench_ablate.py holds the plain versions: bfloat16,
+    half of the keys under a mask of -1.01, so that the mask add, the
+    rounded mask column, the rounded scores, each pass and the denominators
+    all show in the kernels' outputs."""
+    import itertools
+
+    from beat_this_tpu_torch.bench import softmax_variants as sv
+
+    items, n, gh = 2, 128, 2
+    q, k, v = sv.make_qkv(np.random.RandomState(11), items, n, gh, device, torch.bfloat16)
+    mask = torch.zeros(n, device=device)
+    mask[n // 2:] = -1.01
+    outs = {var: sv.attention_variant(q * 4, k * 4, v, mask, var, gh) for var in sv.VARIANTS}
+    same = [{"b16s", "b16sfold"}, {"full", "tmxusum", "tb16sum"}]
+    for a, b in itertools.combinations(sv.VARIANTS, 2):
+        if any({a, b} <= group for group in same):
+            assert _rel(outs[a], outs[b]) < 1e-2, (a, b)
+        else:
+            assert not torch.equal(outs[a], outs[b]), (a, b)
+    for a, b in (("tfull", "tb16sum"), ("full", "kfold")):
+        assert not torch.equal(outs[a], outs[b])
 
 
 @pytest.mark.parametrize("op", ["exp2", "rowmax", "rowsum"])
