@@ -17,9 +17,9 @@
 // (mma.sync m16n8k16, bf16 operands, float32 accumulators; float32 as six
 // bf16 products of operands split in three parts, float32's 24 bits: with
 // two parts, as B5 and B9 take them, the gate bias's gradient, a sum over
-// rows that cancels, missed 1e-4 of the plain version); the attention over
-// F <= 32 keys, a small share of the work, runs one thread per (row, head)
-// on float32 FMAs.
+// rows that cancels, missed 1e-4 of the plain version); so does the
+// attention over F <= 32 keys, on the packed score tile of small_tile.cuh
+// (freq_core.cu, compiled apart).
 //
 //   recompute the attention half from x (x is the only saved activation):
 //   1. operands: W_qkv^T and W_out^T (float32: also W_qkv, W_out split);
@@ -28,10 +28,9 @@
 //                W_g, as the forward);
 //   3. qkv:      g W_qkv^T, whose epilogue rounds q, k, v and applies RoPE to
 //                q and k at position row % F (rounded again);
-//   4. attn:     per (item, head), two walks over the F keys: each query's
-//                maximum m, then p = exp2(s - m), l and o = round_T(p f) v /
-//                l; writes round_T(o), m, l, the mask bits and go =
-//                round_T(o gate) as an operand;
+//   4. attn:     per (item, head) (freq_core.cu), p = exp2(s - m) with m
+//                the row maximum, l and o = round_T(round_T(p f) v / l);
+//                writes o and go = round_T(o gate) as an operand;
 //   5. out:      x2 = x + (go W_out^T) times the output mask, in float32;
 //   the feed-forward half, B9's launches on x2 (ff_train.cuh, float32 rows):
 //   6. d_x2 and the partials of dgamma_ff, dW1, db1, dW2, db2;
@@ -39,9 +38,9 @@
 //   7. d_attn = round_T(d_x2 * output mask) as an operand;
 //   8. d_og = d_attn W_out, whose epilogue writes d_o = round_T(d_og gate)
 //      and the gate logits' cotangent d_z = (d_og . o) sig (1 - sig) per head;
-//   9. attn bwd: per (item, head), delta and dq query-major, then dk and dv
-//      key-major, recomputing p from m and l; d_q, d_k (inverse RoPE, times
-//      32^-0.5) and d_v as an operand;
+//   9. attn bwd: per (item, head) (freq_core.cu), S and p recomputed, ds
+//      and dq query-major, then dk and dv key-major; d_q, d_k (inverse
+//      RoPE, times 32^-0.5) and d_v as an operand;
 //   10. d_g = [d_q | d_k | d_v] W_qkv (float32);
 //   11. post:    per 128 rows, + round_T(d_z) W_g and the RMSNorm backward
 //       for dx = d_x2 + rmsnorm'(d_g), the partials of dgamma_attn, dW_g and
@@ -63,6 +62,7 @@
 #include <algorithm>
 
 #include "ff_train.cuh"
+#include "freq_core.cuh"
 
 namespace {
 
@@ -70,10 +70,7 @@ using mm::kTM;
 using mm::Operand;
 using bf16 = __nv_bfloat16;
 
-constexpr int kHD = bt::kHeadDim;                        // 32
-constexpr float kScale = 0.17677669529663688f;           // 32^-0.5
-constexpr float kQScale = kScale * 1.4426950408889634f;  // 32^-0.5 * log2(e)
-constexpr int kAT = 128;  // threads of an attention block, one (row, head) each
+constexpr int kHD = bt::kHeadDim;  // 32
 
 // Parts of an operand: float32's own precision (mm::full_parts), as the
 // gradients reach the gate bias through four products and the sums over
@@ -382,262 +379,23 @@ __global__ void __launch_bounds__(bt::kThreads) freq_sums_kernel(mm::SumJobs<10>
   mm::column_sums(s);
 }
 
-// -- the attention over F keys --------------------------------------------------
-
-// A block of kAT threads covers RB = kAT / H rows, thread (r, h) = (tid / H,
-// tid % H); F divides 32 and so RB, so items lie whole in a block. A head's
-// rows of q, k, v or d_o sit in shared memory at h HS + 32 r, HS = 32 RB + 8:
-// the threads of a warp read the same row of a head (broadcast), and the
-// heads of a warp fall in different banks.
-template <int C> struct AttnMap {
-  static constexpr int H = C / kHD, RB = kAT / H, HS = RB * kHD + 8, FLOATS = H * HS;
-};
-
-// Columns [0, C) of rows [row0, row0 + nrows) of a (rows, ld) matrix into
-// the head tiles `dst`, zeros past nrows.
-template <int C, typename T>
-__device__ __forceinline__ void stage_heads(float* dst, const T* __restrict__ src, int64_t ld,
-                                            int64_t row0, int nrows) {
-  using AM = AttnMap<C>;
-  for (int e = threadIdx.x; e < AM::RB * C; e += kAT) {
-    const int r = e / C, c = e % C;
-    dst[(c / kHD) * AM::HS + r * kHD + c % kHD] =
-        r < nrows ? bt::to_f(src[(row0 + r) * ld + c]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_row(float (&v)[kHD], const float* p) {
-#pragma unroll
-  for (int d = 0; d < kHD; d += 4) {
-    const float4 w = *reinterpret_cast<const float4*>(p + d);
-    v[d] = w.x, v[d + 1] = w.y, v[d + 2] = w.z, v[d + 3] = w.w;
-  }
-}
-
-__device__ __forceinline__ float dot(const float (&a)[kHD], const float* p) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < kHD; d += 4) {
-    const float4 w = *reinterpret_cast<const float4*>(p + d);
-    s += a[d] * w.x;
-    s += a[d + 1] * w.y;
-    s += a[d + 2] * w.z;
-    s += a[d + 3] * w.w;
-  }
-  return s;
-}
-
-// The keep factor of key j from a row's mask bits (1 when dropout is off).
-__device__ __forceinline__ float keep_of(const bt::Dropout& d, uint32_t bits, int j) {
-  return !d.on ? 1.f : (bits >> j) & 1u ? d.scale : 0.f;
-}
-
-// The forward recomputed, one thread per (row, head): walk 1 finds the
-// query's largest score m (log2 units), walk 2 forms p = exp2(s - m), sums
-// the undropped p into l and accumulates round_T(p f) v. Writes round_T(o /
-// l) into o (rows, C) of T, go = round_T(o gate) as an operand (parts `lo`
-// apart), m, l and the mask bits (bit j: key j kept) per (row, head).
-template <int C, typename T>
-__global__ void __launch_bounds__(kAT)
-    freq_core_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ sig,
-                         T* __restrict__ o, bf16* __restrict__ go, int64_t lo,
-                         float* __restrict__ mrow, float* __restrict__ lrow,
-                         uint32_t* __restrict__ keep, int64_t rows, int F, bt::Dropout drop) {
-  constexpr int P = kParts<T>;
-  using AM = AttnMap<C>;
-  constexpr int H = AM::H;
-  __shared__ __align__(16) float ks[AM::FLOATS];
-  __shared__ __align__(16) float vs[AM::FLOATS];
-  const int64_t row0 = (int64_t)blockIdx.x * AM::RB;
-  const int nrows = (int)min((int64_t)AM::RB, rows - row0);
-  stage_heads<C, T>(ks, qkv + C, 3 * C, row0, nrows);
-  stage_heads<C, T>(vs, qkv + 2 * C, 3 * C, row0, nrows);
-  __syncthreads();
-  const int r = threadIdx.x / H, h = threadIdx.x % H;
-  if (r >= nrows) return;
-  const int64_t row = row0 + r;
-  const int first = r - r % F;
-  const float* kh = ks + h * AM::HS;
-  const float* vh = vs + h * AM::HS;
-  float qv[kHD], acc[kHD];
-#pragma unroll
-  for (int d = 0; d < kHD; ++d) {
-    qv[d] = bt::to_f(qkv[row * 3 * C + h * kHD + d]) * kQScale;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY;
-  for (int j = first; j < first + F; ++j) m = fmaxf(m, dot(qv, kh + j * kHD));
-  uint32_t bits = 0u;
-  if (drop.on)
-    for (int c4 = 0; 4 * c4 < F; ++c4) {
-      float f[4];
-      bt::keep4(drop, bt::kSiteAttnProbs, (uint32_t)(row / F), h, r % F, c4, f);
-      for (int c = 0; c < 4 && 4 * c4 + c < F; ++c) bits |= (f[c] != 0.f ? 1u : 0u) << (4 * c4 + c);
-    }
-  float l = 0.f;
-  for (int jj = 0; jj < F; ++jj) {
-    const int j = first + jj;
-    const float p = exp2f(dot(qv, kh + j * kHD) - m);
-    l += p;
-    const float pd = bt::round_to<T>(p * keep_of(drop, bits, jj));
-    const float* vr = vh + j * kHD;
-#pragma unroll
-    for (int d = 0; d < kHD; ++d) acc[d] += pd * vr[d];
-  }
-  mrow[row * H + h] = m;
-  lrow[row * H + h] = l;
-  keep[row * H + h] = bits;
-  const float gate = bt::round_to<T>(sig[row * H + h]);
-  const int64_t at = row * C + h * kHD;
-#pragma unroll
-  for (int d = 0; d < kHD; d += 2) {
-    const float o0 = bt::round_to<T>(acc[d] / l), o1 = bt::round_to<T>(acc[d + 1] / l);
-    o[at + d] = bt::from_f<T>(o0);
-    o[at + d + 1] = bt::from_f<T>(o1);
-    mm::store2<P>(go + at + d, lo, o0 * gate, o1 * gate);
-  }
-}
-
-// d_q, d_k (pair i of position pos pulled back through the rotation, times
-// 32^-0.5) and d_v of one (row, head) stored as operand parts.
-template <int P>
-__device__ __forceinline__ void store_rope_inv(bf16* dst, int64_t lo, const float (&g)[kHD],
-                                               const float* __restrict__ cosv,
-                                               const float* __restrict__ sinv, int pos) {
-#pragma unroll
-  for (int i = 0; i < kHD / 2; ++i) {
-    const float cs = cosv[pos * (kHD / 2) + i], sn = sinv[pos * (kHD / 2) + i];
-    mm::store2<P>(dst + 2 * i, lo, (g[2 * i] * cs + g[2 * i + 1] * sn) * kScale,
-                      (g[2 * i + 1] * cs - g[2 * i] * sn) * kScale);
-  }
-}
-
-template <int C>
-constexpr size_t core_bwd_smem() {
-  return sizeof(float) * (4 * AttnMap<C>::FLOATS + 3 * kAT) + sizeof(uint32_t) * kAT;
-}
-
-// The attention's backward, one thread per (row, head): as the query, delta
-// = sum_j p_j dp_j f_j (dp_j = d_o . v_j) and dq = sum_j ds_j k_j with ds =
-// round_T(p (dp f - delta)); then as the key, dk = sum_q ds q and dv = sum_q
-// round_T(p f) d_o_q, recomputing each p from the query's m and l. Writes
-// [d_q | d_k | d_v] into dqkv (rows, 3C) as an operand (parts `dlo` apart).
-template <int C, typename T>
-__global__ void __launch_bounds__(kAT)
-    freq_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dO,
-                         const float* __restrict__ mrow, const float* __restrict__ lrow,
-                         const uint32_t* __restrict__ keep, const float* __restrict__ cosv,
-                         const float* __restrict__ sinv, bf16* __restrict__ dqkv, int64_t dlo,
-                         int64_t rows, int F, bt::Dropout drop) {
-  constexpr int P = kParts<T>;
-  using AM = AttnMap<C>;
-  constexpr int H = AM::H;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = qs + AM::FLOATS;
-  float* vs = ks + AM::FLOATS;
-  float* dos = vs + AM::FLOATS;
-  float* ms = dos + AM::FLOATS;  // per thread (r, h): m, l, delta, mask bits
-  float* ls = ms + kAT;
-  float* deltas = ls + kAT;
-  uint32_t* bitss = reinterpret_cast<uint32_t*>(deltas + kAT);
-  const int64_t row0 = (int64_t)blockIdx.x * AM::RB;
-  const int nrows = (int)min((int64_t)AM::RB, rows - row0);
-  stage_heads<C, T>(qs, qkv, 3 * C, row0, nrows);
-  stage_heads<C, T>(ks, qkv + C, 3 * C, row0, nrows);
-  stage_heads<C, T>(vs, qkv + 2 * C, 3 * C, row0, nrows);
-  stage_heads<C, T>(dos, dO, C, row0, nrows);
-  const int tid = threadIdx.x, r = tid / H, h = tid % H;
-  const bool active = r < nrows;
-  const int64_t row = row0 + r;
-  if (active) {
-    ms[tid] = mrow[row * H + h];
-    ls[tid] = lrow[row * H + h];
-    bitss[tid] = keep[row * H + h];
-  }
-  __syncthreads();
-  const int first = r - r % F, pos = r % F;
-  const float* qh = qs + h * AM::HS;
-  const float* kh = ks + h * AM::HS;
-  const float* vh = vs + h * AM::HS;
-  const float* doh = dos + h * AM::HS;
-  bf16* dst = dqkv + row * 3 * C + h * kHD;
-  if (active) {
-    float qv[kHD], dor[kHD], g[kHD];
-    load_row(dor, doh + r * kHD);
-#pragma unroll
-    for (int d = 0; d < kHD; ++d) {
-      qv[d] = qh[r * kHD + d] * kQScale;
-      g[d] = 0.f;
-    }
-    const float m = ms[tid], linv = 1.f / ls[tid];
-    const uint32_t bits = bitss[tid];
-    float delta = 0.f;
-    for (int jj = 0; jj < F; ++jj) {
-      const int j = first + jj;
-      const float p = exp2f(dot(qv, kh + j * kHD) - m) * linv;
-      delta += p * dot(dor, vh + j * kHD) * keep_of(drop, bits, jj);
-    }
-    deltas[tid] = delta;
-    for (int jj = 0; jj < F; ++jj) {
-      const int j = first + jj;
-      const float p = exp2f(dot(qv, kh + j * kHD) - m) * linv;
-      const float dp = dot(dor, vh + j * kHD);
-      const float ds = bt::round_to<T>(p * (dp * keep_of(drop, bits, jj) - delta));
-      const float* kr = kh + j * kHD;
-#pragma unroll
-      for (int d = 0; d < kHD; ++d) g[d] += ds * kr[d];
-    }
-    store_rope_inv<P>(dst, dlo, g, cosv, sinv, pos);
-  }
-  __syncthreads();  // every query's delta is in shared memory
-  if (!active) return;
-  float kv[kHD], vv[kHD], dk[kHD], dv[kHD];
-  load_row(kv, kh + r * kHD);
-  load_row(vv, vh + r * kHD);
-#pragma unroll
-  for (int d = 0; d < kHD; ++d) dk[d] = dv[d] = 0.f;
-  for (int qi = first; qi < first + F; ++qi) {
-    const float* qr = qh + qi * kHD;
-    const float* dor = doh + qi * kHD;
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < kHD; ++d) s += qr[d] * kQScale * kv[d];  // the forward's score
-    const int at = qi * H + h;
-    const float p = exp2f(s - ms[at]) / ls[at];
-    const float f = keep_of(drop, bitss[at], pos);
-    const float ds = bt::round_to<T>(p * (dot(vv, dor) * f - deltas[at]));
-    const float pd = bt::round_to<T>(p * f);
-#pragma unroll
-    for (int d = 0; d < kHD; ++d) {
-      dk[d] += ds * qr[d];
-      dv[d] += pd * dor[d];
-    }
-  }
-  store_rope_inv<P>(dst + C, dlo, dk, cosv, sinv, pos);
-#pragma unroll
-  for (int d = 0; d < kHD; d += 2) mm::store2<P>(dst + 2 * C + d, dlo, dv[d], dv[d + 1]);
-}
-
 // -- scratch layout and launches ---------------------------------------------
 
 // The backward's scratch (on a null base: its size alone): B9's layout
 // (ff::BwdLayout, operands of P parts) first, then in float32 only W_qkv and
 // W_out split (P parts of 3C C and C C); bf16 operands (P = 3 parts in
-// float32, 1 in bf16) W_qkv^T
-// (P C 3C), W_out^T (P C C), g and go (P rows C each); q | k | v (rows 3C)
-// and the rounded attention output (rows C) of T; float32 row norms (rows),
-// gates, m, l (rows H each), the mask bits (rows H), x2 (rows C; d_g once the
-// FF half is done), d_x2 (rows C); the partials of dgamma_attn (tiles C),
-// dW_g (tiles H C), db_g (tiles H) per 128-row tile and of dW_qkv (groups 3C
-// C) and dW_out (groups C C). d_attn, d_o, d_z and d_qkv take the space of
+// float32, 1 in bf16) W_qkv^T (P C 3C), W_out^T (P C C), g and go (P rows C
+// each); q | k | v (rows 3C) and the rounded attention output (rows C) of
+// T; float32 row norms (rows), gates (rows H), x2 (rows C; d_g once the FF
+// half is done), d_x2 (rows C); the partials of dgamma_attn (tiles C), dW_g
+// (tiles H C), db_g (tiles H) per 128-row tile and of dW_qkv (groups 3C C)
+// and dW_out (groups C C). d_attn, d_o, d_z and d_qkv take the space of
 // B9's first sections, free once the FF half is done.
 template <typename T> struct Layout {
   ff::BwdLayout fs;  // B9's
   bf16 *wqkv, *wout, *wqkvt, *woutt, *g, *go, *da, *dqkv;
   T *qkv, *o, *dO;
-  float *rn, *sig, *mrow, *lrow, *x2, *dg, *dx2, *dz;
-  uint32_t* keep;
+  float *rn, *sig, *x2, *dg, *dx2, *dz;
   float *dgap, *dwgp, *dbgp, *dwqp, *dwop;
   int64_t groups;
   size_t bytes, late_bytes;
@@ -656,9 +414,6 @@ template <typename T> struct Layout {
     o = c.take<T>(rows * C);
     rn = c.take<float>(rows);
     sig = c.take<float>(rows * H);
-    mrow = c.take<float>(rows * H);
-    lrow = c.take<float>(rows * H);
-    keep = c.take<uint32_t>(rows * H);
     x2 = dg = c.take<float>(rows * C);
     dx2 = c.take<float>(rows * C);
     dgap = c.take<float>(tiles * C);
@@ -698,10 +453,8 @@ cudaError_t launch_bwd(const Layout<T>& s, const T* x, const float* agamma, cons
                        bt::Dropout drop, cudaStream_t stream) {
   constexpr int P = kParts<T>;
   constexpr int H = C / kHD, BN = mm::product_n(C);
-  using AM = AttnMap<C>;
   const int64_t rlo = rows * C, tiles = s.fs.tiles;
   const unsigned mtiles = (unsigned)tiles, ntiles = (C + BN - 1) / BN;
-  const unsigned ablocks = (unsigned)((rows + AM::RB - 1) / AM::RB);
   const size_t smem_nn = mm::product_smem<false, BN, P>();
   cudaError_t err;
 
@@ -728,9 +481,9 @@ cudaError_t launch_bwd(const Layout<T>& s, const T* x, const float* agamma, cons
       C, F);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  freq_core_fwd_kernel<C, T><<<ablocks, kAT, 0, stream>>>(s.qkv, s.sig, s.o, s.go, rlo, s.mrow,
-                                                          s.lrow, s.keep, rows, F, drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = fc::core_fwd<T>(s.qkv, s.sig, s.o, s.go, rlo, rows, C, F, drop, stream)) !=
+      cudaSuccess)
+    return err;
 
   auto ko = freq_out_kernel<BN, T>;
   if ((err = bt::allow_smem(ko, smem_nn)) != cudaSuccess) return err;
@@ -755,11 +508,9 @@ cudaError_t launch_bwd(const Layout<T>& s, const T* x, const float* agamma, cons
                                                               s.o, s.sig, s.dO, s.dz, rows, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  auto kb = freq_core_bwd_kernel<C, T>;
-  if ((err = bt::allow_smem(kb, core_bwd_smem<C>())) != cudaSuccess) return err;
-  kb<<<ablocks, kAT, core_bwd_smem<C>(), stream>>>(s.qkv, s.dO, s.mrow, s.lrow, s.keep, cosv,
-                                                    sinv, s.dqkv, 3 * rlo, rows, F, drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = fc::core_bwd<T>(s.qkv, s.dO, cosv, sinv, s.dqkv, 3 * rlo, rows, C, F, drop,
+                             stream)) != cudaSuccess)
+    return err;
 
   // 10. d_g = d_qkv W_qkv
   const mm::ProductJob dgj{Operand{s.dqkv, 3 * C, 3 * rlo}, wqkv_op, s.dg, C, 0, rows, C,

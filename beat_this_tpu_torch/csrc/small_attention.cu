@@ -62,22 +62,10 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;
-constexpr int kNT = 32 * kWarps;  // threads per block
-constexpr int kTM = 16 * kWarps;  // rows per block
-
-// A tile of kTM rows of N values as P bf16 parts: part p of row r at r LD +
-// p LO. LD is an odd number of 16-byte units, so the 8 rows an ldmatrix
-// reads fall in 8 different bank groups.
-template <int N, int P> struct Rows {
-  static constexpr int LO = N + 8;
-  static constexpr int LD = P * LO + (P % 2 ? 0 : 8);
-  static constexpr int ELEMS = kTM * LD;
-};
-
-// The keys of a warp's score tile: the 16 rows of its own items, or the 32
-// of the item its rows belong to.
-template <int F> constexpr int kKeys = F <= 16 ? 16 : 32;
+using st::kNT;
+using st::kTM;
+using st::kKeys;
+using st::Rows;
 
 // bf16 parts of an operand: the forward's at float32's own precision, the
 // backward's about 16 bits (tests/test_torch_small_tc_design.py).
@@ -89,209 +77,6 @@ constexpr int kDvParts = 3;
 template <typename T> constexpr int kFwdParts = mm::full_parts<T>();
 template <typename T> constexpr int kBwdParts = mm::split_parts<T>();
 
-// A block's rows of an (rows, D) tensor of T in 16-byte chunks, N a thread:
-// chunk i of this thread at tile row row(i), columns col(i) .. + PER - 1.
-template <int D, typename T> struct Chunks {
-  static constexpr int PER = 16 / sizeof(T);
-  static constexpr int ROW = D / PER;  // chunks per row
-  static constexpr int N = kTM * ROW / kNT;
-  static_assert(N * kNT == kTM * ROW, "a block's chunks spread evenly over its threads");
-  uint4 c[N];
-
-  __device__ __forceinline__ static int row(int i) { return (threadIdx.x + i * kNT) / ROW; }
-  __device__ __forceinline__ static int col(int i) { return (threadIdx.x + i * kNT) % ROW * PER; }
-
-  // zeros past nrows
-  __device__ __forceinline__ void load(const T* __restrict__ src, int64_t row0, int nrows) {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      c[i] = row(i) < nrows
-                 ? __ldg(reinterpret_cast<const uint4*>(src + (row0 + row(i)) * D + col(i)))
-                 : make_uint4(0u, 0u, 0u, 0u);
-  }
-
-  __device__ __forceinline__ void values(int i, float (&x)[PER]) const {
-    if constexpr (sizeof(T) == 4) {
-      x[0] = __uint_as_float(c[i].x);
-      x[1] = __uint_as_float(c[i].y);
-      x[2] = __uint_as_float(c[i].z);
-      x[3] = __uint_as_float(c[i].w);
-    } else {
-      const uint32_t w[4] = {c[i].x, c[i].y, c[i].z, c[i].w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = bt::unpack_bf16(w[e]);
-        x[2 * e] = f.x;
-        x[2 * e + 1] = f.y;
-      }
-    }
-  }
-};
-
-// The rotation of the pairs in columns col .. col + 2 H - 1 of a row at
-// position pos: cos and sin, 1 and 0 without tables.
-template <int D, int H> struct Angles {
-  float cs[H], sn[H];
-
-  __device__ __forceinline__ Angles(const float* __restrict__ cosv,
-                                    const float* __restrict__ sinv, int pos, int col) {
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const int at = pos * (D / 2) + col / 2 + i;
-      cs[i] = cosv == nullptr ? 1.f : __ldg(cosv + at);
-      sn[i] = cosv == nullptr ? 0.f : __ldg(sinv + at);
-    }
-  }
-
-  // x rotated by RoPE
-  __device__ __forceinline__ void rotate(float (&x)[2 * H]) const {
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const float a = x[2 * i], b = x[2 * i + 1];
-      x[2 * i] = a * cs[i] - b * sn[i];
-      x[2 * i + 1] = b * cs[i] + a * sn[i];
-    }
-  }
-};
-
-// round_T(x mul) as P bf16 parts at dst, `lo` apart.
-template <typename T, int P, int PER>
-__device__ __forceinline__ void put(bf16* dst, int lo, const float (&x)[PER], float mul = 1.f) {
-  float r[PER];
-#pragma unroll
-  for (int e = 0; e < PER; ++e) r[e] = bt::round_to<T>(x[e] * mul);
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    uint32_t w[PER / 2];
-#pragma unroll
-    for (int e = 0; e < PER / 2; ++e) {
-      w[e] = bt::pack_bf16(r[2 * e], r[2 * e + 1]);
-      if (p + 1 < P) {
-        const float2 h = bt::unpack_bf16(w[e]);
-        r[2 * e] -= h.x;
-        r[2 * e + 1] -= h.y;
-      }
-    }
-    if constexpr (PER == 4)
-      *reinterpret_cast<uint2*>(dst + p * lo) = make_uint2(w[0], w[1]);
-    else
-      *reinterpret_cast<uint4*>(dst + p * lo) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
-// The C fragments o of the warp's 16 rows out through `stage` (the warp's
-// own shared memory, row stride sd) to rows row0 .. row0 + nrows - 1 (at
-// most 16) of dst, 16 bytes a lane and store.
-template <int D, typename T>
-__device__ __forceinline__ void write_rows(T* __restrict__ dst, T* stage, int sd, int64_t row0,
-                                           int nrows, const float (&o)[D / 8][4]) {
-  constexpr int PER = 16 / sizeof(T), ROW = D / PER;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  __syncwarp();  // the warp is done reading what `stage` held
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      T* p = stage + (g + 8 * hh) * sd + 8 * j + 2 * t;
-      if constexpr (sizeof(T) == 4)
-        *reinterpret_cast<float2*>(p) = make_float2(o[j][2 * hh], o[j][2 * hh + 1]);
-      else
-        *reinterpret_cast<uint32_t*>(p) = bt::pack_bf16(o[j][2 * hh], o[j][2 * hh + 1]);
-    }
-  __syncwarp();
-#pragma unroll
-  for (int e = lane; e < 16 * ROW; e += 32) {
-    const int r = e / ROW, c = e % ROW * PER;
-    if (r < nrows)
-      *reinterpret_cast<uint4*>(dst + (row0 + r) * D + c) =
-          *reinterpret_cast<const uint4*>(stage + r * sd + c);
-  }
-}
-
-// g (the warp's rows r0 + g, r0 + g + 8 at positions row % F; columns 8 j +
-// 2 t, + 1) pulled back through the rotation (its transpose) times `mul`,
-// rounded to T.
-template <int F, int D, typename T>
-__device__ __forceinline__ void pull_back(float (&x)[D / 8][4], int r0,
-                                          const float* __restrict__ cosv,
-                                          const float* __restrict__ sinv, float mul) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int pos = (r0 + g + 8 * hh) % F;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int at = pos * (D / 2) + 4 * j + t;
-      const float cs = cosv == nullptr ? 1.f : __ldg(cosv + at);
-      const float sn = cosv == nullptr ? 0.f : __ldg(sinv + at);
-      const float a = x[j][2 * hh], b = x[j][2 * hh + 1];
-      x[j][2 * hh] = bt::round_to<T>((a * cs + b * sn) * mul);
-      x[j][2 * hh + 1] = bt::round_to<T>((b * cs - a * sn) * mul);
-    }
-  }
-}
-
-// The warp's 16 x NK probabilities: s = Q K^T over the group (queries from
-// row rw of qs, keys from row grp of ks), masked to each row's item; s
-// becomes exp2(s - m), zero off the item, and l the rows' sums over the
-// quad (the warp's rows start qb rows into the group).
-template <int F, int D, int P>
-__device__ __forceinline__ void probabilities(float (&s)[kKeys<F> / 8][4], float (&l)[2],
-                                              const bf16* qs, const bf16* ks, int rw, int grp) {
-  using R = Rows<D, P>;
-  constexpr int NK = kKeys<F>;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, qb = rw - grp;
-  tc::zero_frags(s);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[P][4];
-    st::load_a<P>(a, qs, R::LO, R::LD, rw, 16 * kk);
-#pragma unroll
-    for (int np = 0; np < NK / 16; ++np)
-      st::mma_nt<P>(s[2 * np], s[2 * np + 1], a, ks + grp * R::LD, R::LO, R::LD, np, 16 * kk);
-  }
-  float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < NK / 8; ++j)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if ((8 * j + 2 * t + e) / F == (qb + g + 8 * hh) / F)
-          m[hh] = fmaxf(m[hh], s[j][2 * hh + e]);
-  l[0] = l[1] = 0.f;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    m[hh] = tc::quad_max(m[hh]);
-#pragma unroll
-    for (int j = 0; j < NK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool in = (8 * j + 2 * t + e) / F == (qb + g + 8 * hh) / F;
-        const float p = in ? tc::fast_exp2(s[j][2 * hh + e] - m[hh]) : 0.f;
-        l[hh] += p;
-        s[j][2 * hh + e] = p;
-      }
-    l[hh] = tc::quad_sum(l[hh]);
-  }
-}
-
-// The keep factors' bits of the warp's scores (prob_bits), all set without
-// dropout; item e of the rows at Philox (e / heads, e % heads).
-template <int F>
-__device__ __forceinline__ void keep_bits(const bt::Dropout& drop, int64_t grow0, int qb,
-                                          int heads, uint32_t (&bits)[2]) {
-  bits[0] = bits[1] = ~0u;
-  if (!drop.on) return;
-  const int ql = st::draw_row(qb);
-  const int64_t e = (grow0 + ql) / F;
-  st::prob_bits<kKeys<F>>(drop, ql, (uint32_t)(e / heads), (uint32_t)(e % heads), F, bits);
-}
-
-__device__ __forceinline__ float keep_factor(const bt::Dropout& drop, uint32_t bits, int bit) {
-  return !drop.on ? 1.f : ((bits >> bit) & 1u) ? drop.scale : 0.f;
-}
-
 template <int F, int D, typename T>
 __global__ void __launch_bounds__(kNT)
     small_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -299,7 +84,7 @@ __global__ void __launch_bounds__(kNT)
                      T* __restrict__ o, int64_t rows, int heads, bt::Dropout drop) {
   constexpr int P = kFwdParts<T>, NK = kKeys<F>;
   using R = Rows<D, P>;
-  using C = Chunks<D, T>;
+  using C = st::Chunks<D, T>;
   extern __shared__ __align__(16) unsigned char smem_b[];
   bf16* qs = reinterpret_cast<bf16*>(smem_b);  // then o, staged
   bf16* ks = qs + R::ELEMS;
@@ -310,35 +95,36 @@ __global__ void __launch_bounds__(kNT)
   uint32_t bits[2];
   {
     C cq, ck, cv;
-    cq.load(q, row0, nrows);
-    ck.load(k, row0, nrows);
-    cv.load(v, row0, nrows);
-    keep_bits<F>(drop, row0 + grp, rw - grp, heads, bits);  // while the loads are in flight
+    cq.load(q, D, row0, nrows);
+    ck.load(k, D, row0, nrows);
+    cv.load(v, D, row0, nrows);
+    // while the loads are in flight
+    st::keep_bits<F>(drop, row0 + grp, rw - grp, heads, 0, bits);
 #pragma unroll
     for (int i = 0; i < C::N; ++i) {
       const int r = C::row(i), c = C::col(i);
-      const Angles<D, C::PER / 2> rope(cosv, sinv, r % F, c);
+      const st::Angles<D, C::PER / 2> rope(cosv, sinv, r % F, c);
       float x[C::PER];
       cq.values(i, x);
       rope.rotate(x);
-      put<T, P>(qs + r * R::LD + c, R::LO, x, bt::qscale<D>());
+      st::put<T, P>(qs + r * R::LD + c, R::LO, x, bt::qscale<D>());
       ck.values(i, x);
       rope.rotate(x);
-      put<T, P>(ks + r * R::LD + c, R::LO, x);
+      st::put<T, P>(ks + r * R::LD + c, R::LO, x);
       cv.values(i, x);
-      put<T, P>(vs + r * R::LD + c, R::LO, x);
+      st::put<T, P>(vs + r * R::LD + c, R::LO, x);
     }
   }
   __syncthreads();
 
   float s[NK / 8][4], l[2];
-  probabilities<F, D, P>(s, l, qs, ks, rw, grp);
+  st::probabilities<F, D, P>(s, l, qs, ks, rw, grp);
 #pragma unroll
   for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) s[j][2 * hh + e] *= keep_factor(drop, bits[hh], 2 * j + e);
+      for (int e = 0; e < 2; ++e) s[j][2 * hh + e] *= st::keep_factor(drop, bits[hh], 2 * j + e);
   // o = round_T(round_T(p f) V / l)
   float acc[D / 8][4];
   tc::zero_frags(acc);
@@ -348,10 +134,7 @@ __global__ void __launch_bounds__(kNT)
 #pragma unroll
     for (int kk = 0; kk < NK / 16; ++kk) {
       uint32_t ak[P][4];
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ak[p][i] = pa[p][kk][i];
+      st::kstep(ak, pa, kk);
 #pragma unroll
       for (int c = 0; c < D / 16; ++c)
         st::mma_nn<P>(acc[2 * c], acc[2 * c + 1], ak, vs + grp * R::LD, R::LO, R::LD, 16 * kk,
@@ -367,7 +150,8 @@ __global__ void __launch_bounds__(kNT)
   // o leaves through the warp's own rows of q's tile, which no other warp reads
   constexpr int SD = D + C::PER;
   static_assert(sizeof(T) * SD <= sizeof(bf16) * R::LD, "a result row fits in a tile's row");
-  write_rows<D, T>(o, reinterpret_cast<T*>(qs + rw * R::LD), SD, row0 + rw, nrows - rw, acc);
+  st::write_rows<D, T>(o, D, reinterpret_cast<T*>(qs + rw * R::LD), SD, row0 + rw, nrows - rw,
+                          acc);
 }
 
 template <int F, int D, typename T>
@@ -381,7 +165,7 @@ __global__ void __launch_bounds__(kNT)
   using RK = Rows<NK, P>;
   using RV = Rows<D, kDvParts>;
   using RKV = Rows<NK, kDvParts>;
-  using C = Chunks<D, T>;
+  using C = st::Chunks<D, T>;
   extern __shared__ __align__(16) unsigned char smem_b[];
   bf16* qs = reinterpret_cast<bf16*>(smem_b);  // q rotated, scaled, rounded
   bf16* ks = qs + R::ELEMS;
@@ -397,26 +181,27 @@ __global__ void __launch_bounds__(kNT)
   uint32_t bits[2];
   {
     C cq, ck, cv, cd;
-    cq.load(q, row0, nrows);
-    ck.load(k, row0, nrows);
-    cv.load(v, row0, nrows);
-    cd.load(dout, row0, nrows);
-    keep_bits<F>(drop, row0 + grp, qb, heads, bits);  // while the loads are in flight
+    cq.load(q, D, row0, nrows);
+    ck.load(k, D, row0, nrows);
+    cv.load(v, D, row0, nrows);
+    cd.load(dout, D, row0, nrows);
+    // while the loads are in flight
+    st::keep_bits<F>(drop, row0 + grp, qb, heads, 0, bits);
 #pragma unroll
     for (int i = 0; i < C::N; ++i) {
       const int r = C::row(i), c = C::col(i);
-      const Angles<D, C::PER / 2> rope(cosv, sinv, r % F, c);
+      const st::Angles<D, C::PER / 2> rope(cosv, sinv, r % F, c);
       float x[C::PER];
       cq.values(i, x);
       rope.rotate(x);
-      put<T, P>(qs + r * R::LD + c, R::LO, x, bt::qscale<D>());
+      st::put<T, P>(qs + r * R::LD + c, R::LO, x, bt::qscale<D>());
       ck.values(i, x);
       rope.rotate(x);
-      put<T, P>(ks + r * R::LD + c, R::LO, x);
+      st::put<T, P>(ks + r * R::LD + c, R::LO, x);
       cv.values(i, x);
-      put<T, P>(vs + r * R::LD + c, R::LO, x);
+      st::put<T, P>(vs + r * R::LD + c, R::LO, x);
       cd.values(i, x);
-      put<T, P>(dos + r * R::LD + c, R::LO, x);
+      st::put<T, P>(dos + r * R::LD + c, R::LO, x);
     }
   }
   __syncthreads();
@@ -428,7 +213,7 @@ __global__ void __launch_bounds__(kNT)
   T* stage = reinterpret_cast<T*>(dos + rw * R::LD);
   {
     float s[NK / 8][4], l[2];
-    probabilities<F, D, P>(s, l, qs, ks, rw, grp);
+    st::probabilities<F, D, P>(s, l, qs, ks, rw, grp);
     // dp = dO V^T over the group's keys
     float dp[NK / 8][4];
     tc::zero_frags(dp);
@@ -454,7 +239,7 @@ __global__ void __launch_bounds__(kNT)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
           delta[hh] += bt::round_to<T>(s[j][2 * hh + e] *
-                                       keep_factor(drop, bits[hh], 2 * j + e)) *
+                                       st::keep_factor(drop, bits[hh], 2 * j + e)) *
                        dp[j][2 * hh + e];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) delta[hh] = tc::quad_sum(delta[hh]) / l[hh];
@@ -464,7 +249,7 @@ __global__ void __launch_bounds__(kNT)
       for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float p = s[j][2 * hh + e], f = keep_factor(drop, bits[hh], 2 * j + e);
+          const float p = s[j][2 * hh + e], f = st::keep_factor(drop, bits[hh], 2 * j + e);
           s[j][2 * hh + e] =
               bt::round_to<T>(kLn2 * (p / l[hh]) * (f * dp[j][2 * hh + e] - delta[hh]));
           dp[j][2 * hh + e] = bt::round_to<T>(p * f);
@@ -502,17 +287,14 @@ __global__ void __launch_bounds__(kNT)
 #pragma unroll
     for (int kk = 0; kk < NK / 16; ++kk) {
       uint32_t ak[P][4];
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ak[p][i] = da[p][kk][i];
+      st::kstep(ak, da, kk);
 #pragma unroll
       for (int c = 0; c < D / 16; ++c)
         st::mma_nn<P>(dq[2 * c], dq[2 * c + 1], ak, ks + grp * R::LD, R::LO, R::LD, 16 * kk,
                       16 * c);
     }
-    pull_back<F, D, T>(dq, rw, cosv, sinv, bt::qscale<D>());
-    write_rows<D, T>(dq_out, stage, SD, row0 + rw, nrows - rw, dq);
+    st::pull_back<F, D, T>(dq, rw, cosv, sinv, bt::qscale<D>());
+    st::write_rows<D, T>(dq_out, D, stage, SD, row0 + rw, nrows - rw, dq);
   }
   __syncthreads();  // ds, p f and dout / l of both warps of a group
 
@@ -535,13 +317,13 @@ __global__ void __launch_bounds__(kNT)
       st::mma_nn<kDvParts>(dv[2 * c], dv[2 * c + 1], av, dls + grp * RV::LD, RV::LO, RV::LD,
                            16 * kk, 16 * c);
   }
-  pull_back<F, D, T>(dk, rw, cosv, sinv, 1.f);
+  st::pull_back<F, D, T>(dk, rw, cosv, sinv, 1.f);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dv[j][e] = bt::round_to<T>(dv[j][e]);
-  write_rows<D, T>(dk_out, stage, SD, row0 + rw, nrows - rw, dk);
-  write_rows<D, T>(dv_out, stage, SD, row0 + rw, nrows - rw, dv);
+  st::write_rows<D, T>(dk_out, D, stage, SD, row0 + rw, nrows - rw, dk);
+  st::write_rows<D, T>(dv_out, D, stage, SD, row0 + rw, nrows - rw, dv);
 }
 
 // Shared-memory bytes of the forward (q, k, v tiles) and the backward (q, k,

@@ -10,21 +10,56 @@
 //
 // Bound on the H100: bytes (rows * cols * 4 read, rows * out_cols * 4
 // written; one exp2 or one compare or add per element is far below the
-// arithmetic rate). One warp per row, 8 rows per 256-thread block: a warp
-// reads its row in coalesced 128-byte steps, reduces with shuffles and
-// writes the row's out_cols values coalesced.
+// arithmetic rate). So the design keeps enough bytes in flight to near the
+// memory's rate: one warp a row, 8 rows a 256-thread block, a block for
+// every 8 rows (the hardware hands out the blocks as SMs free up, which
+// keeps every SM busy to the end; a grid of resident blocks striding over
+// the rows left SMs idle in its last rounds); a lane issues kVec 16-byte
+// loads of its row before it uses any (a 1536-column row is all in flight
+// at once), reduces them in registers and then across the warp by
+// shuffles, and the warp writes the row's out_cols values as 16-byte
+// stores. Loads and stores are streaming (evict-first: each byte is touched
+// once). Rows whose start is not 16-byte aligned (cols not a multiple of 4)
+// take one 4-byte load a lane and step.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kExp2 = 0, kRowMax = 1, kRowSum = 2;
 constexpr int kWarps = bt::kThreads / 32;
+constexpr int kVec = 12;  // 16-byte loads a lane has in flight
 
 // A sum no input reaches: the exp2 of the columns that are not kept is added
 // up and stored only if the sum equals it, so the compiler cannot drop that
 // work (it could, were the store under a launch argument: it would test the
 // argument first and skip the loads).
 constexpr float kNever = 1.0e30f;
+
+template <int OP> __device__ __forceinline__ float combine(float a, float b) {
+  return OP == kRowMax ? fmaxf(a, b) : a + b;
+}
+
+template <int OP> __device__ __forceinline__ float identity() {
+  return OP == kRowMax ? -INFINITY : 0.f;
+}
+
+// exp2 of the four columns from col (a float4 of the row) into dst, those
+// below out_cols kept; the rest added to `unkept`.
+__device__ __forceinline__ void exp2_quad(float4 v, int col, float* dst, int out_cols,
+                                          bool vec_out, float& unkept) {
+  const float e[4] = {exp2f(v.x), exp2f(v.y), exp2f(v.z), exp2f(v.w)};
+  if (vec_out && col + 4 <= out_cols) {
+    __stcs(reinterpret_cast<float4*>(dst + col), make_float4(e[0], e[1], e[2], e[3]));
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (col + i < out_cols)
+      dst[col + i] = e[i];
+    else
+      unkept += e[i];
+  }
+}
 
 template <int OP>
 __global__ void __launch_bounds__(bt::kThreads)
@@ -33,27 +68,58 @@ __global__ void __launch_bounds__(bt::kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t r = (int64_t)blockIdx.x * kWarps + warp;
   if (r >= rows) return;
+  const bool vec_in = cols % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_out = out_cols % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const float* xr = x + r * cols;
   float* dst = out + r * out_cols;
-  if constexpr (OP == kExp2) {
-    float unkept = 0.f;
-    for (int c = lane; c < cols; c += 32) {
-      const float e = exp2f(xr[c]);
-      if (c < out_cols)
-        dst[c] = e;
-      else
-        unkept += e;
+  float a = identity<OP>(), unkept = 0.f;
+  if (vec_in) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    const int n4 = cols / 4;
+    for (int c0 = 0; c0 < n4; c0 += 32 * kVec) {
+      float4 v[kVec];
+#pragma unroll
+      for (int u = 0; u < kVec; ++u) {
+        const int c = c0 + 32 * u + lane;
+        v[u] = c < n4 ? __ldcs(x4 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kVec; ++u) {
+        const int c = c0 + 32 * u + lane;
+        if (c >= n4) continue;
+        if constexpr (OP == kExp2) {
+          exp2_quad(v[u], 4 * c, dst, out_cols, vec_out, unkept);
+        } else {
+          a = combine<OP>(a, combine<OP>(combine<OP>(v[u].x, v[u].y),
+                                         combine<OP>(v[u].z, v[u].w)));
+        }
+      }
     }
+  } else {
+    for (int c = lane; c < cols; c += 32) {
+      const float v = __ldcs(xr + c);
+      if constexpr (OP == kExp2) {
+        const float e = exp2f(v);
+        if (c < out_cols)
+          dst[c] = e;
+        else
+          unkept += e;
+      } else {
+        a = combine<OP>(a, v);
+      }
+    }
+  }
+  if constexpr (OP == kExp2) {
     if (unkept == kNever) dst[lane % out_cols] = unkept;
   } else {
-    float a = OP == kRowMax ? -INFINITY : 0.f;
-    for (int c = lane; c < cols; c += 32) a = OP == kRowMax ? fmaxf(a, xr[c]) : a + xr[c];
 #pragma unroll
-    for (int o = 16; o; o >>= 1) {
-      const float b = __shfl_xor_sync(0xffffffffu, a, o);
-      a = OP == kRowMax ? fmaxf(a, b) : a + b;
+    for (int o = 16; o; o >>= 1) a = combine<OP>(a, __shfl_xor_sync(0xffffffffu, a, o));
+    if (vec_out) {
+      for (int c = lane; c < out_cols / 4; c += 32)
+        __stcs(reinterpret_cast<float4*>(dst) + c, make_float4(a, a, a, a));
+    } else {
+      for (int c = lane; c < out_cols; c += 32) dst[c] = a;
     }
-    for (int c = lane; c < out_cols; c += 32) dst[c] = a;
   }
 }
 

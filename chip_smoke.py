@@ -27,7 +27,8 @@ non-zero without the final `"ok": true` line:
    deviation <= 1e-3) and bfloat16 (< 2.5e-2), with median times and the
    least time the card could take (`bound`); the feed-forward and the
    attention branch's training backwards are timed by their device time
-   (torch.profiler's kernel sum), as the host's launches weigh in. The six
+   (events around calls queued behind a spin kernel), as the host's
+   launches weigh in. The six
    training kernels compare the output and every gradient, with the same
    seed on both sides: the attention branch and the feed-forward (forward
    and backward) at a main layer's shape (8 x 1500 x 512, 16 heads;
@@ -199,6 +200,9 @@ FLASH_TC_KERNELS = {"flash_fwd_kernel": 8, "flash_dq_kernel": 2, "flash_dkv_kern
 # and of the small-sequence attention kernels (B12): F 1, 2, 4, 8, 16, 32 x D
 # 16 and 32 per dtype; the dtype is their third template argument
 SMALL_TC_KERNELS = {"small_fwd_kernel": 12, "small_bwd_kernel": 12}
+# and of B7's attention core on the same tile (csrc/freq_core.cu): F 1, 2,
+# 4, 8, 16, 32 per dtype, <F, T>; the head's columns of any width C
+FREQ_CORE_TC_KERNELS = {"freq_core_fwd_kernel": 6, "freq_core_bwd_kernel": 6}
 # instantiations of the products of the training kernels and of the eval
 # kernels K1 and K2, each on the tensor cores in both dtypes (float32 as split
 # bf16 products): the feed-forward forward (B8, and at eval K1 and K2's tail:
@@ -233,8 +237,8 @@ PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "f32 split": 989e12 / 3}
 PEAK_BYTES = 3.35e12
 # kernels whose float32 products run as split bfloat16 products (their
 # float32 bound takes that rate), and kernels whose backward phase 3 times by
-# its device time (torch.profiler's kernel sum) rather than by events around
-# the host's call
+# its device time (call_device_ms) rather than by events around the host's
+# call
 SPLIT_F32 = {"fused_ff", "fused_time_roformer", "fused_freq_roformer", "fused_ff_train_fwd",
              "fused_ff_train_bwd", "fused_time_attention_train_fwd",
              "fused_time_attention_train_bwd", "fused_freq_roformer_train_fwd",
@@ -243,6 +247,11 @@ SPLIT_F32 = {"fused_ff", "fused_time_roformer", "fused_freq_roformer", "fused_ff
              "softmax_variants"}
 DEVICE_TIMED = {"fused_ff_train_bwd", "fused_time_attention_train_bwd",
                 "fused_freq_roformer_train_bwd"}
+# the H100's top SM clock, 1.98 GHz, rounded up: a spin of t * SPIN_HZ
+# cycles lasts at least t seconds; and library_kernels_ms's one key where it
+# times the whole call
+SPIN_HZ = 2.0e9
+WHOLE_CALL = "the whole call"
 
 
 def train_counters() -> dict:
@@ -291,6 +300,20 @@ def block_work(kind: str, rows: int, c: int, seq: int, dt: str, backward: bool =
         per_row = 2 * (per_row - 4 * seq * c * (kind != "ff")) + 10 * seq * c * (kind != "ff")
         return rows * per_row, 4 * rows * c * size + weights * (size + 4)
     return rows * per_row, 2 * rows * c * size + weights * size
+
+
+def core_work(rows: int, c: int, seq: int, dt: str):
+    """(FLOPs, bytes) of B7's attention core (csrc/freq_core.cu), forward
+    and backward: per (row, head) S and P V (4 seq 32 FLOPs) forward, 2.5x
+    that backward; the forward reads q | k | v and the gate and writes o
+    and go's parts, the backward reads q | k | v and d_o and writes
+    d_qkv's parts (float32 operands in three bf16 parts, bf16 one)."""
+    size, parts = (2, 1) if dt == "bf16" else (4, 3)
+    heads = c // 32
+    flops = rows * heads * 4 * seq * 32
+    fwd = rows * (3 * c * size + 4 * heads + c * size + 2 * parts * c)
+    bwd = rows * (4 * c * size + 2 * parts * 3 * c)
+    return (flops, fwd), (flops * 5 // 2, bwd)
 
 
 class SmokeFailure(Exception):
@@ -415,6 +438,9 @@ def phase_build() -> None:
         for kernel in SMALL_TC_KERNELS:
             print(f"[build] ptxas {kernel} <F, D, T>: registers, spill stores / loads: "
                   + "; ".join(ptxas_lines(text, kernel)))
+        for kernel in FREQ_CORE_TC_KERNELS:
+            print(f"[build] ptxas {kernel} <F, T>: registers, spill stores / loads: "
+                  + "; ".join(ptxas_lines(text, kernel)))
         for kernel, args in (("attn_variant_kernel", "<T, variant>"),
                              ("freq_block_kernel", "<C, T, TRAIN, STAGE>")):
             print(f"[build] ptxas {kernel} {args}: registers, spill stores / loads: "
@@ -424,6 +450,7 @@ def phase_build() -> None:
     counts = sass_hmma_counts(path)
     per_dtype = [(kernel, expect, 1) for kernel, expect in FLASH_TC_KERNELS.items()]
     per_dtype += [(kernel, expect, 2) for kernel, expect in SMALL_TC_KERNELS.items()]
+    per_dtype += [(kernel, expect, 1) for kernel, expect in FREQ_CORE_TC_KERNELS.items()]
     per_dtype += [(kernel, expect, 0) for kernel, expect in VARIANT_TC_KERNELS.items()]
     for kernel, expect, index in per_dtype:
         found = {name: n for name, n in counts.items() if kernel in name}
@@ -920,27 +947,48 @@ def fwd_bwd_ms(fn, x, params, cot, reps: int) -> tuple[float, float]:
 
 
 def call_device_ms(fn, reps: int = 20, windows: int = 3) -> float:
-    """Device time in ms of one call of `fn`: the kernel time torch.profiler
-    sums over a window of `reps` calls, divided by `reps`, the median over
-    `windows` windows after one warm-up call (a window's trace now and then
-    loses launches and reads low or empty: the median passes over it); the
-    host's launch and autograd time is not in it."""
+    """Device time in ms of one call of `fn`, without the host's launch and
+    autograd time: CUDA events around `reps` calls queued behind a spin
+    kernel (`torch.cuda._sleep`) twice as long as the host takes to launch
+    them, so that the host has launched them all before the card reaches
+    the first; the median over `windows` windows after one warm-up call.
+    Where the card reached the start event before the host had launched
+    every call, the window runs once more with a spin twice as long; where
+    it is still short, `fn` waits on the card (a sync, or more launches than
+    the card's queue holds), and the rest run without a spin, as events
+    around the calls, with a note. (torch.profiler is not used for this: in a long process it
+    records no device event in some of its windows, and then in all.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    per_call = []
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spin_s = 2 * (time.perf_counter() - t0) + 1e-3
+    torch.cuda.synchronize()
+    per_call, exposed = [], 0
     for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for attempt in (1, 2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if spin_s:
+                torch.cuda._sleep(int(attempt * spin_s * SPIN_HZ))
+            start.record()
             for _ in range(reps):
                 fn()
-            torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            per_call.append(us / 1e3 / reps)
-    check(len(per_call) > windows // 2, "torch.profiler recorded no device time")
+            end.record()
+            hidden = not start.query()
+            end.synchronize()
+            if hidden or not spin_s:
+                break
+        if not hidden:
+            exposed, spin_s = exposed + 1, 0.0
+        per_call.append(start.elapsed_time(end) / reps)
+    if exposed:
+        print(f"[timing] {exposed} of {windows} windows as events around the calls: the call "
+              f"waits on the card (a sync or a full launch queue), so no spin keeps the host "
+              f"ahead of it", flush=True)
     return statistics.median(per_call)
 
 
@@ -950,7 +998,9 @@ def kernel_device_ms(fn, name: str, reps: int = 10, windows: int = 3) -> float:
     of the launches of it that torch.profiler recorded in a window of 2 reps
     calls, the median over `windows` windows with at least `reps` of them.
     In a long process the profiler drops launches from its windows, so a sum
-    over a window would read low; each launch it records is whole."""
+    over a window would read low; each launch it records is whole. Where
+    the profiler records too few in `2 windows` windows, the whole call by
+    `call_device_ms`, with a note."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -967,10 +1017,48 @@ def kernel_device_ms(fn, name: str, reps: int = 10, windows: int = 3) -> float:
         if len(us) >= reps:
             per_call.append(sum(us) / len(us) / 1e3)
         if len(per_call) == windows:
-            break
-    check(len(per_call) == windows,
-          f"torch.profiler recorded under {reps} launches of {name} in a window")
-    return statistics.median(per_call)
+            return statistics.median(per_call)
+    print(f"[timing] torch.profiler recorded under {reps} launches of {name or 'a kernel'} "
+          f"in a window: the whole call timed by call_device_ms", flush=True)
+    return call_device_ms(fn, reps, windows)
+
+
+def library_kernels_ms(fn, reps: int = 10, windows: int = 3) -> dict:
+    """Device time in ms per call of each kernel of the port's library that
+    a call of `fn` launches, by kernel name (torch's own kernels, `at::`,
+    and copies left out): the mean of its launches torch.profiler recorded
+    in a window of `reps` calls times its launches per call (the most of
+    them one window recorded, over `reps`), the median over `windows`
+    windows. Each launch the profiler records is whole, so the sum over
+    kernels holds the whole call where a window's sum would read low for
+    the launches the profiler dropped. Where the profiler records no launch
+    of the library, {WHOLE_CALL: the whole call by `call_device_ms`}, with
+    a note."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    per_launch, counts = {}, {}
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = {}
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA and "at::" not in e.name
+                    and not e.name.startswith(("Memcpy", "Memset"))):
+                seen.setdefault(e.name, []).append(e.device_time_total)
+        for name, us in seen.items():
+            per_launch.setdefault(name, []).append(sum(us) / len(us) / 1e3)
+            counts[name] = max(counts.get(name, 0), len(us))
+    if not per_launch:
+        print("[timing] torch.profiler recorded no launch of the kernel library: the whole "
+              "call timed by call_device_ms", flush=True)
+        return {WHOLE_CALL: call_device_ms(fn, reps, windows)}
+    return {name: statistics.median(ms) * max(1, round(counts[name] / reps))
+            for name, ms in per_launch.items()}
 
 
 def bwd_device_ms(fn, x, params, cot, reps: int) -> float:
@@ -1065,9 +1153,31 @@ def phase_train_kernels(smi: str, only: tuple = ()) -> dict:
             plain_ms = fwd_bwd_ms(plain, x, params, cot, 5)
             by_device = names[1] in DEVICE_TIMED
             events_ms = (ms[1], plain_ms[1])
+            core, split_note = {}, ""
             if by_device:
-                ms = (ms[0], bwd_device_ms(kernel, x, params, cot, 10))
                 plain_ms = (plain_ms[0], bwd_device_ms(plain, x, params, cot, 5))
+            if by_device and names[1] != "fused_freq_roformer_train_bwd":
+                ms = (ms[0], bwd_device_ms(kernel, x, params, cot, 10))
+            elif by_device:
+                # B7 by the device time of its own launches, its attention core apart
+                xg = x.detach().clone().requires_grad_(True)
+                out = kernel(xg)
+                per = library_kernels_ms(lambda: torch.autograd.grad(
+                    out, [xg] + params, cot.to(out.dtype), retain_graph=True))
+                del out
+                ms = (ms[0], sum(per.values()))
+                if WHOLE_CALL in per:
+                    split_note = " (B7's whole backward: its kernels not told apart)"
+                else:
+                    core = {part: sum(v for k, v in per.items()
+                                      if f"freq_core_{part}_kernel" in k)
+                            for part in ("fwd", "bwd")}
+                    core_bound = [bound(*w, "f32 split" if dt == "f32" else dt)[0] for w in
+                                  core_work(shape[0] * shape[1], shape[2], shape[1], dt)]
+                    split_note = (f" (B7 by its own {len(per)} kernels' launches: attention "
+                                  f"core fwd {core['fwd']:.3f} ms (bound {core_bound[0]:.3f} "
+                                  f"ms), bwd {core['bwd']:.3f} ms (bound {core_bound[1]:.3f} "
+                                  f"ms), the rest {ms[1] - core['fwd'] - core['bwd']:.3f} ms)")
             torch.cuda.empty_cache()
             worst = max(devs.values())
             ok = finite and (worst <= limit if dtype == torch.float32 else worst < limit)
@@ -1079,7 +1189,7 @@ def phase_train_kernels(smi: str, only: tuple = ()) -> dict:
                   f"bound {bounds[0][0]:.3f} ms ({bounds[0][1]}), bwd kernel {ms[1]:.3f} ms "
                   f"plain {plain_ms[1]:.3f} ms bound {bounds[1][0]:.3f} ms ({bounds[1][1]})"
                   + (f" (device time; events around the call: kernel {events_ms[0]:.3f} ms "
-                     f"plain {events_ms[1]:.3f} ms)" if by_device else "")
+                     f"plain {events_ms[1]:.3f} ms)" if by_device else "") + split_note
                   + f" [{smi}] {'ok' if ok else 'FAIL'}", flush=True)
             check(ok, f"{names[0]} {dt} {desc}: deviation {worst:.3e} over {limit:g}"
                       f" or non-finite ({devs})")
@@ -1092,6 +1202,10 @@ def phase_train_kernels(smi: str, only: tuple = ()) -> dict:
                     results[name][-1].update(
                         {"timed_by": "device", "events_ms": events_ms[0],
                          "plain_events_ms": events_ms[1]})
+                if k == 1 and core:
+                    results[name][-1].update(
+                        {"timed_by": "its own launches", "core_fwd_ms": core["fwd"],
+                         "core_bwd_ms": core["bwd"], "core_bound_ms": core_bound})
     return results
 
 
@@ -1316,22 +1430,25 @@ def phase_ablation_kernels(smi: str, only: tuple = ()) -> tuple[dict, dict]:
         return not only or name in only
 
     def record(name, desc, got, want, limit, kernel, plain, work, dt, library=None, note="",
-               headline=False, split=False, device=None):
+               headline=False, split=False, device=None, library_device=False):
         """Holds one case, times it and appends it to `results[name]`; the
         first `headline` case of a kernel stands for it on the `kernels`
         line. `library`: one PyTorch call that computes the same function;
         `split`: the case's float32 products run as split bf16 products;
         `device`: the kernel timed by the device time of its launch whose
         name holds it (`kernel_device_ms`, not the wrapper's host time and
-        casts), plain and library by events as always."""
+        casts), plain by events as always, the library call by events or,
+        with `library_device`, by the device time of its one launch."""
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got.float()).all()), f"{name} {desc}: non-finite")
         dev_rel = rel_dev(got, want)
         abs_err = float((got.float() - want.float()).abs().max())
         ms = kernel_device_ms(kernel, device) if device else median_ms(kernel)
         plain_ms = median_ms(plain, 5)
-        lib_ms = median_ms(library) if library is not None else None
-        note += " (kernel by device time)" if device else ""
+        lib_ms = (None if library is None else kernel_device_ms(library, "")
+                  if library_device else median_ms(library))
+        note += (" (kernel by device time)" if device else "") + (
+            " (library by device time)" if library_device else "")
         split = split or name in SPLIT_F32
         bound_ms, bound_by = bound(*work, "f32 split" if dt == "f32" and split else dt)
         ok = dev_rel <= limit if dt == "f32" else dev_rel < limit
@@ -1500,9 +1617,20 @@ def phase_ablation_kernels(smi: str, only: tuple = ()) -> tuple[dict, dict]:
                        "rowsum": lambda: x.sum(1, keepdim=True).expand(-1, out_cols)}[op]
             check(rel_dev(library(), plain()) <= F32_LIMIT,
                   f"softmax_passes {op}: the library call computes another function")
+            note = ""
+            if op == "exp2":
+                # torch.exp2(x[:, :128]) reads 1/12 of x; torch.exp2(x) reads what the
+                # kernel reads (and writes all of it)
+                check(rel_dev(torch.exp2(x)[:, :out_cols], plain()) <= F32_LIMIT,
+                      "softmax_passes exp2: torch.exp2(x) computes another function")
+                whole = kernel_device_ms(lambda: torch.exp2(x), "")
+                note = (f"; library over the kept columns only, torch.exp2(x[:, :{out_cols}]), "
+                        f"reads 1/{n // out_cols} of x; torch.exp2(x) over all of it "
+                        f"{whole:.3f} ms (device time)")
             record("softmax_passes", f"{op} ({rows}, {n}) -> {out_cols} columns", kernel(),
                    plain(), F32_LIMIT, kernel, plain, (rows * n, 4 * rows * (n + out_cols)), "f32",
-                   library, headline=op == "exp2")
+                   library, note, headline=op == "exp2", device="softmax_pass_kernel",
+                   library_device=True)
         del x
         torch.cuda.empty_cache()
 

@@ -86,6 +86,10 @@ def _rel(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
+def _rel64(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("c", [32, 64, 128, 256, 384, 512])
 def test_fused_ff(device, dtype, tol, c):
@@ -514,6 +518,18 @@ def test_training_backward_is_deterministic(device):
 def test_fused_freq_train(device, dtype, tol, rate, f, c, items):
     """B6 and B7 against fused_freq_roformer_train_ref: output, dx and the
     ten parameter gradients, every F dividing 32, ragged row tiles."""
+    _check_freq_train(device, dtype, tol, rate, f, c, items)
+
+
+@pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
+@pytest.mark.parametrize("f,c,items", [(32, 32, 12000), (16, 64, 12000), (8, 128, 12000)])
+def test_fused_freq_train_at_the_stock_shapes(device, dtype, tol, f, c, items):
+    """The same at the stock frontend's three frequency blocks: 8 crops of
+    1500 frames, dropout 0.1."""
+    _check_freq_train(device, dtype, tol, 0.1, f, c, items)
+
+
+def _check_freq_train(device, dtype, tol, rate, f, c, items):
     attn, ff = _block(c, c // 32, f * c + items, device)
     attn.requires_grad_(True)
     ff.requires_grad_(True)
@@ -998,7 +1014,16 @@ def test_attention_variant(device, dtype, tol, variant, items, n, valid, heads):
     assert got.dtype == dtype and got.shape == q.shape
     want = sv.attention_variant_ref(q, k, v, mask, variant, heads, mask_col)
     assert bool(torch.isfinite(got.float()).all())
-    assert _rel(got, want) < tol
+    if dtype == torch.float32 and variant == "nosmax" and valid == n:
+        # o = sum(s v) / sum(s) with row sums of scores that cross zero: the
+        # float32 plain version is itself over 1e-5 from the exact answer
+        # there (tests/test_torch_softmax_variants_design.py), so this case
+        # is held to float64, within twice the plain version's own distance
+        exact = sv.attention_variant_ref(q.double(), k.double(), v.double(), mask, variant,
+                                         heads, mask_col)
+        assert _rel64(got, exact) < 2 * _rel64(want, exact)
+    else:
+        assert _rel(got, want) < tol
 
 
 def test_attention_variants_are_pairwise_distinguishable(device):
@@ -1026,7 +1051,8 @@ def test_attention_variants_are_pairwise_distinguishable(device):
 
 
 @pytest.mark.parametrize("op", ["exp2", "rowmax", "rowsum"])
-@pytest.mark.parametrize("rows,cols,out_cols", [(37, 1536, 128), (8, 100, 100), (3, 33, 1)])
+@pytest.mark.parametrize("rows,cols,out_cols", [(37, 1536, 128), (8, 100, 100), (3, 33, 1),
+                                                (1, 1536, 1536), (8451, 1536, 128)])
 def test_softmax_pass(device, op, rows, cols, out_cols):
     from beat_this_tpu_torch.bench import softmax_variants as sv
 

@@ -73,7 +73,7 @@ def test_kernel_sources_exist():
     assert names == {"fused_ff.cu", "fused_time.cu", "fused_freq.cu", "fused_ff_train.cu",
                      "fused_time_train.cu", "fused_freq_train.cu", "flash_attention.cu",
                      "small_attention.cu", "freq_ablate.cu", "softmax_variants.cu",
-                     "softmax_passes.cu"}
+                     "softmax_passes.cu", "freq_core.cu"}
 
 
 def test_attention_wrappers_call_no_library_product():
