@@ -8,13 +8,15 @@ directories and writes `.beats` TSV files. `--gpu N` runs on cuda:N and
 with the DBN postprocessor. Several inputs or a directory run in groups of
 `--batch-files` files that share one batched forward and one batched
 postprocess (`inference.BatchedFile2File`), with the per-file path's output.
+It prints the audio seconds per wall second (`profiler.Throughput`), and
+with `BEAT_THIS_TRACE_DIR` set records a torch.profiler trace of the work
+there (`profiler.maybe_trace`).
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -151,6 +153,7 @@ def run(
 ):
     from beat_this_tpu_torch.inference import BatchedFile2File
     from beat_this_tpu_torch.io.audio import load_audio
+    from beat_this_tpu_torch.profiler import Throughput, maybe_trace
     from beat_this_tpu_torch.utils import save_beat_tsv
 
     device = "cpu" if gpu < 0 else f"cuda:{gpu}"
@@ -160,8 +163,7 @@ def run(
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     file2file = BatchedFile2File(model, device, float16, dbn, group_size=max(1, batch_files))
-    audio_seconds = 0.0
-    t0 = time.perf_counter()
+    throughput = Throughput()
 
     def dump_activations(_path, beats_path, beat_logits, downbeat_logits):
         np.save(Path(beats_path).with_suffix(".npy"), np.vstack([beat_logits, downbeat_logits]))
@@ -172,12 +174,13 @@ def run(
     if len(inputs) == 1 and not inputs[0].is_dir():
         if output is None or output.is_dir():
             output = derive_output_path(inputs[0], suffix, append, output)
-        signal, sr = load_audio(inputs[0])
-        audio_seconds += len(signal) / sr
-        logits = file2file.spect2frames(file2file.signal2spect(signal, sr))
-        if activations:
-            dump_activations(inputs[0], output, *logits)
-        save_beat_tsv(*file2file.frames2beats(*logits), output)
+        with maybe_trace():
+            signal, sr = load_audio(inputs[0])
+            throughput.add(len(signal) / sr)
+            logits = file2file.spect2frames(file2file.signal2spect(signal, sr))
+            if activations:
+                dump_activations(inputs[0], output, *logits)
+            save_beat_tsv(*file2file.frames2beats(*logits), output)
     else:
         jobs = _gather_jobs(inputs, suffix, append, output, skip_existing)
         claimed = _claim_jobs(jobs, touch_first, skip_existing)
@@ -197,16 +200,12 @@ def run(
             if progress is not None:
                 progress.update(1)
 
-        audio_seconds += file2file.process_many(claimed, on_error=on_error,
-                                                after_each=after_each)
+        with maybe_trace():
+            throughput.add(file2file.process_many(claimed, on_error=on_error,
+                                                  after_each=after_each))
         if progress is not None:
             progress.close()
-    elapsed = time.perf_counter() - t0
-    print(
-        f"{audio_seconds:.1f} s audio in {elapsed:.1f} s "
-        f"({audio_seconds / max(elapsed, 1e-9):.1f}x real-time)",
-        file=sys.stderr,
-    )
+    print(throughput.summary(), file=sys.stderr)
 
 
 def main():

@@ -38,10 +38,12 @@
 //     and no accumulator is ever rescaled. In float32 nothing is rounded, so
 //     m need not be the exact maximum: o = sum(p f v) / sum(p) and lse = m +
 //     log2(sum(p)) are the same for any m near it.
-//   flash_dq:  S = Q K^T and dP = dO V^T; dS = P (dP f - delta) in parts
-//     (bf16: rounded); dQ += dS K; the inverse rotation times D^-0.5.
+//   flash_dq:  S = Q K^T and dP = dO V^T; dS = ln 2 P (dP f - delta), the
+//     gradient of the base-2 scores, in parts (bf16: rounded where the plain
+//     version's autograd rounds it); dQ += dS K; the inverse rotation times
+//     D^-0.5 log2(e), the factor folded into q.
 //   flash_dkv: S^T = K Q^T and dP^T = V dO^T over query tiles of the
-//     forward's q; dV += (P^T f) dO, dK += dS^T Q; times ln 2 and the
+//     forward's q; dV += (P^T f) dO, dK += dS^T Q (Q scaled already); the
 //     inverse rotation. The mask bits of a 4-key group lie across rows of
 //     S^T, so the block draws them into a shared bit table.
 // dk and dv reduce over queries, so they get their key-major pass and no
@@ -303,7 +305,7 @@ __global__ void __launch_bounds__(kThreads)
           const int x = 2 * hh + e;
           const float p = k0 + 8 * j + 2 * t + e < n ? fast_exp2(s[j][x] - ls[hh]) : 0.f;
           const float f = drop.on ? keep_factor(drop, bits[hh], 2 * j + e) : 1.f;
-          s[j][x] = p * (dp[j][x] * f - dl[hh]);  // dS, in parts by to_parts
+          s[j][x] = kLn2 * p * (dp[j][x] * f - dl[hh]);  // dS, in parts by to_parts
         }
     uint32_t pa[P][4][4];
     to_parts<P>(pa, s);
@@ -317,7 +319,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < D / 8; ++c)
       store_rope_inv(dq_out + base + (size_t)r * D + 8 * c + 2 * t, acc[c][2 * hh],
                      acc[c][2 * hh + 1], cosv, sinv, (size_t)r * (D / 2) + 4 * c + t,
-                     bt::scale<D>());
+                     bt::qscale<D>());
   }
 }
 
@@ -390,7 +392,7 @@ __global__ void __launch_bounds__(kThreads)
                           : ((keepb[it & 1][qi][kl >> 2] >> (kl & 3)) & 1) ? drop.scale
                                                                             : 0.f;
           s[j][x] = p * f;                     // P^T f, in parts by to_parts
-          dp[j][x] = p * (dp[j][x] * f - dq);  // dS^T, in parts by to_parts
+          dp[j][x] = kLn2 * p * (dp[j][x] * f - dq);  // dS^T, in parts by to_parts
         }
       }
     uint32_t pa[P][4][4];
@@ -407,7 +409,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < D / 8; ++c) {
       const size_t at = base + (size_t)r * D + 8 * c + 2 * t;
       store_rope_inv(dk_out + at, dk[c][2 * hh], dk[c][2 * hh + 1], cosv, sinv,
-                     (size_t)r * (D / 2) + 4 * c + t, kLn2);
+                     (size_t)r * (D / 2) + 4 * c + t, 1.f);
       store_pair(dv_out + at, dv[c][2 * hh], dv[c][2 * hh + 1]);
     }
   }

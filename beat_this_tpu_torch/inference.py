@@ -51,14 +51,20 @@ def load_model(checkpoint_path="final0", device="cuda") -> BeatThis:
     local path, URL or released shortname (`io.checkpoint.load_checkpoint`;
     reference beat_this/inference.py:56-87). With `None`, a freshly
     initialized default model (`init_beat_this(0, BeatThisConfig())`)."""
-    device = resolve_device(device)
     if checkpoint_path is None:
-        config, state_dict = BeatThisConfig(), init_beat_this(0, BeatThisConfig())
-    else:
-        checkpoint = load_checkpoint(checkpoint_path)
-        config = BeatThisConfig.from_hparams(checkpoint.get("hyper_parameters", {}))
-        state_dict = model_state_dict(checkpoint)
-    with torch.device(device):
+        return _eval_model(BeatThisConfig(), init_beat_this(0, BeatThisConfig()), device)
+    return model_from_checkpoint(load_checkpoint(checkpoint_path), device)
+
+
+def model_from_checkpoint(checkpoint: dict, device="cuda") -> BeatThis:
+    """A BeatThis module in eval mode on `device` from a loaded checkpoint
+    dict (its `hyper_parameters` and `state_dict`)."""
+    config = BeatThisConfig.from_hparams(checkpoint.get("hyper_parameters", {}))
+    return _eval_model(config, model_state_dict(checkpoint), device)
+
+
+def _eval_model(config: BeatThisConfig, state_dict: dict, device) -> BeatThis:
+    with torch.device(resolve_device(device)):
         model = BeatThis(config)
     model.load_state_dict(state_dict)
     return model.eval().requires_grad_(False)

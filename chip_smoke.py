@@ -94,7 +94,26 @@ non-zero without the final `"ok": true` line:
    command line fixes head_dim 32), float32 and bfloat16, with the same
    checks; and one 2-step run of `--transformer-dim 256 --n-layers 2` in
    float32 (8 heads: the C 256 instantiations), with exact launch counts;
-6. the kernel summary JSON, then the device JSON as the last line.
+   in bfloat16 the first step prints the distance of
+   `WATCHED_GRADS` (the gradient nearest its limit, ROADMAP C6) from the
+   float32 plain path against the bfloat16 plain path's, over the limit or
+   not;
+6. the launch-script drivers, through their entry points' `main`:
+   `preprocess_audio --stage all` over three raw click wavs (22.05 and
+   44.1 kHz, 8-20 s) with one pitch and one tempo variant, its spectrograms
+   (log-mel on the card) within float16 rounding of the port's CPU log-mel;
+   `overfit_smoke`'s body (`overfit`) at full width, the stock model in
+   float32 and bfloat16 and the head_dim 16 one in bfloat16, each on a fresh
+   click corpus with 512-frame crops as the JAX script, for OVERFIT_EPOCHS
+   epochs at OVERFIT_LR: each must reach mean F beat >= 0.95 and downbeat
+   >= 0.90 on its training pieces through the hand-written training
+   kernels, with exact launch counts for its training steps and its scoring;
+   `clean_checkpoints` on the stock float32 run's checkpoint; and
+   `compute_paper_metrics` on the cleaned checkpoint over the training
+   split, with the minimal postprocessor (per-piece beat F equal to the
+   overfit run's) and with `--dbn`, with exact launch counts;
+7. the kernel summary JSON (launches: phases 4-6), then the device JSON as
+   the last line.
 
 Needs a CUDA device and the repository beside this script; it never runs
 on the CPU.
@@ -1683,14 +1702,14 @@ D256_ARGS = ["--transformer-dim", "256", "--n-layers", "2", "--max-steps", "2",
 
 
 def expected_train_launches(partial: bool, head_dim: int, layers: int = TRAIN_LAYERS,
-                            steps: int = TRAIN_STEPS) -> dict:
+                            steps: int = TRAIN_STEPS, accum: int = TRAIN_ACCUM) -> dict:
     """Launches of each training kernel over one run: per microbatch one
     attention and one feed-forward per time block (6 main layers, 3 frontend
     blocks with partial transformers) and one fused call per frequency
     block; at head_dim 16 the fused attention kernels decline every block,
     so each time block's attention is flash_attention, each frequency
     block small_attention plus a feed-forward of its own."""
-    per_step = TRAIN_ACCUM * steps
+    per_step = accum * steps
     frontend = FRONTEND_BLOCKS if partial else 0
     time_blocks = (layers + frontend) * per_step
     freq_blocks = frontend * per_step
@@ -1784,6 +1803,12 @@ def pooled_frames(record: Optional[list] = None, replay: Optional[list] = None):
     check(replay is None or len(used) == len(replay), "pooled windows replayed out of step")
 
 
+# gradients whose distance from the float32 plain path first_step_check prints in
+# bfloat16 also when within the limit: the gate bias of the first frontend time
+# block, the gradient nearest its 2x limit (ROADMAP C6)
+WATCHED_GRADS = ("frontend.blocks.0.partial.attnT.to_gates.bias",)
+
+
 def first_step_check(args, head_dim: int = 32) -> tuple[float, float, int]:
     """The first step's losses, gradients and batch-norm statistics on the
     kernel path against the plain path, from the training run's first batch and
@@ -1856,20 +1881,23 @@ def first_step_check(args, head_dim: int = 32) -> tuple[float, float, int]:
               + f"; {len(devs) - len(over)} of {len(devs)} gradients within {limit:g}")
         check(within(max(loss, bn)), f"first step {args.precision} {loss_type}: loss or "
                                      "batch-norm statistics deviate")
-        if over:
-            check(bf16, f"first step {args.precision}: gradients {over} deviate")
+        check(bf16 or not over, f"first step {args.precision}: gradients {over} deviate")
+        shown = over + [k for k in WATCHED_GRADS if bf16 and k in g_grads and k not in over]
+        if shown:
             ref = step_grads(trainer, dataclasses.replace(ltc, compute_dtype="float32"), batch,
                              seeds, False)[1]
             dev_of = {k: d for d, k in devs}
-            far = {k: (rel_dev(g_grads[k], ref[k]), rel_dev(w_grads[k], ref[k])) for k in over}
+            far = {k: (rel_dev(g_grads[k], ref[k]), rel_dev(w_grads[k], ref[k])) for k in shown}
             del ref
             for k, (kern, plain) in far.items():
                 print(f"[train]   {k}: kernel vs plain {dev_of[k]:.2e}; from the float32 "
-                      f"plain path: kernel path {kern:.2e}, plain path {plain:.2e}")
+                      f"plain path: kernel path {kern:.2e}, plain path {plain:.2e}, ratio "
+                      f"{kern / plain:.2f}x (limit 2x where over {limit:g})")
+        if over:
             main_layers = [k for k in over if k.startswith("transformer_blocks.")]
             check(not main_layers, f"first step {args.precision} {loss_type}: main-layer "
                                    f"gradients {main_layers} deviate")
-            bad = [k for k, (kern, plain) in far.items() if kern > 2 * plain]
+            bad = [k for k in over if far[k][0] > 2 * far[k][1]]
             check(not bad, f"first step {args.precision} {loss_type}: {bad} farther from "
                            "float32 than twice the plain path")
         del g_grads, w_grads
@@ -1968,6 +1996,213 @@ def _train(root: Path, smi: str) -> dict:
     return launches
 
 
+# -- phase 6: the launch-script drivers -------------------------------------
+
+
+def phase_drivers(smi: str) -> dict:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drivers_") as tmp:
+        return _drivers(Path(tmp), smi)
+
+
+# phase 6's overfit runs at full width (BeatThisConfig(), h16 with head_dim 16):
+# (name, head_dim, precision); the corpus (4 + 1 pieces of 700 frames, batch
+# 4: one step an epoch) and the 512-frame crops as launch_scripts/overfit_smoke.py,
+# its epochs and learning rate not: at its 45 and 1e-3 the stock model marks
+# every other beat (mean F beat 0.42-0.44) on the kernel path and on the plain path
+# alike (bench/overfit_paths.py; PERF.md, Findings)
+OVERFIT_RUNS = (("stock", 32, "float32"), ("stock", 32, "bfloat16"), ("h16", H16, "bfloat16"))
+OVERFIT_EPOCHS, OVERFIT_LR = 60, 4e-4
+# launches of one eval forward of the four 700-frame training pieces (one masked
+# 768-frame bucket): the time blocks' feed-forwards through K1 and, stock, the
+# frequency blocks through K3 (the masked time blocks' attention is plain, as in
+# the JAX package); h16 as in phase 4's short piece
+SCORING_LAUNCHES = {32: {"fused_ff": 9, "fused_freq_roformer": 3},
+                    H16: {k: v for k, v in H16_EVAL_LAUNCHES["short"].items() if v}}
+# the raw wavs of the preprocessing run: (name, sample rate, seconds)
+RAW_WAVS = (("clicks_a", 22050, 8.0), ("clicks_b", 44100, 12.0), ("clicks_c", 22050, 20.0))
+
+
+def driver_counters() -> dict:
+    """Every main-path kernel wrapper with its `launches` count: the
+    training kernels and the eval kernels."""
+    from beat_this_tpu_torch.ops.flash_attention import flash_fwd
+    from beat_this_tpu_torch.ops.fused_ff import fused_ff
+    from beat_this_tpu_torch.ops.fused_freq import fused_freq_roformer
+    from beat_this_tpu_torch.ops.fused_time import fused_time_roformer
+
+    return {**train_counters(), "fused_ff": fused_ff, "fused_time_roformer": fused_time_roformer,
+            "fused_freq_roformer": fused_freq_roformer, "flash_attention_fwd": flash_fwd}
+
+
+def _drivers(root: Path, smi: str) -> dict:
+    """preprocess_audio over raw click wavs; overfit_smoke at full width (stock
+    float32 and bfloat16, h16 bfloat16); clean_checkpoints on the stock float32
+    run's checkpoint; compute_paper_metrics on the cleaned one (minimal and
+    --dbn). Returns the launches of all of it."""
+    import torch
+
+    from beat_this_tpu_torch import clean_checkpoints, compute_paper_metrics
+    from beat_this_tpu_torch.inference import ChunkedPredictor, load_model
+    from beat_this_tpu_torch.model import BeatThisConfig
+    from beat_this_tpu_torch.overfit_smoke import overfit
+
+    counters = driver_counters()
+    launches = dict.fromkeys(counters, 0)
+
+    def delta(before: dict) -> dict:
+        return {k: fn.launches - before[k] for k, fn in counters.items() if fn.launches > before[k]}
+
+    _preprocess(root / "prep", smi)
+    epochs, lr = OVERFIT_EPOCHS, OVERFIT_LR
+    for name, head_dim, precision in OVERFIT_RUNS:
+        tag = f"{name} {precision}"
+        work = root / f"overfit-{name}-{precision}"
+        start = {k: fn.launches for k, fn in counters.items()}
+        scoring = {}
+        predict_many = ChunkedPredictor.predict_many
+
+        def scored(self, spects):  # the counts when the scoring starts
+            scoring.setdefault("start", {k: fn.launches for k, fn in counters.items()})
+            return predict_many(self, spects)
+
+        ChunkedPredictor.predict_many = scored
+        config = BeatThisConfig(head_dim=head_dim)
+        t0 = time.perf_counter()
+        try:
+            report = overfit(config, epochs=epochs, lr=lr,
+                             compute_dtype=precision, out=root / f"{name}-{precision}.json",
+                             workdir=work, device=DEVICE)
+        finally:
+            ChunkedPredictor.predict_many = predict_many
+        wall = time.perf_counter() - t0
+        train, score = delta(start), delta(scoring["start"])
+        train = {k: v - score.get(k, 0) for k, v in train.items() if v > score.get(k, 0)}
+        curve = [r["train_loss_total"] for r in report["curve"]]
+        print(f"[drivers] overfit_smoke {tag}, BeatThisConfig(head_dim={head_dim}) "
+              f"({config.transformer_dim} x {config.n_layers}), "
+              f"{epochs} epochs of one step (batch 4 x 512 frames), lr {lr:g}: {wall:.1f} s wall "
+              f"(fit {report['fit_s']} s, a checkpoint an epoch), loss {curve[0]:.4f} -> "
+              f"{curve[-1]:.4f}, mean F beat {report['mean_f_beat']} / downbeat "
+              f"{report['mean_f_downbeat']} (per piece {report['f_measure_beat']} / "
+              f"{report['f_measure_downbeat']}); launches training {train}, scoring {score} "
+              f"[{smi}]", flush=True)
+        want = {k: v for k, v in expected_train_launches(True, head_dim, steps=epochs,
+                                                          accum=1).items() if v}
+        check(train == want, f"overfit {tag}: training launches {train}, expected {want}")
+        check(score == SCORING_LAUNCHES[head_dim],
+              f"overfit {tag}: scoring launches {score}, expected {SCORING_LAUNCHES[head_dim]}")
+        check(len(curve) == epochs and curve[-1] < 0.5 * curve[0], f"overfit {tag}: loss {curve}")
+        check(report["ok"], f"overfit {tag}: mean F {report['mean_f_beat']} / "
+                            f"{report['mean_f_downbeat']} under 0.95 / 0.90")
+        for k, v in delta(start).items():
+            launches[k] += v
+        if (name, precision) == ("stock", "float32"):  # the checkpoint the next drivers read
+            ckpt, f_beat, data = work / "ckpts" / "overfit-S0.ckpt", report["f_measure_beat"], work
+
+    t0 = time.perf_counter()
+    clean_checkpoints.main(clean_checkpoints.get_parser().parse_args([str(ckpt), "--suffix"]))
+    cleaned = ckpt.with_suffix(".cleaned.ckpt")
+    kept = sorted(torch.load(cleaned, weights_only=True))
+    check(kept == sorted(clean_checkpoints.KEEP_KEYS), f"cleaned checkpoint keys {kept}")
+    load_model(cleaned, DEVICE)
+    print(f"[drivers] clean_checkpoints on the stock float32 run's checkpoint: "
+          f"{ckpt.stat().st_size} -> {cleaned.stat().st_size} bytes, keys {kept}, loads through "
+          f"load_model ({time.perf_counter() - t0:.1f} s)")
+
+    calls = []
+    compute = compute_paper_metrics.compute_predictions
+
+    def recorded(*args, **kwargs):  # the per-piece metrics main prints only as means
+        calls.append(compute(*args, **kwargs))
+        return calls[-1]
+
+    compute_paper_metrics.compute_predictions = recorded
+    try:
+        for dbn in ([], ["--dbn"]):
+            start = {k: fn.launches for k, fn in counters.items()}
+            t0 = time.perf_counter()
+            compute_paper_metrics.main(compute_paper_metrics.get_parser().parse_args(
+                ["--models", str(cleaned), "--datasplit", "train", "--data-dir", str(data),
+                 "--device", DEVICE] + dbn))
+            wall = time.perf_counter() - t0
+            run = delta(start)
+            metrics, _, _, pieces = calls[-1]
+            per_piece = [round(float(f), 4) for f in metrics["F-measure_beat"]]
+            print(f"[drivers] compute_paper_metrics {' '.join(dbn) or 'minimal'} on the cleaned "
+                  f"checkpoint, train split ({len(pieces)} pieces): {wall:.1f} s wall, F beat "
+                  f"{per_piece}, downbeat "
+                  f"{[round(float(f), 4) for f in metrics['F-measure_downbeat']]}, CMLt "
+                  f"{float(np.mean(metrics['CMLt_beat'])):.4f}, AMLt "
+                  f"{float(np.mean(metrics['AMLt_beat'])):.4f}; launches {run} [{smi}]")
+            check(run == SCORING_LAUNCHES[32], f"compute_paper_metrics: launches {run}")
+            if not dbn:
+                check(per_piece == f_beat, f"compute_paper_metrics: per-piece F {per_piece}, "
+                                           f"the overfit run's {f_beat}")
+            check(bool(np.all(np.isfinite(metrics["F-measure_beat"]))), "metrics not finite")
+            for k, v in run.items():
+                launches[k] += v
+    finally:
+        compute_paper_metrics.compute_predictions = compute
+    return {k: v for k, v in launches.items() if v}
+
+
+def _preprocess(root: Path, smi: str) -> None:
+    """preprocess_audio's three stages over RAW_WAVS (beats every 0.5 s) with one
+    pitch and one tempo variant; its spectrograms against the port's own log-mel
+    of the mono wavs on the CPU, within float16 rounding."""
+    import torch
+
+    from beat_this_tpu_torch import preprocess_audio
+    from beat_this_tpu_torch.data import MemmappedNpz
+    from beat_this_tpu_torch.io.audio import load_audio, save_wav
+    from beat_this_tpu_torch.ops.mel import log_mel_spectrogram
+
+    raw = root / "raw"
+    raw.mkdir(parents=True)
+    beats = root / "data" / "annotations" / "clicks" / "annotations" / "beats"
+    beats.mkdir(parents=True)
+    rng = np.random.default_rng(3)
+    for name, sr, seconds in RAW_WAVS:
+        t = np.arange(int(sr * seconds)) / sr
+        x = 0.05 * rng.standard_normal(len(t)) + 0.5 * np.sin(2 * np.pi * 1000 * t) * (
+            (t % 0.5) < 0.02)
+        save_wav(raw / f"{name}.wav", x, sr)
+        times = np.arange(0.0, seconds - 0.1, 0.5)
+        np.savetxt(beats / f"{name}.beats", np.stack([times, np.arange(len(times)) % 4 + 1], 1),
+                   fmt="%.3f\t%d")
+    (root / "audio_paths.tsv").write_text(f"clicks,{raw}\n")
+    base = preprocess_audio.BASEPATH
+    preprocess_audio.BASEPATH = root
+    t0 = time.perf_counter()
+    try:
+        preprocess_audio.main(preprocess_audio.get_parser().parse_args(
+            ["--audio-paths", str(root / "audio_paths.tsv"), "--stage", "all", "--pitch-shift",
+             "1", "1", "--time-stretch", "4", "9", "--device", DEVICE]))
+    finally:
+        preprocess_audio.BASEPATH = base
+    wall = time.perf_counter() - t0
+    npz = MemmappedNpz(root / "data" / "audio" / "spectrograms" / "clicks.npz")
+    want = sorted(f"{name}/{v}" for name, _, _ in RAW_WAVS for v in ("track", "track_ps1",
+                                                                     "track_ts-4"))
+    check(sorted(npz) == want, f"preprocess_audio: npz members {sorted(npz)}")
+    worst = 0.0
+    for key in want:
+        wav = root / "data" / "audio" / "mono_tracks" / "clicks" / f"{key}.wav"
+        x, sr = load_audio(wav, dtype="float32")
+        check(sr == 22050, f"{wav.name}: {sr} Hz")
+        ref = log_mel_spectrogram(torch.from_numpy(x)).numpy().astype(np.float16)
+        got = np.asarray(npz[key])
+        check(got.shape == ref.shape and got.dtype == np.float16, f"{key}: {got.shape}")
+        step = np.spacing(np.maximum(np.abs(got), np.abs(ref)))
+        err = np.abs(got.astype(np.float32) - ref.astype(np.float32)) / step.astype(np.float32)
+        worst = max(worst, float(err.max()))
+    print(f"[drivers] preprocess_audio --stage all over {len(RAW_WAVS)} raw wavs "
+          f"({', '.join(f'{sr} Hz {s:g} s' for _, sr, s in RAW_WAVS)}), pitch +1, tempo -4%: "
+          f"{wall:.1f} s wall, {len(want)} spectrograms in clicks.npz; the card's against the "
+          f"CPU log-mel: at most {worst:g} float16 steps apart [{smi}]")
+    check(worst <= 1.0, f"preprocess_audio: spectrograms {worst} float16 steps off the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -2005,6 +2240,8 @@ def main() -> int:
         launches.update(bench_launches)
         for k, v in timed("train", phase_train, smi).items():
             launches[k] = launches.get(k, 0) + v  # small_attention_fwd runs on both paths
+        for k, v in timed("drivers", phase_drivers, smi).items():
+            launches[k] = launches.get(k, 0) + v
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "beat_this_tpu") or m.startswith(("jax.", "beat_this_tpu.")))
         check(not bad, f"imported {bad}")

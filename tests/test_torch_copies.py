@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's framework-free modules give
 results identical to their originals on the same inputs: audio loading and
-resampling, the beat TSV writer, the metrics, the checkpoint key maps, the
+resampling, the phase vocoder's time stretch and pitch shift, the beat TSV
+writer, the metrics, the checkpoint key maps, the
 click corpus writer, the training batches of the data module and the DBN
 decoder's state-space construction; and the checkpoint release host."""
 
@@ -16,6 +17,7 @@ import beat_this_tpu.io.audio as jax_audio
 import beat_this_tpu.io.torch_ckpt as jax_keys
 import beat_this_tpu.metrics as jax_metrics
 import beat_this_tpu.ops.resample as jax_resample
+import beat_this_tpu.ops.stretch as jax_stretch
 import beat_this_tpu.postprocessing.dbn as jax_dbn
 import beat_this_tpu.utils as jax_utils
 from beat_this_tpu.data.synth import write_click_corpus as jax_write_click_corpus
@@ -23,7 +25,7 @@ from beat_this_tpu.model import BeatThisConfig, init_beat_this
 from beat_this_tpu_torch import data, metrics, utils
 from beat_this_tpu_torch.data.synth import write_click_corpus
 from beat_this_tpu_torch.io import audio, checkpoint, keys
-from beat_this_tpu_torch.ops import resample
+from beat_this_tpu_torch.ops import resample, stretch
 from beat_this_tpu_torch.postprocessing import dbn
 
 
@@ -53,6 +55,23 @@ def test_resample_matches(in_rate):
     got = resample.resample(x, in_rate=in_rate, out_rate=22050)
     want = jax_resample.resample(x, in_rate=in_rate, out_rate=22050)
     assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("rate", [1.0, 0.8, 1.04])
+def test_time_stretch_matches(rate):
+    x = _signal(44100 // 4 + 3, 5)
+    got = stretch.time_stretch(x, rate)
+    want = jax_stretch.time_stretch(x, rate)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert len(got) == round(len(x) / rate)
+
+
+@pytest.mark.parametrize("semitones", [-5, 1, 6])
+def test_pitch_shift_matches(semitones):
+    x = _signal(44100 // 4 + 3, 6)
+    got = stretch.pitch_shift(x, 44100, semitones)
+    want = jax_stretch.pitch_shift(x, 44100, semitones)
+    assert got.dtype == want.dtype and np.array_equal(got, want) and len(got) == len(x)
 
 
 def test_save_beat_tsv_bytes(tmp_path):

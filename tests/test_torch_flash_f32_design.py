@@ -96,9 +96,10 @@ def _chain(q, k, v, dout, keep, cos, sin, fwd: int, bwd: int, first: int):
     sb = _mm(qr, kr.T, bwd)
     pb = torch.exp2(sb - lse)
     dp = _mm(dout, v.T, bwd)
-    ds = pb * (dp * keep - (dout * o).sum(-1, keepdim=True))
-    dq = apply_rope(_mm(ds, kr, bwd) * d**-0.5, cos, -sin)
-    dk = apply_rope(_mm(ds.T, qr, bwd) * math.log(2), cos, -sin)
+    # dS, the gradient of the base-2 scores, holds ln 2; qr holds D^-0.5 log2(e)
+    ds = math.log(2) * pb * (dp * keep - (dout * o).sum(-1, keepdim=True))
+    dq = apply_rope(_mm(ds, kr, bwd) * (d**-0.5 * math.log2(math.e)), cos, -sin)
+    dk = apply_rope(_mm(ds.T, qr, bwd), cos, -sin)
     dv = _mm((pb * keep).T, dout, bwd)
     return {"S": s, "probs": p / l, "O": o, "lse": lse, "dS": ds, "dQ": dq, "dK": dk, "dV": dv}
 

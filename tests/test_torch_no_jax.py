@@ -19,16 +19,19 @@ PACKAGE = Path(__file__).resolve().parent.parent / "beat_this_tpu_torch"
 
 
 def test_import_pulls_in_no_jax():
-    """Every module of the port (the bench entry points, the DBN decoder and
-    the hub module among them), imported in a fresh interpreter, loads no
-    module named jax*, beat_this_tpu, beat_this_tpu.*, tools or tools.*."""
+    """Every module of the port (the bench entry points, the DBN decoder,
+    the hub module and the launch-script drivers among them), imported in a
+    fresh interpreter, loads no module named jax*, beat_this_tpu,
+    beat_this_tpu.*, tools or tools.*."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import beat_this_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "assert len(names) > 30, names\n"
         "for mod in ('ops.flash_attention', 'ops.small_attention', 'bench.fused_freq_ablate',\n"
-        "            'bench.flash_ablate', 'bench.softmax_variants', 'postprocessing.dbn', 'hub'):\n"
+        "            'bench.flash_ablate', 'bench.softmax_variants', 'postprocessing.dbn', 'hub',\n"
+        "            'ops.stretch', 'profiler', 'clean_checkpoints', 'preprocess_audio',\n"
+        "            'overfit_smoke', 'compute_paper_metrics'):\n"
         "    assert 'beat_this_tpu_torch.' + mod in names, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -53,7 +56,8 @@ def test_sources_import_nothing_of_the_jax_package():
     assert len(paths) > 30
     for name in ("ops/flash_attention.py", "ops/small_attention.py", "bench/flash_ablate.py",
                  "bench/fused_freq_ablate.py", "bench/softmax_variants.py", "postprocessing/dbn.py",
-                 "hub.py"):
+                 "hub.py", "ops/stretch.py", "profiler.py", "clean_checkpoints.py",
+                 "preprocess_audio.py", "overfit_smoke.py", "compute_paper_metrics.py"):
         assert PACKAGE / name in paths
     for path in paths:
         assert not pattern.search(path.read_text()), path
