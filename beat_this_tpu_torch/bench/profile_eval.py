@@ -24,7 +24,6 @@ are (`group`). Needs a CUDA device: the kernels run only there.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import time
 from collections import defaultdict
 
@@ -95,8 +94,8 @@ def main(argv=None) -> dict:
 
     from beat_this_tpu_torch.data.synth import click_track
     from beat_this_tpu_torch.inference import CHUNK_BATCH, ChunkedPredictor
-    from beat_this_tpu_torch.io.checkpoint import init_beat_this
-    from beat_this_tpu_torch.model.beat_this import BeatThis, BeatThisConfig
+    from beat_this_tpu_torch.bench.timing import nvidia_smi_line, seed_model
+    from beat_this_tpu_torch.model.beat_this import BeatThisConfig
     from beat_this_tpu_torch.ops import fused_ff, fused_time
 
     args = get_parser().parse_args(argv)
@@ -104,14 +103,10 @@ def main(argv=None) -> dict:
         raise SystemExit("profile_eval: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi_line()
     dev = torch.device("cuda")
     cfg = BeatThisConfig(head_dim=args.head_dim)
-    model = BeatThis(cfg)
-    model.load_state_dict(init_beat_this(0, cfg))
-    model = model.to(dev).eval().requires_grad_(False)
+    model = seed_model(cfg, dev).eval().requires_grad_(False)
     dtype = torch.bfloat16 if args.precision == "bfloat16" else torch.float32
     predictor = ChunkedPredictor(model, compute_dtype=dtype)
 

@@ -11,26 +11,32 @@ CHUNK_BATCH, and their border-trimmed logits are stitched back with "keep_first"
 single shorter chunk of T + 2 * border_size frames, padded to the JAX
 package's time buckets and masked through the model's `valid_lengths`.
 
-`ChunkedPredictor.predict_many` packs the chunks of several pieces into
-shared forwards, and `BatchedFile2File` runs a directory through it in
-groups (mel per file, one batched forward and one batched postprocess per
-group); both give what the per-piece path gives.
+`ChunkedPredictor.predict_many_device` packs the chunks and short-piece
+windows of several pieces, gathered from one log-mel on the model's device,
+into shared forwards; `predict_many` uploads host spectrograms into such a
+log-mel and runs it. `BatchedFile2File` runs a directory in groups: one
+log-mel over the group's files packed into one flat signal on the model's
+device, `predict_many_device` on it, one batched postprocess; all give what
+the per-piece path gives.
 """
 
 from __future__ import annotations
 
+import math
+import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from beat_this_tpu_torch.io.audio import load_audio
+from beat_this_tpu_torch.io.audio import load_audio, read_pcm16
 from beat_this_tpu_torch.utils import save_beat_tsv
 from beat_this_tpu_torch.io.checkpoint import init_beat_this, load_checkpoint, model_state_dict
 from beat_this_tpu_torch.model.beat_this import BeatThis, BeatThisConfig
 from beat_this_tpu_torch.ops.mel import LogMelConfig, log_mel_spectrogram, num_frames
 from beat_this_tpu_torch.postprocessing.postprocessor import Postprocessor
 
+HOP = 441  # samples per log-mel frame
 CHUNK_SIZE = 1500
 BORDER_SIZE = 6  # = 2 * loss tolerance (reference pl_module.py:258-263)
 # chunks per forward: bounds device memory for long pieces (the frontend
@@ -117,45 +123,13 @@ class ChunkedPredictor:
         return next(self.model.parameters()).device
 
     @torch.inference_mode()
-    def _forward(self, batch: np.ndarray, valid_lengths=None):
-        x = torch.from_numpy(batch).to(self.device)
+    def _forward(self, batch, valid_lengths=None):
+        """Host logits of a (rows, T, bins) batch on the device."""
+        x = torch.as_tensor(batch, device=self.device)
         if valid_lengths is not None:
-            valid_lengths = torch.from_numpy(valid_lengths).to(self.device)
+            valid_lengths = torch.as_tensor(valid_lengths, device=self.device)
         out = self.model(x, valid_lengths=valid_lengths, compute_dtype=self.compute_dtype)
         return out["beat"].cpu().numpy(), out["downbeat"].cpu().numpy()
-
-    def _predict_short(self, spects) -> list[tuple[np.ndarray, np.ndarray]]:
-        """Each piece as one chunk of T + 2 * border frames, padded to a time
-        bucket; the pieces of one bucket share forwards of at most
-        CHUNK_BATCH rows."""
-        bs = self.border_size
-        by_bucket: dict[int, list[int]] = {}
-        for idx, spect in enumerate(spects):
-            valid = len(spect) + 2 * bs
-            padded_t = next(p for p in _time_buckets(self.chunk_size) if p >= valid)
-            by_bucket.setdefault(padded_t, []).append(idx)
-        results: dict[int, tuple[np.ndarray, np.ndarray]] = {}
-        for padded_t, indices in by_bucket.items():
-            for i in range(0, len(indices), CHUNK_BATCH):
-                rows = indices[i : i + CHUNK_BATCH]
-                batch = np.zeros((len(rows), padded_t, spects[0].shape[1]), np.float32)
-                for row, idx in enumerate(rows):
-                    batch[row, bs : bs + len(spects[idx])] = spects[idx]
-                valid = np.array([len(spects[idx]) + 2 * bs for idx in rows], np.int64)
-                beat, down = self._forward(batch, valid)
-                for row, idx in enumerate(rows):
-                    t = len(spects[idx])
-                    results[idx] = (beat[row, bs : bs + t], down[row, bs : bs + t])
-        return [results[i] for i in range(len(spects))]
-
-    def _chunks(self, spect: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """A long piece's chunk starts (in coordinates padded by the border)
-        and its zero-padded chunks (n, chunk_size, bins)."""
-        cs, bs, stride = self.chunk_size, self.border_size, self.stride
-        starts = plan_chunks(len(spect), cs, bs) + bs
-        padded = np.zeros((len(starts) * stride + 2 * bs, spect.shape[1]), np.float32)
-        padded[bs : bs + len(spect)] = spect
-        return starts, np.stack([padded[s : s + cs] for s in starts])
 
     def _stitch(self, t: int, starts: np.ndarray, beat: np.ndarray, down: np.ndarray):
         """A piece's (T,) logit tracks from its chunks' logits (n, chunk_size)."""
@@ -170,44 +144,91 @@ class ChunkedPredictor:
             buf_d[starts[i] : starts[i] + stride] = down[i, bs : cs - bs]
         return buf_b[:t], buf_d[:t]
 
-    def _predict_long(self, spects) -> list[tuple[np.ndarray, np.ndarray]]:
-        """The chunks of all pieces, packed into forwards of at most
-        CHUNK_BATCH chunks, then stitched per piece."""
-        plans = [self._chunks(spect) for spect in spects]
-        chunks = np.concatenate([c for _, c in plans])
-        outs = [
-            self._forward(chunks[i : i + CHUNK_BATCH])
-            for i in range(0, len(chunks), CHUNK_BATCH)
-        ]
-        beat = np.concatenate([o[0] for o in outs])
-        down = np.concatenate([o[1] for o in outs])
-        results, offset = [], 0
-        for spect, (starts, _) in zip(spects, plans):
-            n = len(starts)
-            results.append(self._stitch(len(spect), starts, beat[offset : offset + n],
-                                        down[offset : offset + n]))
-            offset += n
-        return results
-
     def predict_many(self, spects) -> list[tuple[np.ndarray, np.ndarray]]:
-        """Several pieces at once: the chunks of all long pieces share their
-        forwards, the short pieces go through the time buckets together.
-        Every row of a forward is computed on its own, so each piece gets
-        the logits `predict` gives it."""
+        """Several (T, mel_bins) pieces at once: uploaded as one tensor and run
+        through `predict_many_device`, so the chunks of all long pieces share
+        their forwards and the short pieces go through the time buckets
+        together. Every row of a forward is computed on its own, so each
+        piece gets the logits `predict` gives it."""
         spects = [np.asarray(s, dtype=np.float32) for s in spects]
-        short = [i for i, s in enumerate(spects) if len(s) <= self.stride]
-        long = [i for i, s in enumerate(spects) if len(s) > self.stride]
-        out: dict[int, tuple[np.ndarray, np.ndarray]] = {}
-        if short:
-            out.update(zip(short, self._predict_short([spects[i] for i in short])))
-        if long:
-            out.update(zip(long, self._predict_long([spects[i] for i in long])))
-        return [out[i] for i in range(len(spects))]
+        if not spects:
+            return []
+        nframes = [len(s) for s in spects]
+        offsets = np.cumsum([0] + nframes[:-1]).tolist()
+        mel = torch.from_numpy(np.concatenate(spects)).to(self.device)
+        return self.predict_many_device(mel, offsets, nframes)
 
     def predict(self, spect: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """spect: (T, mel_bins) -> (beat_logits, downbeat_logits), each (T,)
         float32 numpy."""
         return self.predict_many([spect])[0]
+
+    @staticmethod
+    def _gather(mel: torch.Tensor, starts, lo, hi, rows: int) -> torch.Tensor:
+        """Windows (len(starts), rows, bins) of the device-resident `mel`:
+        window i holds mel[starts[i] + j] at its rows lo[i] <= j < hi[i] and
+        exact zeros elsewhere."""
+        dev = mel.device
+        if len(mel) == 0:  # only empty pieces: every row is a zero row
+            mel = mel.new_zeros(1, mel.shape[1])
+        j = torch.arange(rows, device=dev)
+        idx = torch.tensor(starts, device=dev)[:, None] + j
+        lo, hi = (torch.tensor(b, device=dev)[:, None] for b in (lo, hi))
+        keep = (j >= lo) & (j < hi)
+        win = mel[idx.clamp(0, len(mel) - 1)]
+        return torch.where(keep[..., None], win, torch.zeros((), dtype=mel.dtype, device=dev))
+
+    def predict_many_device(self, mel: torch.Tensor, offsets, nframes
+                            ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Logits of pieces that lie inside one (frames, bins) log-mel on the
+        model's device, piece i at mel[offsets[i] : offsets[i] + nframes[i]]
+        (`BatchedFile2File._batched_spects_device`, or `predict_many`'s
+        upload). A piece of at most one stride runs as one window of
+        T + 2 * border frames in its time bucket, masked by `valid_lengths`;
+        a longer one as `plan_chunks`' chunks, stitched. The windows are
+        gathered on the device, zero outside the piece, and packed into
+        forwards of at most CHUNK_BATCH rows; the spectrogram never goes to
+        the host."""
+        cs, bs, stride = self.chunk_size, self.border_size, self.stride
+        n = len(offsets)
+        short = [i for i in range(n) if nframes[i] <= stride]
+        long = [i for i in range(n) if nframes[i] > stride]
+        out: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+
+        # short pieces, by time bucket: window row j holds piece frame
+        # j - bs, rows [bs, bs + t) are valid
+        by_bucket: dict[int, list[int]] = {}
+        for idx in short:
+            padded_t = next(p for p in _time_buckets(cs) if p >= nframes[idx] + 2 * bs)
+            by_bucket.setdefault(padded_t, []).append(idx)
+        for padded_t, indices in by_bucket.items():
+            for i in range(0, len(indices), CHUNK_BATCH):
+                rows = indices[i : i + CHUNK_BATCH]
+                batch = self._gather(mel, [offsets[r] - bs for r in rows], [bs] * len(rows),
+                                     [bs + nframes[r] for r in rows], padded_t)
+                valid = np.array([nframes[r] + 2 * bs for r in rows], np.int64)
+                beat, down = self._forward(batch, valid)
+                for row, idx in enumerate(rows):
+                    t = nframes[idx]
+                    out[idx] = (beat[row, bs : bs + t], down[row, bs : bs + t])
+
+        # long pieces: every chunk of every piece in order, packed; the
+        # chunk at start s holds piece frames s + j for 0 <= s + j < t
+        if long:
+            plans = [plan_chunks(nframes[i], cs, bs) for i in long]
+            windows = [(offsets[i] + s, max(s, 0) - s, min(s + cs, nframes[i]) - s)
+                       for i, starts in zip(long, plans) for s in starts.tolist()]
+            outs = [self._forward(self._gather(mel, *zip(*windows[i : i + CHUNK_BATCH]), cs))
+                    for i in range(0, len(windows), CHUNK_BATCH)]
+            beat = np.concatenate([o[0] for o in outs])
+            down = np.concatenate([o[1] for o in outs])
+            first = 0
+            for idx, starts in zip(long, plans):
+                k = len(starts)
+                out[idx] = self._stitch(nframes[idx], starts + bs, beat[first : first + k],
+                                        down[first : first + k])
+                first += k
+        return [out[i] for i in range(n)]
 
 
 def zeropad(spect, left: int = 0, right: int = 0) -> np.ndarray:
@@ -410,31 +431,140 @@ def _try_call(fn, *args):
         return None, exc
 
 
+def _as_pcm16_if_exact(x: np.ndarray) -> np.ndarray:
+    """`x` as int16 PCM when every sample times 32768 is an integer of
+    magnitude at most 32767 (audio decoded from 16-bit PCM, then only
+    zero-padded, copied or averaged over equal channels), else `x`
+    unchanged. Every 64th sample is looked at first, so resampled or
+    float-source audio, which is not integral at that scale, declines
+    after a small share of the passes."""
+    for part in (x[::64], x):
+        scaled = part.astype(np.float32) * np.float32(32768.0)
+        rounded = np.round(scaled)
+        if np.abs(rounded).max(initial=0.0) > 32767.0 or not np.array_equal(rounded, scaled):
+            return x
+    return rounded.astype(np.int16)
+
+
+def pcm16_to_float(signal: np.ndarray) -> np.ndarray:
+    """A signal of `BatchedFile2File._load_one` as float32: int16 PCM scaled
+    by 1 / 32768 (exact, the value `load_audio` gives), anything else
+    unchanged."""
+    if signal.dtype == np.int16:
+        return signal.astype(np.float32) * np.float32(1.0 / 32768.0)
+    return signal
+
+
+def pack_flat(signals) -> tuple[np.ndarray, list[int]]:
+    """One flat signal holding every signal in a slot of its own, and the
+    slots' first samples: int16 when every signal is int16 PCM (the log-mel
+    undoes the scale exactly, so the group goes to the device in half the
+    bytes), else float32. A slot is at least n + 1024 samples, a multiple
+    of 4 hops: [signal | reflect tail | zeros], with the next slot's reflect
+    head (the 512 samples the centered frames mirror at its left edge)
+    written into the end of the zeros. A frame at global position f reads
+    flat[f * 441 - 512 : f * 441 + 512], so every kept frame of a slot reads
+    the samples `signal2spect` gives the log-mel of that signal alone (the
+    first slot's head is the log-mel's own reflect padding)."""
+    pcm = all(s.dtype == np.int16 for s in signals)
+    if not pcm:
+        signals = [pcm16_to_float(s) for s in signals]
+    align = HOP * 4
+    starts, pos = [], 0
+    for s in signals:
+        starts.append(pos)
+        pos += math.ceil((len(s) + 1024) / align) * align
+    flat = np.zeros(pos, np.int16 if pcm else np.float32)
+    for st, s in zip(starts, signals):
+        n = len(s)
+        reflect = min(512, n - 1)
+        flat[st : st + n] = s
+        if reflect > 0:
+            flat[st + n : st + n + reflect] = s[n - 1 - reflect : n - 1][::-1]
+        if st:
+            flat[st - 512 : st] = flat[st + 1 : st + 513][::-1]
+    return flat, starts
+
+
 class BatchedFile2File(File2File):
     """Directory-scale inference: groups of `group_size` files are loaded
-    together, share one batched forward (`predict_many`) and one batched
-    postprocess, and write the `.beats` files the per-file path writes."""
+    together, share one log-mel over their signals packed into one flat
+    signal on the model's device, the forwards of `predict_many_device` on
+    windows gathered there, and one batched postprocess, and write the
+    `.beats` files the per-file path writes."""
+
+    # groups that took the host path after the device path failed
+    host_groups = 0
 
     def __init__(self, checkpoint_path="final0", device="cuda", float16=False, dbn=False,
                  group_size=8):
         super().__init__(checkpoint_path, device, float16, dbn)
         self.group_size = group_size
 
-    def _decode_group(self, spects):
-        """Per spectrogram ((logits, (beats, downbeats)), None) from one
-        batched forward and postprocess. If the group fails, each file runs
-        alone and a failing one gives (None, exception): one bad file must
-        not stop the run, nor take its group along."""
+    @staticmethod
+    def _load_one(audio_path) -> tuple[np.ndarray, float]:
+        """A file's mono signal at 22050 Hz and its length in seconds: a 16-bit
+        mono wav at 22050 Hz as its int16 samples, other audio as float32,
+        or as int16 where `_as_pcm16_if_exact` finds it exact."""
+        pcm = read_pcm16(audio_path)
+        if pcm is not None and pcm[0].ndim == 1 and pcm[1] == 22050:
+            return pcm[0], len(pcm[0]) / 22050
+        signal, sr = load_audio(audio_path)
+        signal = np.asarray(signal)
+        seconds = len(signal) / sr
+        if signal.ndim == 2:
+            signal = signal.mean(1)
+        if sr != 22050:
+            from beat_this_tpu_torch.ops.resample import resample
+
+            signal = resample(signal, in_rate=sr, out_rate=22050)
+        return _as_pcm16_if_exact(signal.astype(np.float32)), seconds
+
+    def _batched_spects_device(self, signals):
+        """The group's log-mel as one (frames, bins) tensor on the model's
+        device, from `pack_flat`'s signal, and each signal's (frame offset,
+        frame count) in it."""
+        flat, starts = pack_flat(signals)
+        mel = log_mel_spectrogram(torch.from_numpy(flat).to(self.device), LogMelConfig())
+        return mel, [st // HOP for st in starts], [num_frames(len(s)) for s in signals]
+
+    def _batched_spects(self, signals) -> list[np.ndarray]:
+        """The group's log-mel of `_batched_spects_device`, downloaded and
+        cut into one (frames, bins) array per signal."""
+        mel, offsets, nframes = self._batched_spects_device(signals)
+        mel = mel.cpu().numpy()
+        return [mel[o : o + n] for o, n in zip(offsets, nframes)]
+
+    def _group_logits(self, signals):
+        """Per-signal (beat, downbeat) logits of one group: the device path
+        (the group's log-mel stays on the device, `predict_many_device`). A
+        failure there is printed on stderr and the group runs again on the
+        host path (`predict_many` on `_batched_spects`), counted in
+        `host_groups`."""
         try:
-            logits = self.predictor.predict_many(spects)
+            return self.predictor.predict_many_device(*self._batched_spects_device(signals))
+        except Exception as exc:  # noqa: BLE001 - reported, then the host path
+            print(f"beat_this_tpu_torch: device-resident group inference failed with "
+                  f"{type(exc).__name__}: {exc}; falling back to the host spect path for "
+                  f"this group", file=sys.stderr)
+            type(self).host_groups += 1
+        return self.predictor.predict_many(self._batched_spects(signals))
+
+    def _decode_group(self, signals):
+        """Per signal ((logits, (beats, downbeats)), None) from one group
+        forward and postprocess. If the group fails, each file runs alone
+        and a failing one gives (None, exception): one bad file must not
+        stop the run, nor take its group along."""
+        try:
+            logits = self._group_logits(signals)
             times = zip(*self.frames2beats(*_pad_logit_group(logits)))
             return [((lg, t), None) for lg, t in zip(logits, times)]
         except Exception:  # noqa: BLE001 - reported per file below
-            def alone(spect):
-                logits = self.predictor.predict(spect)
+            def alone(signal):
+                logits = self.spect2frames(self.signal2spect(pcm16_to_float(signal), 22050))
                 return logits, self.frames2beats(*logits)
 
-            return [_try_call(alone, spect) for spect in spects]
+            return [_try_call(alone, signal) for signal in signals]
 
     def process_many(self, tasks, on_error=None, after_each=None) -> float:
         """tasks: iterable of (audio_path, output_path). A file that fails
@@ -446,23 +576,21 @@ class BatchedFile2File(File2File):
         seconds = 0.0
         for i in range(0, len(tasks), self.group_size):
             group = tasks[i : i + self.group_size]
-            # decoding overlaps across files; the mel runs on the device in turn
+            # decoding and resampling overlap across files
             with ThreadPoolExecutor() as pool:
-                loaded = list(pool.map(lambda t: _try_call(load_audio, t[0]), group))
-            spects, valid = [], []
+                loaded = list(pool.map(lambda t: _try_call(self._load_one, t[0]), group))
+            signals, valid = [], []
             for (path, out), (audio, err) in zip(group, loaded):
-                if err is None:
-                    spect, err = _try_call(self.signal2spect, *audio)
                 if err is not None:
                     if on_error:
                         on_error(path, err)
                     continue
-                seconds += len(audio[0]) / audio[1]
-                spects.append(spect)
+                seconds += audio[1]
+                signals.append(audio[0])
                 valid.append((path, out))
-            if not spects:
+            if not signals:
                 continue
-            for (path, out), (decoded, err) in zip(valid, self._decode_group(spects)):
+            for (path, out), (decoded, err) in zip(valid, self._decode_group(signals)):
                 try:
                     if err is not None:
                         raise err

@@ -22,7 +22,9 @@ from pathlib import Path
 import numpy as np
 
 
-def _read_wav(path, dtype="float64"):
+def _parse_wav(path):
+    """(format tag, channels, samplerate, bits per sample, sample bytes) of a
+    RIFF/WAVE file."""
     with open(path, "rb") as f:
         data = f.read()
     if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"WAVE":
@@ -45,6 +47,11 @@ def _read_wav(path, dtype="float64"):
     if fmt is None or payload is None:
         raise ValueError("missing fmt/data chunk")
     audio_format, channels, samplerate, _, _, bits = fmt
+    return audio_format, channels, samplerate, bits, payload
+
+
+def _read_wav(path, dtype="float64"):
+    audio_format, channels, samplerate, bits, payload = _parse_wav(path)
     if audio_format == 1:  # integer PCM
         if bits == 8:
             x = data_u8 = np.frombuffer(payload, dtype=np.uint8)
@@ -76,6 +83,20 @@ def _read_wav(path, dtype="float64"):
     if channels > 1:
         x = x.reshape(-1, channels)
     return np.asarray(x, dtype=dtype), samplerate
+
+
+def read_pcm16(path):
+    """(int16 samples, samplerate) of a 16-bit PCM WAVE file, shaped as
+    `load_audio` shapes them: the integers it divides by 32768. None for
+    any other file."""
+    try:
+        audio_format, channels, samplerate, bits, payload = _parse_wav(path)
+        if audio_format != 1 or bits != 16:
+            return None
+        x = np.frombuffer(payload, dtype=np.dtype("<i2"))
+    except (OSError, ValueError, struct.error):
+        return None
+    return (x.reshape(-1, channels) if channels > 1 else x), samplerate
 
 
 def _read_via_ffmpeg(path, dtype="float64"):

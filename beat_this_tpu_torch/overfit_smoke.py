@@ -78,7 +78,7 @@ def overfit(config, *, epochs: int = 45, train_length: int = 512, lr: float = 1e
     fit_s = time.time() - t0
 
     predictor = ChunkedPredictor(state.model.eval())
-    postp = Postprocessor("minimal", fps=50)
+    postp = Postprocessor("minimal", fps=50, device=predictor.device)
     metrics = Metrics(eval_trim_beats=5)
     full = BeatTrackingDataset(train_items, root, train_length=None, augmentations={},
                                deterministic=True)

@@ -24,7 +24,6 @@ optimizer). Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import tempfile
 import time
 from collections import defaultdict
@@ -101,8 +100,8 @@ def main(argv=None) -> dict:
 
     from beat_this_tpu_torch.data import BeatDataModule
     from beat_this_tpu_torch.data.synth import write_click_corpus
-    from beat_this_tpu_torch.io.checkpoint import init_beat_this
-    from beat_this_tpu_torch.model.beat_this import BeatThis, BeatThisConfig
+    from beat_this_tpu_torch.bench.timing import nvidia_smi_line, seed_model
+    from beat_this_tpu_torch.model.beat_this import BeatThisConfig
     from beat_this_tpu_torch.train.task import (
         TrainConfig,
         make_optimizer,
@@ -113,9 +112,7 @@ def main(argv=None) -> dict:
     args = get_parser().parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi_line()
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory(prefix="beat_this_profile_") as tmp:
         write_click_corpus(Path(tmp), n_pieces=16, n_val_pieces=2, frames=3000, seed=0)
@@ -131,9 +128,7 @@ def main(argv=None) -> dict:
     tc = TrainConfig(warmup_steps=1, accum_steps=ACCUM,
                      pos_weight_beat=pw["beat"], pos_weight_downbeat=pw["downbeat"],
                      compute_dtype=args.precision, max_steps=100)
-    model = BeatThis(cfg)
-    model.load_state_dict(init_beat_this(0, cfg))
-    model = model.to(dev)
+    model = seed_model(cfg, dev)
     opt, gen = make_optimizer(model, tc), torch.Generator().manual_seed(0)
     sched = make_scheduler(opt, tc)
     for _ in range(WARMUP):

@@ -74,7 +74,9 @@ non-zero without the final `"ok": true` line:
    checkpoint also `--dbn` on the 75 s piece (beats at F >= 0.999 against
    the minimal postprocessor's, and equal to the DBN decode of the plain
    float32 path's logits) and directory mode over four wavs of unequal
-   length, byte-identical to the four single-file runs;
+   length, every group on the device-resident path (no group counted on
+   the host path), byte-identical to the four single-file runs, with the
+   group's packed-flat log-mel's distance from each file's own printed;
 5. training end to end: `python -m beat_this_tpu_torch.train`, in-process,
    on a click corpus written by the port's `data.synth`, at full width
    (512 x 6, 16 heads), batch 8 x 1500 frames, 2 microbatches per step
@@ -112,7 +114,19 @@ non-zero without the final `"ok": true` line:
    `compute_paper_metrics` on the cleaned checkpoint over the training
    split, with the minimal postprocessor (per-piece beat F equal to the
    overfit run's) and with `--dbn`, with exact launch counts;
-7. the kernel summary JSON (launches: phases 4-6), then the device JSON as
+7. the kernel gate and the benches: `beat_this_tpu_torch.check_all` (the
+   12 checks of tools/check_all_tpu.py at full width and their limits:
+   K2 parity, the directional gradchecks with dropout of B4-B12, eval logit
+   parity, 30 training steps at 8 microbatches with their step time and
+   peak memory, the 16-piece beat-level suite through the minimal and DBN
+   postprocessing, gradient parity, dropout statistics), every check ok;
+   then the five benches of `beat_this_tpu_torch/bench/` through their
+   `main` (mel_stage, cli_dir, dbn, eval_protocol, small; `BENCHES` lists
+   any cut of their flags): directory mode with no group on the host path,
+   the trained fixture's evaluation protocol at mean beat F >= 0.9, the DBN
+   at mean beat F >= 0.9 on its clicks, the small model with exact launch
+   counts; every main-path kernel launched in the phase;
+8. the kernel summary JSON (launches: phases 4-7), then the device JSON as
    the last line.
 
 Needs a CUDA device and the repository beside this script; it never runs
@@ -891,6 +905,7 @@ def _dbn_and_directory(tmp: Path, smi: str, ckpt: Path, pieces: dict, refs: dict
     import torch
 
     from beat_this_tpu_torch import cli
+    from beat_this_tpu_torch.inference import BatchedFile2File, pcm16_to_float
     from beat_this_tpu_torch.ops.fused_time import fused_time_roformer
     from beat_this_tpu_torch.postprocessing.postprocessor import Postprocessor
 
@@ -922,9 +937,11 @@ def _dbn_and_directory(tmp: Path, smi: str, ckpt: Path, pieces: dict, refs: dict
     src.mkdir()
     lengths = (3750, 601, 1600, 250)
     seconds = sum(write_wav(src / f"p{i}.wav", frames, 10 + i) for i, frames in enumerate(lengths))
-    before = fused_time_roformer.launches
+    before, host_before = fused_time_roformer.launches, BatchedFile2File.host_groups
     wall_dir = run_cli([src], tmp / "dir_out")
+    host_groups = BatchedFile2File.host_groups - host_before
     check(fused_time_roformer.launches > before, "directory mode launched no kernel")
+    check(host_groups == 0, f"directory mode: {host_groups} groups took the host path")
     wall_single = sum(run_cli([src / f"p{i}.wav"], tmp / "single" / f"p{i}.beats")
                       for i in range(len(lengths)))
     for i in range(len(lengths)):
@@ -932,8 +949,19 @@ def _dbn_and_directory(tmp: Path, smi: str, ckpt: Path, pieces: dict, refs: dict
         check(len(got) > 0 and got == (tmp / "single" / f"p{i}.beats").read_bytes(),
               f"directory mode: p{i}.beats differs from the single-file run")
     print(f"[e2e] directory mode, {len(lengths)} wavs of {lengths} frames ({seconds:.1f} s "
-          f"audio): {wall_dir:.3f} s wall ({seconds / wall_dir:.1f}x realtime), the four "
-          f"single-file runs {wall_single:.3f} s; .beats files byte-identical [{smi}]")
+          f"audio): {wall_dir:.3f} s wall ({seconds / wall_dir:.1f}x realtime), every group on "
+          f"the device-resident path ({host_groups} on the host path), the four single-file "
+          f"runs {wall_single:.3f} s; .beats files byte-identical [{smi}]")
+    # the group's packed-flat log-mel against each file's own, on the card
+    f2f = BatchedFile2File(str(ckpt), DEVICE)
+    signals = [f2f._load_one(src / f"p{i}.wav")[0] for i in range(len(lengths))]
+    flat = f2f._batched_spects(signals)
+    alone = [f2f.signal2spect(pcm16_to_float(x), SR) for x in signals]
+    rel = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(flat, alone))
+    same = sum(bool(np.array_equal(a, b)) for a, b in zip(flat, alone))
+    print(f"[e2e] directory mode's packed-flat log-mel (int16 upload) against each file's own: "
+          f"{same} of {len(lengths)} files bit for bit, relative max deviation {rel:.3e} "
+          f"[{smi}]")
 
 
 # -- phase 3b: training kernels -------------------------------------------------
@@ -2034,6 +2062,11 @@ def driver_counters() -> dict:
             "fused_freq_roformer": fused_freq_roformer, "flash_attention_fwd": flash_fwd}
 
 
+def launch_delta(counters: dict, before: dict) -> dict:
+    """The counters that went up since `before`, by how much."""
+    return {k: fn.launches - before[k] for k, fn in counters.items() if fn.launches > before[k]}
+
+
 def _drivers(root: Path, smi: str) -> dict:
     """preprocess_audio over raw click wavs; overfit_smoke at full width (stock
     float32 and bfloat16, h16 bfloat16); clean_checkpoints on the stock float32
@@ -2050,7 +2083,7 @@ def _drivers(root: Path, smi: str) -> dict:
     launches = dict.fromkeys(counters, 0)
 
     def delta(before: dict) -> dict:
-        return {k: fn.launches - before[k] for k, fn in counters.items() if fn.launches > before[k]}
+        return launch_delta(counters, before)
 
     _preprocess(root / "prep", smi)
     epochs, lr = OVERFIT_EPOCHS, OVERFIT_LR
@@ -2203,6 +2236,96 @@ def _preprocess(root: Path, smi: str) -> None:
     check(worst <= 1.0, f"preprocess_audio: spectrograms {worst} float16 steps off the CPU's")
 
 
+# -- phase 7: the kernel gate and the benches ------------------------------------
+
+
+def phase_gate_and_benches(smi: str) -> dict:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as tmp:
+        return _gate_and_benches(Path(tmp), smi)
+
+
+# the five benches of phase 7 and their flags: each at its defaults (the
+# counterparts' sizes); a cut would be listed here and printed
+BENCHES = (("mel_stage", []), ("cli_dir", []), ("dbn", []), ("eval_protocol", []),
+           ("small", []))
+SMALL_LAYERS, SMALL_EVAL_FORWARDS, SMALL_TRAIN_STEPS = 6, (2 + 3 * 3) * 40, 2 + 5
+
+
+def _gate_and_benches(tmp: Path, smi: str) -> dict:
+    """`check_all.main` (all 12 checks at full width, every one ok), then the
+    five benches through their `main`; the small model's bench with exact
+    launch counts. Returns the launches of all of it."""
+    import importlib
+
+    import torch
+
+    from beat_this_tpu_torch import check_all
+
+    counters = driver_counters()
+    launches = dict.fromkeys(counters, 0)
+
+    def delta(before: dict) -> dict:
+        return launch_delta(counters, before)
+
+    start = {k: fn.launches for k, fn in counters.items()}
+    report_path = tmp / "GPUCHECK.json"
+    t0 = time.perf_counter()
+    rc = check_all.main(["--out", str(report_path), "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    report = json.loads(report_path.read_text())
+    gate = delta(start)
+    failed = [name for name, status in report["checks"].items() if not status["ok"]]
+    print(f"[gate] check_all: {len(report['checks'])} checks in {wall:.1f} s, failed {failed}; "
+          f"launches {gate} [{smi}]", flush=True)
+    for name, status in report["checks"].items():
+        figures = {k: v for k, v in status.items()
+                   if k not in ("ok", "curve", "trace") and not k.startswith("piece")}
+        print(f"[gate] {name}: {figures}")
+    check(rc == 0 and report["ok"] and not failed and len(report["checks"]) == 12,
+          f"check_all: rc {rc}, failed {failed}")
+    flagship = report["checks"]["flagship_train_steps"]
+    print(f"[gate] flagship training at {flagship['microbatches']} microbatches x "
+          f"{flagship['crops']} x {flagship['frames']} frames, bf16: step "
+          f"{flagship['step_s_median']:.4f} s median ({flagship['step_s_min']:.4f} s min) over "
+          f"{flagship['steps'] - 1} warm steps, peak memory {flagship['peak_gib']} GiB "
+          f"[{smi}]", flush=True)
+
+    records = {}
+    for name, flags in BENCHES:
+        module = importlib.import_module(f"beat_this_tpu_torch.bench.{name}")
+        start = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        records[name] = module.main(flags + ["--device", DEVICE])
+        torch.cuda.synchronize()
+        run = delta(start)
+        print(f"[benches] {name}.main({flags}): {time.perf_counter() - t0:.1f} s; launches {run} "
+              f"[{smi}]", flush=True)
+        for k, v in run.items():
+            launches[k] += v
+        if name == "small":  # 4 heads: every block through the fused kernels
+            want = {k: v for k, v in expected_train_launches(
+                True, 32, layers=SMALL_LAYERS, steps=SMALL_TRAIN_STEPS, accum=8).items() if v}
+            want.update({"fused_time_roformer": SMALL_EVAL_FORWARDS * (FRONTEND_BLOCKS
+                                                                       + SMALL_LAYERS),
+                         "fused_freq_roformer": SMALL_EVAL_FORWARDS * FRONTEND_BLOCKS})
+            check(run == want, f"bench small: launches {run}, expected {want}")
+    check(records["cli_dir"]["host_path_groups"] == 0, "bench cli_dir: a group took the host path")
+    check(records["eval_protocol"]["mean_f_beat_trained"] >= 0.9,
+          f"bench eval_protocol: mean F {records['eval_protocol']['mean_f_beat_trained']}")
+    check(records["dbn"]["mean_f_beat_clicks"] >= 0.9,
+          f"bench dbn: mean F {records['dbn']['mean_f_beat_clicks']}")
+    print(f"[benches] eval protocol mean beat F {records['eval_protocol']['mean_f_beat_trained']} "
+          f"(min 0.9); DBN beat F mean {records['dbn']['mean_f_beat_clicks']}, min "
+          f"{records['dbn']['min_f_beat_clicks']}")
+    for k, v in gate.items():
+        launches[k] += v
+    missing = sorted(k for k, v in launches.items() if not v)
+    check(not missing, f"phase 7 never launched {missing}")
+    check_all._FLAGSHIP.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2241,6 +2364,8 @@ def main() -> int:
         for k, v in timed("train", phase_train, smi).items():
             launches[k] = launches.get(k, 0) + v  # small_attention_fwd runs on both paths
         for k, v in timed("drivers", phase_drivers, smi).items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in timed("gate-and-benches", phase_gate_and_benches, smi).items():
             launches[k] = launches.get(k, 0) + v
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "beat_this_tpu") or m.startswith(("jax.", "beat_this_tpu.")))

@@ -177,13 +177,20 @@ def test_batched_file2file_survives_a_failing_forward(audio_dir, monkeypatch, db
     of its group are written, with the bytes the per-file path writes."""
     batched = BatchedFile2File(audio_dir / "tiny.ckpt", "cpu", dbn=dbn, group_size=3)
     predict_many = batched.predictor.predict_many
+    predict_many_device = batched.predictor.predict_many_device
 
     def failing(spects):  # a.wav is the only piece under 100 frames
         if any(len(s) < 100 for s in spects):
             raise RuntimeError("forward failed")
         return predict_many(spects)
 
+    def failing_device(mel, offsets, nframes):  # the group's own path, as `failing`
+        if min(nframes) < 100:
+            raise RuntimeError("forward failed")
+        return predict_many_device(mel, offsets, nframes)
+
     monkeypatch.setattr(batched.predictor, "predict_many", failing)
+    monkeypatch.setattr(batched.predictor, "predict_many_device", failing_device)
     errors, seen = [], []
     out = audio_dir / f"out-forward-{dbn}"
     batched.process_many([(audio_dir / "in" / f"{n}.wav", out / f"{n}.beats") for n in "dac"],

@@ -20,7 +20,7 @@ PACKAGE = Path(__file__).resolve().parent.parent / "beat_this_tpu_torch"
 
 def test_import_pulls_in_no_jax():
     """Every module of the port (the bench entry points, the DBN decoder,
-    the hub module and the launch-script drivers among them), imported in a
+    the hub module, the launch-script drivers and the kernel gate among them), imported in a
     fresh interpreter, loads no module named jax*, beat_this_tpu,
     beat_this_tpu.*, tools or tools.*."""
     code = (
@@ -31,7 +31,8 @@ def test_import_pulls_in_no_jax():
         "for mod in ('ops.flash_attention', 'ops.small_attention', 'bench.fused_freq_ablate',\n"
         "            'bench.flash_ablate', 'bench.softmax_variants', 'postprocessing.dbn', 'hub',\n"
         "            'ops.stretch', 'profiler', 'clean_checkpoints', 'preprocess_audio',\n"
-        "            'overfit_smoke', 'compute_paper_metrics'):\n"
+        "            'overfit_smoke', 'compute_paper_metrics', 'check_all', 'bench.mel_stage',\n"
+        "            'bench.cli_dir', 'bench.dbn', 'bench.eval_protocol', 'bench.small'):\n"
         "    assert 'beat_this_tpu_torch.' + mod in names, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -57,7 +58,9 @@ def test_sources_import_nothing_of_the_jax_package():
     for name in ("ops/flash_attention.py", "ops/small_attention.py", "bench/flash_ablate.py",
                  "bench/fused_freq_ablate.py", "bench/softmax_variants.py", "postprocessing/dbn.py",
                  "hub.py", "ops/stretch.py", "profiler.py", "clean_checkpoints.py",
-                 "preprocess_audio.py", "overfit_smoke.py", "compute_paper_metrics.py"):
+                 "preprocess_audio.py", "overfit_smoke.py", "compute_paper_metrics.py",
+                 "check_all.py", "bench/mel_stage.py", "bench/cli_dir.py", "bench/dbn.py",
+                 "bench/eval_protocol.py", "bench/small.py"):
         assert PACKAGE / name in paths
     for path in paths:
         assert not pattern.search(path.read_text()), path
