@@ -316,8 +316,8 @@ __device__ __forceinline__ void keep_bits(const bt::Dropout& d, uint32_t item, u
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const uint4 b = bt::philox4x32_10(
-        make_uint4((uint32_t)(k0 >> 2) + 2 * j + (t >> 1), (uint32_t)(row + 8 * odd), item,
-                   (bt::kSiteAttnProbs << 16) | head),
+        make_uint4((uint32_t)(k0 >> 2) + 2 * j + (t >> 1), (uint32_t)(row + 8 * odd),
+                   item + d.item0, (bt::kSiteAttnProbs << 16) | head),
         d.seed, d.salt);
     mine |= (uint32_t)((b.x < d.thr) | ((b.y < d.thr) << 1) | ((b.z < d.thr) << 2) |
                        ((b.w < d.thr) << 3)) << (4 * j);
@@ -353,8 +353,8 @@ __device__ __forceinline__ void keep_table(uint8_t (&keepb)[kTile][kRows / 4],
   for (int e = threadIdx.x; e < kTile * (kRows / 4); e += kThreads) {
     const int i = e / (kRows / 4), kg = e % (kRows / 4);
     const uint4 b = bt::philox4x32_10(
-        make_uint4((kb0 >> 2) + kg, q0 + i, item, (bt::kSiteAttnProbs << 16) | head), d.seed,
-        d.salt);
+        make_uint4((kb0 >> 2) + kg, q0 + i, item + d.item0, (bt::kSiteAttnProbs << 16) | head),
+        d.seed, d.salt);
     keepb[i][kg] = (uint8_t)((b.x < d.thr) | ((b.y < d.thr) << 1) | ((b.z < d.thr) << 2) |
                              ((b.w < d.thr) << 3));
   }

@@ -242,7 +242,7 @@ __global__ void __launch_bounds__(bt::kThreads)
       a.x += v.x, a.y += v.y, a.z += v.z, a.w += v.w;
     }
     float f[4];
-    bt::keep4(drop, bt::kSiteFFOut, 0, 0, (uint32_t)r, c >> 2, f);
+    bt::row_keep4(drop, bt::kSiteFFOut, (uint32_t)r, c >> 2, f);
     const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -294,7 +294,7 @@ __global__ void __launch_bounds__(bt::kThreads)
       if constexpr (BWD) {
         float dv[4], f[4];
         load4(dout + r * C + col, dv);
-        bt::keep4(drop, bt::kSiteFFOut, 0, 0, (uint32_t)r, col >> 2, f);
+        bt::row_keep4(drop, bt::kSiteFFOut, (uint32_t)r, col >> 2, f);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           dv[e] *= f[e];

@@ -528,18 +528,19 @@ cudaError_t dispatch_ablate(int mode, const void* q, const void* k, const void* 
 // dtype: 0 float32, 1 bfloat16 for q, k, v and o (bh, n, D), D 16 or 32,
 // each 16-byte aligned;
 // cos/sin (n, D/2) float32, or both null for no rotation; lse (bh, n)
-// float32, or null when it is not wanted. Dropout coordinates: item bh /
-// heads, head bh % heads; keep iff the Philox bits < thr, kept values times
-// scale; on == 0 turns it off. scratch: the pre-pass's bfloat16 planes of
+// float32, or null when it is not wanted. Dropout coordinates: item item0 +
+// bh / heads, head bh % heads (row0 is unused); keep iff the Philox bits <
+// thr, kept values times scale; on == 0 turns it off. scratch: the pre-pass's bfloat16 planes of
 // bh n D elements: bfloat16 2 (the rotated q and k; v is read in place),
 // float32 9 (q, k and v in three parts each).
 extern "C" int bt_flash_fwd(int dtype, int D, const void* q, const void* k, const void* v,
                             const void* cosv, const void* sinv, void* o, void* lse, int bh,
                             int n, int heads, unsigned seed, unsigned salt, unsigned thr,
-                            float scale, int on, void* scratch, void* stream) {
+                            float scale, int on, unsigned item0, unsigned row0, void* scratch,
+                            void* stream) {
   if (bh <= 0 || n <= 0) return 0;
   if (heads < 1) return (int)cudaErrorInvalidValue;
-  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on, item0, row0);
   cudaStream_t s = (cudaStream_t)stream;
 #define BT_CALL(DD, TT) \
   tc::launch_fwd<DD, TT, kFull>(q, k, v, cosv, sinv, o, lse, bh, n, heads, d, 0.f, scratch, s)
@@ -555,10 +556,11 @@ extern "C" int bt_flash_bwd(int dtype, int D, const void* q, const void* k, cons
                             const void* cosv, const void* sinv, const void* dout,
                             const void* lse, const void* delta, void* dq, void* dk, void* dv,
                             int bh, int n, int heads, unsigned seed, unsigned salt, unsigned thr,
-                            float scale, int on, void* scratch, void* stream) {
+                            float scale, int on, unsigned item0, unsigned row0, void* scratch,
+                            void* stream) {
   if (bh <= 0 || n <= 0) return 0;
   if (heads < 1) return (int)cudaErrorInvalidValue;
-  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on, item0, row0);
   cudaStream_t s = (cudaStream_t)stream;
 #define BT_CALL(DD, TT)                                                                        \
   tc::launch_bwd<DD, TT>(q, k, v, cosv, sinv, dout, lse, delta, dq, dk, dv, bh, n, heads, d, \

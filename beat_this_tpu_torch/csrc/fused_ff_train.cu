@@ -107,15 +107,16 @@ extern "C" int bt_ff_train_fwd_scratch(int dtype, int C, long long rows, int M,
 // dtype: 0 float32, 1 bfloat16 (x, w1, w2, out); gamma, b1, b2 float32.
 // x, out (rows, C); w1 (M, C); w2 (C, M); M % 64 == 0. scratch:
 // scratch_bytes bytes, at least bt_ff_train_fwd_scratch's. Dropout: keep iff
-// the Philox bits < thr, kept values times scale; on == 0 turns it off.
+// the Philox bits < thr, kept values times scale; on == 0 turns it off; the
+// rows count from row0 (item0 is unused: no probability site).
 extern "C" int bt_ff_train_fwd(int dtype, int C, const void* x, const void* gamma,
                                const void* w1, const void* b1, const void* w2, const void* b2,
                                void* out, void* scratch, long long scratch_bytes, long long rows,
                                int M, unsigned seed, unsigned salt, unsigned thr, float scale,
-                               int on, void* stream) {
+                               int on, unsigned item0, unsigned row0, void* stream) {
   if (rows <= 0) return 0;
   if (M % kHidN) return (int)cudaErrorInvalidValue;
-  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on, item0, row0);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0 ? dispatch_fwd<float>(C, x, gamma, w1, b1, w2, b2, out, scratch,
                                                 scratch_bytes, rows, M, d, s)
@@ -156,10 +157,10 @@ extern "C" int bt_ff_train_bwd(int dtype, int xdtype, int C, const void* x, cons
                                void* dx, void* dgamma, void* dw1, void* db1, void* dw2, void* db2,
                                void* scratch, long long scratch_bytes, long long rows, int M,
                                long long group_rows, unsigned seed, unsigned salt, unsigned thr,
-                               float scale, int on, void* stream) {
+                               float scale, int on, unsigned item0, unsigned row0, void* stream) {
   if (rows <= 0) return 0;
   if (M % kHidN || group_rows < 1) return (int)cudaErrorInvalidValue;
-  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on, item0, row0);
   cudaStream_t s = (cudaStream_t)stream;
 #define BT_DISPATCH(T, X)                                                                  \
   dispatch_bwd<T, X>(C, x, gamma, w1, b1, w2, dout, dx, dgamma, dw1, db1, dw2, db2, scratch, \

@@ -67,7 +67,8 @@
 // under one salt, masks drawn from Philox by element coordinates (philox.cuh,
 // ops/dropout.py): the probabilities at (item, head, query, key), a 4-key
 // group drawn once for two lanes of a fragment; the attention output, FF
-// hidden and FF output at (row of the (items F, C) view, column).
+// hidden and FF output at (row of the (items F, C) view, column); items
+// count from item0 and rows from row0 (= item0 F for a shard of a batch).
 #include "freq_block.cuh"
 
 namespace {
@@ -141,9 +142,10 @@ extern "C" int bt_freq_train_fwd(int dtype, int C, const void* x, const void* ag
                                  const void* b1, const void* w2, const void* b2, const void* cosv,
                                  const void* sinv, void* out, long long rows, int F, int M,
                                  unsigned seed, unsigned salt, unsigned thr, float scale, int on,
-                                 void* stream) {
+                                 unsigned item0, unsigned row0, void* stream) {
   return entry<true>(dtype, C, x, agamma, wqkv, wg, gb, wout, fgamma, w1, b1, w2, b2, cosv, sinv,
-                     out, rows, F, M, bt::make_dropout(seed, salt, thr, scale, on), stream);
+                     out, rows, F, M, bt::make_dropout(seed, salt, thr, scale, on, item0, row0),
+                     stream);
 }
 
 // *blocks: the blocks of bt_fused_freq's launch (dtype, C as there) an SM

@@ -149,7 +149,7 @@ __global__ void __launch_bounds__(bt::kThreads)
     const int64_t r = e / (C / 4), at = 4 * e;
     const int c = (int)(at - r * C);
     float f[4], d[4];
-    bt::keep4(drop, bt::kSiteAttnOut, 0, 0, (uint32_t)r, c >> 2, f);
+    bt::row_keep4(drop, bt::kSiteAttnOut, (uint32_t)r, c >> 2, f);
 #pragma unroll
     for (int i = 0; i < 4; ++i) d[i] = dx2[at + i] * f[i];
     mm::store4<P>(da + at, lo, d);
@@ -620,11 +620,12 @@ extern "C" int bt_freq_train_bwd(int dtype, int C, const void* x, const void* ag
                                  void* dw1, void* db1, void* dw2, void* db2, void* scratch,
                                  long long scratch_bytes, long long rows, int F, int M,
                                  long long group_rows, long long ff_group_rows, unsigned seed,
-                                 unsigned salt, unsigned thr, float scale, int on, void* stream) {
+                                 unsigned salt, unsigned thr, float scale, int on, unsigned item0,
+                                 unsigned row0, void* stream) {
   if (rows <= 0) return 0;
   if (F <= 0 || 32 % F || rows % F || M % ff::kHidN || group_rows < 1 || ff_group_rows < 1)
     return (int)cudaErrorInvalidValue;
-  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on, item0, row0);
   float* const grads[10] = {(float*)dga, (float*)dwqkv, (float*)dwg, (float*)dgb, (float*)dwout,
                             (float*)dgf, (float*)dw1,   (float*)db1, (float*)dw2, (float*)db2};
   cudaStream_t s = (cudaStream_t)stream;

@@ -277,7 +277,7 @@ __global__ void __launch_bounds__(bt::kThreads)
     const int64_t r = e / (C / 4);
     const int c = 4 * (int)(e % (C / 4));
     float f[4];
-    bt::keep4(drop, bt::kSiteAttnOut, 0, 0, (uint32_t)r, c >> 2, f);
+    bt::row_keep4(drop, bt::kSiteAttnOut, (uint32_t)r, c >> 2, f);
     const float gate = gates[r * H + c / kHD];
     const int64_t at = r * C + c;
     float d[4], gv[4];
@@ -791,16 +791,17 @@ extern "C" int bt_attn_train_fwd_scratch(int dtype, int C, long long rows, long 
 // (C/32, C), gb, cos/sin (n, 16), gates (items * n, C/32), o (items, n, C),
 // mrow and lrow (items * C/32, n) are float32. scratch: scratch_bytes bytes,
 // at least bt_attn_train_fwd_scratch's. Dropout: keep iff the Philox bits <
-// thr, kept values times scale; on == 0 turns it off.
+// thr, kept values times scale; on == 0 turns it off; the probabilities'
+// items count from item0, the output's rows of (items n, C) from row0.
 extern "C" int bt_attn_train_fwd(int dtype, int C, const void* x, const void* agamma,
                                  const void* wqkv, const void* wg, const void* gb,
                                  const void* wout, const void* cosv, const void* sinv, void* q,
                                  void* k, void* v, void* gates, void* o, void* mrow, void* lrow,
                                  void* out, void* scratch, long long scratch_bytes, int items,
                                  int n, unsigned seed, unsigned salt, unsigned thr, float scale,
-                                 int on, void* stream) {
+                                 int on, unsigned item0, unsigned row0, void* stream) {
   if (items <= 0 || n <= 0) return 0;
-  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on, item0, row0);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0 ? dispatch_fwd<float>(C, x, agamma, wqkv, wg, gb, wout, cosv, sinv, q,
                                                 k, v, gates, o, mrow, lrow, out, scratch,
@@ -843,10 +844,10 @@ extern "C" int bt_attn_train_bwd(int dtype, int C, const void* x, const void* ag
                                  void* dgamma, void* dw, void* dwg, void* dgb, void* scratch,
                                  long long scratch_bytes, int items, int n, long long group_rows,
                                  unsigned seed, unsigned salt, unsigned thr, float scale, int on,
-                                 void* stream) {
+                                 unsigned item0, unsigned row0, void* stream) {
   if (items <= 0 || n <= 0) return 0;
   if (group_rows < 1) return (int)cudaErrorInvalidValue;
-  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on, item0, row0);
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0
                    ? dispatch_bwd<float>(C, x, agamma, wqkv, wg, wout, cosv, sinv, q, k, v, gates,

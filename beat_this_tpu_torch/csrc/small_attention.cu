@@ -389,16 +389,17 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 
 // dtype: 0 float32, 1 bfloat16 for q, k, v and o (items, F, D), F dividing
 // 32, D 16 or 32, each 16-byte aligned; cos/sin (F, D/2) float32, or both
-// null for no rotation. Dropout coordinates: item / heads, item % heads;
-// keep iff the Philox bits < thr, kept values times scale; on == 0 turns it
-// off.
+// null for no rotation. Dropout coordinates: item0 + item / heads, item %
+// heads (row0 is unused); keep iff the Philox bits < thr, kept values times
+// scale; on == 0 turns it off.
 extern "C" int bt_small_attn_fwd(int dtype, int F, int D, const void* q, const void* k,
                                  const void* v, const void* cosv, const void* sinv, void* o,
                                  long long items, int heads, unsigned seed, unsigned salt,
-                                 unsigned thr, float scale, int on, void* stream) {
+                                 unsigned thr, float scale, int on, unsigned item0, unsigned row0,
+                                 void* stream) {
   if (items <= 0) return 0;
   if (heads < 1) return (int)cudaErrorInvalidValue;
-  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on, item0, row0);
   cudaStream_t s = (cudaStream_t)stream;
 #define BT_CALL(FF, DD, TT) launch_fwd<FF, DD, TT>(q, k, v, cosv, sinv, o, items, heads, d, s)
   BT_SMALL_DISPATCH(BT_CALL)
@@ -411,10 +412,10 @@ extern "C" int bt_small_attn_bwd(int dtype, int F, int D, const void* q, const v
                                  const void* v, const void* cosv, const void* sinv,
                                  const void* dout, void* dq, void* dk, void* dv, long long items,
                                  int heads, unsigned seed, unsigned salt, unsigned thr,
-                                 float scale, int on, void* stream) {
+                                 float scale, int on, unsigned item0, unsigned row0, void* stream) {
   if (items <= 0) return 0;
   if (heads < 1) return (int)cudaErrorInvalidValue;
-  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on);
+  const bt::Dropout d = bt::make_dropout(seed, salt, thr, scale, on, item0, row0);
   cudaStream_t s = (cudaStream_t)stream;
 #define BT_CALL(FF, DD, TT) \
   launch_bwd<FF, DD, TT>(q, k, v, cosv, sinv, dout, dq, dk, dv, items, heads, d, s)

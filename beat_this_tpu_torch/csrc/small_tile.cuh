@@ -154,7 +154,7 @@ __device__ __forceinline__ void prob_bits(const bt::Dropout& d, int ql, uint32_t
     const bool need = F >= 4 ? key0 / F == ql / F : key0 == (ql & ~3);
     if (need) {
       const uint4 b = bt::philox4x32_10(
-          make_uint4(F >= 4 ? (uint32_t)(key0 - first) >> 2 : 0u, query, item,
+          make_uint4(F >= 4 ? (uint32_t)(key0 - first) >> 2 : 0u, query, item + d.item0,
                      (bt::kSiteAttnProbs << 16) | head),
           d.seed, d.salt);
       uint32_t m4 = (uint32_t)(b.x < d.thr) | ((uint32_t)(b.y < d.thr) << 1) |

@@ -288,7 +288,8 @@ __device__ __forceinline__ void row_keep(const bt::Dropout& d, uint32_t site, in
   }
   const int t = threadIdx.x & 3, odd = t & 1;
   const uint4 b = bt::philox4x32_10(
-      make_uint4((uint32_t)(col8 >> 2) + (t >> 1), (uint32_t)(row + 8 * odd), 0u, site << 16),
+      make_uint4((uint32_t)(col8 >> 2) + (t >> 1), (uint32_t)(row + 8 * odd) + d.row0, 0u,
+                 site << 16),
       d.seed, d.salt);
   const uint32_t mine = (uint32_t)(b.x < d.thr) | ((uint32_t)(b.y < d.thr) << 1) |
                         ((uint32_t)(b.z < d.thr) << 2) | ((uint32_t)(b.w < d.thr) << 3);

@@ -17,7 +17,9 @@ into shared forwards; `predict_many` uploads host spectrograms into such a
 log-mel and runs it. `BatchedFile2File` runs a directory in groups: one
 log-mel over the group's files packed into one flat signal on the model's
 device, `predict_many_device` on it, one batched postprocess; all give what
-the per-piece path gives.
+the per-piece path gives. With a data-parallel `group` (`parallel/`), every
+forward's rows are split over the ranks and the logits gathered to every
+rank.
 """
 
 from __future__ import annotations
@@ -28,12 +30,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from beat_this_tpu_torch.io.audio import load_audio, read_pcm16
 from beat_this_tpu_torch.utils import save_beat_tsv
 from beat_this_tpu_torch.io.checkpoint import init_beat_this, load_checkpoint, model_state_dict
 from beat_this_tpu_torch.model.beat_this import BeatThis, BeatThisConfig
 from beat_this_tpu_torch.ops.mel import LogMelConfig, log_mel_spectrogram, num_frames
+from beat_this_tpu_torch.parallel.mesh import pad_to_multiple, shard_rows
 from beat_this_tpu_torch.postprocessing.postprocessor import Postprocessor
 
 HOP = 441  # samples per log-mel frame
@@ -96,7 +100,14 @@ def _time_buckets(chunk_size: int) -> tuple[int, ...]:
 
 
 class ChunkedPredictor:
-    """Chunked inference of one model on the model's device."""
+    """Chunked inference of one model on the model's device.
+
+    `group`: an optional data-parallel `parallel.DataGroup` whose every rank
+    runs the same calls on its copy of the model. Each forward's rows are
+    then padded with zero rows to a multiple of the ranks, each rank runs
+    its contiguous slice, and the logits are gathered to every rank as CPU
+    tensors (single-program data-parallel inference, the counterpart of the
+    JAX package's `mesh`); every rank returns every piece's logits."""
 
     def __init__(
         self,
@@ -105,6 +116,7 @@ class ChunkedPredictor:
         border_size: int = BORDER_SIZE,
         compute_dtype: torch.dtype = torch.float32,
         overlap_mode: str = "keep_first",
+        group=None,
     ):
         if overlap_mode not in ("keep_first", "keep_last"):
             raise ValueError(f"unknown overlap_mode: {overlap_mode!r}")
@@ -113,6 +125,7 @@ class ChunkedPredictor:
         self.border_size = border_size
         self.compute_dtype = compute_dtype
         self.overlap_mode = overlap_mode
+        self.group = group if group is not None and group.distributed else None
 
     @property
     def stride(self) -> int:
@@ -124,12 +137,26 @@ class ChunkedPredictor:
 
     @torch.inference_mode()
     def _forward(self, batch, valid_lengths=None):
-        """Host logits of a (rows, T, bins) batch on the device."""
+        """Host logits of a (rows, T, bins) batch on the device; with a
+        group, of the rank's slice, gathered from every rank."""
         x = torch.as_tensor(batch, device=self.device)
         if valid_lengths is not None:
             valid_lengths = torch.as_tensor(valid_lengths, device=self.device)
+        rows = len(x)
+        if self.group is not None:
+            pad = pad_to_multiple(rows, self.group.world) - rows
+            x = shard_rows(torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]), self.group)
+            if valid_lengths is not None:
+                valid_lengths = shard_rows(
+                    torch.cat([valid_lengths, valid_lengths.new_full((pad,), x.shape[1])]),
+                    self.group)
         out = self.model(x, valid_lengths=valid_lengths, compute_dtype=self.compute_dtype)
-        return out["beat"].cpu().numpy(), out["downbeat"].cpu().numpy()
+        logits = torch.stack([out["beat"], out["downbeat"]]).cpu()
+        if self.group is not None:
+            parts = [torch.empty_like(logits) for _ in range(self.group.world)]
+            dist.all_gather(parts, logits, group=self.group.process_group)
+            logits = torch.cat(parts, dim=1)[:, :rows]
+        return logits[0].numpy(), logits[1].numpy()
 
     def _stitch(self, t: int, starts: np.ndarray, beat: np.ndarray, down: np.ndarray):
         """A piece's (T,) logit tracks from its chunks' logits (n, chunk_size)."""

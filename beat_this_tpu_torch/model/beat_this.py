@@ -12,7 +12,11 @@ norm uses batch statistics and updates its running statistics; every
 frequency block goes through `freq_roformer(train=True)`, every time-axis
 attention branch through `time_attention_train` and every other
 feed-forward through `ff_residual(train=True)` (the training kernels),
-with dropout from one int seed per call drawn from `seed`.
+with dropout from one int seed per call drawn from `seed`. A data-parallel
+rank trains on a shard of the global batch: `batch0` places its rows in
+that batch, so every call draws the bits of its items in the whole batch's
+masks, and `group` makes batch norm take the whole batch's statistics
+(`parallel/`).
 """
 
 from __future__ import annotations
@@ -169,6 +173,8 @@ class BeatThis(nn.Module):
         kernels: bool = True,
         train: bool = False,
         seed: Optional[int] = None,
+        batch0: int = 0,
+        group=None,
     ) -> dict[str, torch.Tensor]:
         """x: (batch, time, spect_dim) log-mel -> {"beat", "downbeat"} float32
         logits of shape (batch, time).
@@ -180,9 +186,13 @@ class BeatThis(nn.Module):
         compute; norms, softmax and the head stay float32. `kernels=False`
         takes the composable path everywhere (the kernels' plain versions).
         `train`: batch statistics (running statistics updated in place) and
-        dropout from `seed` (none when None).
+        dropout from `seed` (none when None). In training, `batch0` is the
+        global index of x's first row (the dropout masks are the global
+        batch's), and `group` a torch.distributed process group whose ranks
+        hold the other shards of the batch (batch norm then takes the whole
+        batch's statistics; None: x's own).
         """
-        h = self.features(x, valid_lengths, compute_dtype, kernels, train, seed)
+        h = self.features(x, valid_lengths, compute_dtype, kernels, train, seed, batch0, group)
         head = self.task_heads.beat_downbeat_lin
         y = F.linear(h, head.weight.float(), head.bias.float())
         beat, downbeat = y[..., 0], y[..., 1]
@@ -198,6 +208,8 @@ class BeatThis(nn.Module):
         kernels: bool = True,
         train: bool = False,
         seed: Optional[int] = None,
+        batch0: int = 0,
+        group=None,
     ) -> torch.Tensor:
         """The final RMS-normed embedding (batch, time, transformer_dim) that
         the head reads, as float32; arguments as `forward`."""
@@ -224,10 +236,10 @@ class BeatThis(nn.Module):
             return torch.where(mask, h, torch.zeros((), dtype=h.dtype, device=h.device))
 
         stem = self.frontend.stem
-        h = batch_norm_apply(stem.bn1d, x, train=train)
+        h = batch_norm_apply(stem.bn1d, x, train=train, group=group)
         h = zero_tail(h.to(compute_dtype))[..., None]  # (B, T, F, 1)
         h = conv2d_tf(stem.conv2d.weight, h, stride_freq=4, pad_time=1)
-        h = F.gelu(batch_norm_apply(stem.bn2d, h, train=train))  # (B, T, 32, 32)
+        h = F.gelu(batch_norm_apply(stem.bn2d, h, train=train, group=group))  # (B, T, 32, 32)
 
         rope_time = rope_tables(t, c.head_dim, x.device)
         for block in self.frontend.blocks:
@@ -241,14 +253,14 @@ class BeatThis(nn.Module):
                 # one dropout seed per frequency block on every path
                 hf = freq_roformer(p.attnF, p.ffF, hf, rope_freq, heads, kernels=kernels,
                                    train=train, dropout_rate=drop_f,
-                                   seed=seeds() if train else None)
+                                   seed=seeds() if train else None, item0=batch0 * t)
                 ht = hf.reshape(b, t, n_freq, dim).transpose(1, 2).reshape(b * n_freq, t, dim)
                 if train:
                     ht = ht + time_attention_train(p.attnT, ht, rope_time, heads,
                                                    dropout_rate=drop_f, seed=seeds(),
-                                                   kernels=kernels)
+                                                   kernels=kernels, item0=batch0 * n_freq)
                     ht = ff_residual(p.ffT, ht, kernels=kernels, train=True,
-                                     dropout_rate=drop_f, seed=seeds())
+                                     dropout_rate=drop_f, seed=seeds(), item0=batch0 * n_freq)
                 elif tmask is None:
                     ht = time_roformer(p.attnT, p.ffT, ht, rope_time, heads, kernels=kernels)
                 else:
@@ -260,7 +272,7 @@ class BeatThis(nn.Module):
                 h = ht.reshape(b, n_freq, t, dim).transpose(1, 2)
             h = zero_tail(h)
             h = conv2d_tf(block.conv2d.weight, h, stride_freq=2, pad_time=1)
-            h = F.gelu(batch_norm_apply(block.norm, h, train=train))
+            h = F.gelu(batch_norm_apply(block.norm, h, train=train, group=group))
 
         # (B, T, F=4, C=256) -> (B, T, (C, F)): the reference concatenates in
         # (channel, freq) order
@@ -272,9 +284,9 @@ class BeatThis(nn.Module):
         for attn, ff in self.transformer_blocks.layers:
             if train:
                 h = h + time_attention_train(attn, h, rope_time, heads, dropout_rate=drop_t,
-                                             seed=seeds(), kernels=kernels)
+                                             seed=seeds(), kernels=kernels, item0=batch0)
                 h = ff_residual(ff, h, kernels=kernels, train=True, dropout_rate=drop_t,
-                                seed=seeds())
+                                seed=seeds(), item0=batch0)
             elif tmask is None:
                 h = time_roformer(attn, ff, h, rope_time, heads, kernels=kernels)
             else:

@@ -23,8 +23,11 @@ short pieces) to the rotation and `sdpa` in plain torch.
 
 Dropout draws its masks from `ops/dropout.py` (Philox keyed by an int
 `seed` per call): the composable path and the kernels drop the same
-elements for the same seed. Float64 inputs are computed in float64 (for
-gradchecks); other dtypes accumulate norms and softmax in float32. The
+elements for the same seed. `item0` is the global index of a call's first
+item (leading axis): a shard of a data-parallel batch draws the bits of its
+items in the whole batch's masks (0 for a whole batch). Float64 inputs are
+computed in float64 (for gradchecks); other dtypes accumulate norms and
+softmax in float32. The
 training kernels' plain versions (ops/fused_ff.py, ops/fused_time.py)
 compute in float32 and round to bfloat16, forward and backward, where the
 kernels round (`round_value`, `round_grad`). With `kernels=False` each
@@ -170,10 +173,11 @@ def sdpa(q, k, v, *, key_mask: Optional[torch.Tensor] = None,
     return torch.matmul(wide(probs.to(q.dtype)), wide(v)).to(q.dtype)
 
 
-def rows_mask(seed: int, salt: int, site: int, h: torch.Tensor, rate: float):
-    """Keep factors over `h` viewed as (rows, C), shaped and typed as `h`."""
+def rows_mask(seed: int, salt: int, site: int, h: torch.Tensor, rate: float, row0: int = 0):
+    """Keep factors over `h` viewed as (rows, C), its rows counted from
+    `row0`, shaped and typed as `h`."""
     rows = h.numel() // h.shape[-1]
-    m = drop.keep_mask(seed, salt, site, 1, 1, rows, h.shape[-1], rate, h.device)
+    m = drop.keep_mask(seed, salt, site, 1, 1, rows, h.shape[-1], rate, h.device, row0=row0)
     return m.reshape(h.shape).to(h.dtype)
 
 
@@ -187,6 +191,7 @@ def attention_block(
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
     kernels: bool = True,
+    item0: int = 0,
 ) -> torch.Tensor:
     """The attention residual branch on (b, n, C) (the caller adds x). With
     `dropout_rate > 0` and a `seed`: dropout on the attention probabilities
@@ -218,13 +223,13 @@ def attention_block(
         fn = ops.small_attention if kernels else ops.small_attention_ref
     if fn is not None:
         q, k, v = (t.reshape(b * heads, n, head_dim) for t in qkv)
-        out = fn(q, k, v, cos, sin, rate, seed, heads).reshape(b, heads, n, head_dim)
+        out = fn(q, k, v, cos, sin, rate, seed, heads, item0).reshape(b, heads, n, head_dim)
     else:
         dropmask = None
         if on:
             with torch.no_grad():
                 dropmask = drop.keep_mask(seed, drop.SALT_ATTN, drop.SITE_ATTN_PROBS, b, heads,
-                                          n, n, dropout_rate, x.device)
+                                          n, n, dropout_rate, x.device, item0=item0)
         out = sdpa(apply_rope(qkv[0], cos, sin), apply_rope(qkv[1], cos, sin), qkv[2],
                    key_mask=key_mask, dropmask=dropmask)  # (b, heads, n, head_dim)
     gates = F.linear(
@@ -235,7 +240,8 @@ def attention_block(
     out = F.linear(out, attn.to_out[0].weight.to(out.dtype))
     if on:
         with torch.no_grad():
-            keep = rows_mask(seed, drop.SALT_ATTN, drop.SITE_ATTN_OUT, out, dropout_rate)
+            keep = rows_mask(seed, drop.SALT_ATTN, drop.SITE_ATTN_OUT, out, dropout_rate,
+                             item0 * n)
         out = out * keep
     return out
 
@@ -260,9 +266,15 @@ def recomputed(fn, *args, **kwargs):
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
+def at(item0: int) -> dict:
+    """The keyword arguments that place a training op's items in the global
+    batch: none for a whole batch (item0 0)."""
+    return {"item0": item0} if item0 else {}
+
+
 def ff_residual(ff: FeedForward, x: torch.Tensor, *, kernels: bool = True,
                 train: bool = False, dropout_rate: float = 0.0,
-                seed: Optional[int] = None):
+                seed: Optional[int] = None, item0: int = 0):
     """`x + feed_forward(x)`: at eval the fused_ff kernel when `kernels`; in
     training (`train=True`) the fused_ff_train kernel, or its plain version
     without `kernels`, with dropout at `dropout_rate` from `seed`."""
@@ -270,8 +282,8 @@ def ff_residual(ff: FeedForward, x: torch.Tensor, *, kernels: bool = True,
         from beat_this_tpu_torch.ops import fused_ff
 
         if kernels:
-            return fused_ff.fused_ff_train(x, ff, dropout_rate, seed)
-        return recomputed(fused_ff.fused_ff_train_ref, x, ff, dropout_rate, seed)
+            return fused_ff.fused_ff_train(x, ff, dropout_rate, seed, **at(item0))
+        return recomputed(fused_ff.fused_ff_train_ref, x, ff, dropout_rate, seed, **at(item0))
     if kernels:
         from beat_this_tpu_torch.ops.fused_ff import fused_ff
 
@@ -281,7 +293,7 @@ def ff_residual(ff: FeedForward, x: torch.Tensor, *, kernels: bool = True,
 
 def time_attention_train(attn: Attention, x: torch.Tensor, rope, heads: int, *,
                          dropout_rate: float = 0.0, seed: Optional[int] = None,
-                         kernels: bool = True) -> torch.Tensor:
+                         kernels: bool = True, item0: int = 0) -> torch.Tensor:
     """The training attention residual branch on (items, T, C) (the caller
     adds x): the fused attention training kernel when `kernels`,
     T >= FLASH_MIN_SEQ, C == heads * 32, heads is 1, 2 or a multiple of 4 and
@@ -299,15 +311,15 @@ def time_attention_train(attn: Attention, x: torch.Tensor, rope, heads: int, *,
 
         if kernels:
             return fused_time.fused_time_attention_train(x, attn, rope[0], rope[1], heads,
-                                                         dropout_rate, seed)
+                                                         dropout_rate, seed, **at(item0))
         return recomputed(fused_time.fused_time_attention_train_ref, x, attn, rope[0], rope[1],
-                          heads, dropout_rate, seed)
+                          heads, dropout_rate, seed, **at(item0))
     return attention_train(attn, x, rope, heads, dropout_rate=dropout_rate, seed=seed,
-                           kernels=kernels)
+                           kernels=kernels, item0=item0)
 
 
 def attention_train(attn: Attention, x: torch.Tensor, rope, heads: int, *, dropout_rate: float,
-                    seed: Optional[int], kernels: bool) -> torch.Tensor:
+                    seed: Optional[int], kernels: bool, item0: int = 0) -> torch.Tensor:
     """`attention_block` in training. With `kernels` as it is: its attention
     kernels keep O(n) per query between the passes. Without, no (n, n)
     tensor is kept either: sequences of at least FLASH_MIN_SEQ frames go
@@ -316,7 +328,8 @@ def attention_train(attn: Attention, x: torch.Tensor, rope, heads: int, *, dropo
     run = attention_block
     if not kernels and x.shape[1] < FLASH_MIN_SEQ:
         run = functools.partial(recomputed, attention_block)
-    return run(attn, x, rope, heads, dropout_rate=dropout_rate, seed=seed, kernels=kernels)
+    return run(attn, x, rope, heads, dropout_rate=dropout_rate, seed=seed, kernels=kernels,
+               item0=item0)
 
 
 def split_seed(seed: Optional[int]) -> tuple[Optional[int], Optional[int]]:
@@ -330,7 +343,7 @@ def split_seed(seed: Optional[int]) -> tuple[Optional[int], Optional[int]]:
 
 
 def freq_roformer(attn, ff, x, rope, heads, *, kernels: bool = True, train: bool = False,
-                  dropout_rate: float = 0.0, seed: Optional[int] = None):
+                  dropout_rate: float = 0.0, seed: Optional[int] = None, item0: int = 0):
     """One frequency-axis roformer block on (items, F, C):
     `x + attention; + feed_forward`. Where the JAX router fuses (F divides
     128, at most 32, and C == heads * 32): at eval the fused kernel when
@@ -346,9 +359,9 @@ def freq_roformer(attn, ff, x, rope, heads, *, kernels: bool = True, train: bool
 
         if kernels:
             return fused_freq.fused_freq_roformer_train(x, attn, ff, rope[0], rope[1],
-                                                        dropout_rate, seed)
+                                                        dropout_rate, seed, **at(item0))
         return recomputed(fused_freq.fused_freq_roformer_train_ref, x, attn, ff, rope[0],
-                          rope[1], dropout_rate, seed)
+                          rope[1], dropout_rate, seed, **at(item0))
     if fused and kernels:
         from beat_this_tpu_torch.ops.fused_freq import fused_freq_roformer
 
@@ -356,9 +369,9 @@ def freq_roformer(attn, ff, x, rope, heads, *, kernels: bool = True, train: bool
     if train:
         seed_a, seed_f = split_seed(seed)
         x = x + attention_train(attn, x, rope, heads, dropout_rate=dropout_rate, seed=seed_a,
-                                kernels=kernels)
+                                kernels=kernels, item0=item0)
         return ff_residual(ff, x, kernels=kernels, train=True, dropout_rate=dropout_rate,
-                           seed=seed_f)
+                           seed=seed_f, item0=item0)
     x = x + attention_block(attn, x, rope, heads, kernels=kernels)
     return ff_residual(ff, x, kernels=kernels)
 
@@ -383,14 +396,16 @@ def time_roformer(attn, ff, x, rope, heads, *, kernels: bool = True):
 
 def partial_roformer(attn: Attention, ff: FeedForward, x: torch.Tensor, direction: str,
                      head_dim: int, *, kernels: bool = True, train: bool = False,
-                     dropout_rate: float = 0.0, seed: Optional[int] = None) -> torch.Tensor:
+                     dropout_rate: float = 0.0, seed: Optional[int] = None,
+                     batch0: int = 0) -> torch.Tensor:
     """Single-direction partial roformer on (batch, time, freq, C): attention
     plus feed-forward across only the frequency axis ("f") or only the time
     axis ("t"), counterpart of beat_this_tpu/model/layers.py:partial_roformer
     (the reference's PartialRoformer, which the stock model does not use).
     The attention is `attention_block`; the feed-forward goes through
     `ff_residual`, the port's one route to `x + feed_forward(x)`. In training
-    (`train=True`) `seed` is split in two, one for each half."""
+    (`train=True`) `seed` is split in two, one for each half; `batch0` is
+    the global index of x's first batch row."""
     from beat_this_tpu_torch.ops.rotary import rope_tables
 
     direction = direction[0].lower()
@@ -402,13 +417,14 @@ def partial_roformer(attn: Attention, ff: FeedForward, x: torch.Tensor, directio
         h = x.reshape(b * t, f, c)
     else:
         h = x.transpose(1, 2).reshape(b * f, t, c)
+    item0 = batch0 * (h.shape[0] // b)
     rope = rope_tables(h.shape[1], head_dim, x.device)
     if train:
         seed_a, seed_f = split_seed(seed)
         h = h + attention_train(attn, h, rope, heads, dropout_rate=dropout_rate, seed=seed_a,
-                                kernels=kernels)
+                                kernels=kernels, item0=item0)
         h = ff_residual(ff, h, kernels=kernels, train=True, dropout_rate=dropout_rate,
-                        seed=seed_f)
+                        seed=seed_f, item0=item0)
     else:
         h = h + attention_block(attn, h, rope, heads, kernels=kernels)
         h = ff_residual(ff, h, kernels=kernels)
@@ -417,20 +433,31 @@ def partial_roformer(attn: Attention, ff: FeedForward, x: torch.Tensor, directio
     return h.reshape(b, f, t, c).transpose(1, 2)
 
 
-def batch_norm_apply(bn: BatchNorm, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+def batch_norm_apply(bn: BatchNorm, x: torch.Tensor, *, train: bool = False,
+                     group=None) -> torch.Tensor:
     """Batch norm over the last axis in float32, returned in the dtype of
     `x`. Eval folds the running statistics into one scale and shift. Train
     normalizes with the batch mean and biased variance and updates the
     running statistics in place (unbiased variance, momentum 0.1), as torch
-    BatchNorm and beat_this_tpu/model/layers.py:422-436."""
+    BatchNorm and beat_this_tpu/model/layers.py:422-436.
+
+    `group` (training only): a torch.distributed process group whose ranks
+    each hold a shard of one batch. The per-channel sums, sums of squares
+    and counts are then all-reduced, differentiably (the backward
+    all-reduces their cotangents), so the ranks normalize by the whole
+    batch's statistics, as `jnp.mean` over a sharded batch does in the JAX
+    package, and the averaged gradients equal the one-process gradient."""
     x32 = x.float()
     if not train:
         mean, var = bn.running_mean.float(), bn.running_var.float()
     else:
         axes = tuple(range(x.ndim - 1))
-        mean = x32.mean(axes)
-        var = x32.square().mean(axes) - mean.square()
-        count = x.numel() // x.shape[-1]
+        if group is None:
+            mean = x32.mean(axes)
+            var = x32.square().mean(axes) - mean.square()
+            count = x.numel() // x.shape[-1]
+        else:
+            mean, var, count = _global_moments(x32, axes, group)
         with torch.no_grad():
             bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
             bn.running_var.mul_(1 - BN_MOMENTUM).add_(
@@ -438,6 +465,38 @@ def batch_norm_apply(bn: BatchNorm, x: torch.Tensor, *, train: bool = False) -> 
     scale = bn.weight.float() * torch.rsqrt(var + BN_EPS)
     shift = bn.bias.float() - mean * scale
     return (x32 * scale + shift).to(x.dtype)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """A tensor summed over the ranks of a process group. Every rank's loss
+    depends on the sum, so the backward sums the ranks' cotangents the same
+    way."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SumOverRanks.apply(g, ctx.group), None
+
+
+def _global_moments(x32: torch.Tensor, axes: tuple, group):
+    """(mean, biased variance, count) per channel of the batch whose shards
+    the ranks of `group` hold, by one differentiable all-reduce of the
+    shards' sums, sums of squares and counts."""
+    c = x32.shape[-1]
+    local = torch.cat([x32.sum(axes), x32.square().sum(axes),
+                       x32.new_full((1,), float(x32.numel() // c))])
+    total = _SumOverRanks.apply(local, group)
+    count = int(total[2 * c].item())
+    mean = total[:c] / count
+    return mean, total[c : 2 * c] / count - mean.square(), count
 
 
 def conv2d_tf(w: torch.Tensor, x: torch.Tensor, *, stride_freq: int, pad_time: int):

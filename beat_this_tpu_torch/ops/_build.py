@@ -32,8 +32,10 @@ LIB_NAME = "libbeat_this_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# dropout arguments of the training entry points (ops/dropout.kernel_args)
-_DROP = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, _I]
+# dropout arguments of the training entry points (ops/dropout.kernel_args,
+# then the global batch bases item0 and row0 of ops/dropout.base_args)
+_DROP = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, _I,
+         ctypes.c_uint32, ctypes.c_uint32]
 # C entry points: name -> argtypes (all return a cudaError_t as int)
 _SIGNATURES = {
     "bt_fused_ff": [_I, _I] + [_P] * 8 + [_L, _L, _I, _P],

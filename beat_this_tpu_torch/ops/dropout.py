@@ -19,6 +19,13 @@ column), the attention output and the two feed-forward sites (coordinates
 row of the flattened (rows, C) activations, column). The fused
 frequency-axis block draws all four under SALT_FREQ; the time-axis
 attention branch and the feed-forward residual under SALT_ATTN and SALT_FF.
+
+Every call's items and rows are batch-major, and a call counts them from
+its own first. A shard of a data-parallel batch passes its first item
+`item0` (its first global batch row times the items per batch row) and its
+first row `row0` (item0 times the rows per item): a probability site adds
+item0 to its item, a row site row0 to its row, so the shard draws the bits
+of its elements in the mask of the whole batch. At 0 nothing changes.
 """
 
 from __future__ import annotations
@@ -79,10 +86,11 @@ def keep_scale(rate: float) -> float:
 
 
 def keep_mask_entries(seed: int, salt: int, site: int, items: torch.Tensor,
-                      heads: torch.Tensor, rows: int, cols: int, rate: float) -> torch.Tensor:
+                      heads: torch.Tensor, rows: int, cols: int, rate: float,
+                      row0: int = 0) -> torch.Tensor:
     """(len(items), rows, cols) float32 mask: 0 where dropped, 1 / (1 - rate)
-    where kept, for the elements (items[e], heads[e], row, col) of `site`;
-    `items` and `heads` are int64 tensors of one length on the mask's
+    where kept, for the elements (items[e], heads[e], row0 + row, col) of
+    `site`; `items` and `heads` are int64 tensors of one length on the mask's
     device. Entries are drawn in chunks of at most MASK_CHUNK elements (at
     least one entry per chunk); the bits depend only on the coordinates,
     not on the chunking."""
@@ -90,7 +98,7 @@ def keep_mask_entries(seed: int, salt: int, site: int, items: torch.Tensor,
     device = items.device
     groups = -(-cols // 4)
     c0 = torch.arange(groups, device=device, dtype=torch.int64)
-    c1 = torch.arange(rows, device=device, dtype=torch.int64)[:, None]
+    c1 = (torch.arange(rows, device=device, dtype=torch.int64)[:, None] + row0) & _MASK32
     c2 = items[:, None, None]
     c3 = ((site << 16) | heads)[:, None, None]
     out = torch.empty((len(items), rows, cols), dtype=torch.float32, device=device)
@@ -104,13 +112,21 @@ def keep_mask_entries(seed: int, salt: int, site: int, items: torch.Tensor,
 
 
 def keep_mask(seed: int, salt: int, site: int, items: int, heads: int, rows: int,
-              cols: int, rate: float, device=None) -> torch.Tensor:
-    """(items, heads, rows, cols) float32 mask for the element (item, head,
-    row, col) of `site`, as `keep_mask_entries` over every (item, head)."""
+              cols: int, rate: float, device=None, item0: int = 0,
+              row0: int = 0) -> torch.Tensor:
+    """(items, heads, rows, cols) float32 mask for the element (item0 + item,
+    head, row0 + row, col) of `site`, as `keep_mask_entries` over every
+    (item, head)."""
     entries = torch.arange(items * heads, device=device, dtype=torch.int64)
-    mask = keep_mask_entries(seed, salt, site, entries // heads, entries % heads, rows, cols,
-                             rate)
+    mask = keep_mask_entries(seed, salt, site, (entries // heads + item0) & _MASK32,
+                             entries % heads, rows, cols, rate, row0)
     return mask.reshape(items, heads, rows, cols)
+
+
+def base_args(item0: int, row0: int) -> tuple[int, int]:
+    """The C entry points' (item0, row0) after their dropout arguments: the
+    call's first item and first row in the global batch, as uint32."""
+    return int(item0) & _MASK32, int(row0) & _MASK32
 
 
 def kernel_args(rate: float, seed, salt: int) -> tuple:

@@ -17,8 +17,9 @@ kernel and a key-major dk/dv kernel.
 
 Dropout at `dropout_rate` acts on the probabilities, from a Philox `seed`
 (`ops/dropout.py`) under SALT_ATTN at SITE_ATTN_PROBS with the coordinates
-(bh // heads, bh % heads, query, key): pass `heads` for the masks of
-`attention_block`'s (batch, heads, n, n) layout. The kept probability
+(item0 + bh // heads, bh % heads, query, key): pass `heads` for the masks
+of `attention_block`'s (batch, heads, n, n) layout, and `item0` for the
+first item of a shard of the global batch. The kept probability
 multiplies the unnormalized p while the normalizer sums the undropped p.
 
 In bfloat16 the plain version rounds where the kernels round: q after the
@@ -83,7 +84,8 @@ def _ref_chunk(q, k, v, cos, sin, rate, seed, heads, first):
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         rope_cos: Optional[torch.Tensor] = None,
                         rope_sin: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
-                        seed: Optional[int] = None, heads: int = 1) -> torch.Tensor:
+                        seed: Optional[int] = None, heads: int = 1,
+                        item0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of `flash_attention`, step by step with the
     kernels' rounding points, differentiable by autograd. Leading entries go
     in chunks of at most REF_CHUNK_ELEMS scores, and under autograd each
@@ -95,7 +97,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outs = []
     for b0 in range(0, bh, step):
         args = (q[b0 : b0 + step], k[b0 : b0 + step], v[b0 : b0 + step], rope_cos, rope_sin,
-                dropout_rate, seed, heads, b0)
+                dropout_rate, seed, heads, item0 * heads + b0)
         outs.append(recomputed(_ref_chunk, *args) if grad else _ref_chunk(*args))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
@@ -156,7 +158,7 @@ def rotation_scratch(q: torch.Tensor, backward: bool = False) -> torch.Tensor:
     return torch.empty((planes, *q.shape), dtype=torch.bfloat16, device=q.device)
 
 
-def _launch_fwd(q, k, v, cos, sin, rate, seed, heads, lse):
+def _launch_fwd(q, k, v, cos, sin, rate, seed, heads, lse, item0):
     code = check_qkv("flash_attention", q, k, v, cos, sin)
     bh, n, d = q.shape
     lib = _build.load_library()
@@ -167,32 +169,32 @@ def _launch_fwd(q, k, v, cos, sin, rate, seed, heads, lse):
             lib.bt_flash_fwd(
                 code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(cos), ptr(sin),
                 out.data_ptr(), ptr(lse), bh, n, heads,
-                *drop.kernel_args(rate, seed, drop.SALT_ATTN), ptr(scratch),
-                stream_of(q),
+                *drop.kernel_args(rate, seed, drop.SALT_ATTN), *drop.base_args(item0, 0),
+                ptr(scratch), stream_of(q),
             ),
             "bt_flash_fwd",
         )
     return out
 
 
-def flash_fwd(q, k, v, cos, sin, rate, seed, heads) -> torch.Tensor:
+def flash_fwd(q, k, v, cos, sin, rate, seed, heads, item0: int = 0) -> torch.Tensor:
     """Launch the forward without the log-sum-exp output (no backward will
     follow); returns o."""
-    out = _launch_fwd(q, k, v, cos, sin, rate, seed, heads, None)
+    out = _launch_fwd(q, k, v, cos, sin, rate, seed, heads, None, item0)
     flash_fwd.launches += 1
     return out
 
 
-def flash_fwd_lse(q, k, v, cos, sin, rate, seed, heads):
+def flash_fwd_lse(q, k, v, cos, sin, rate, seed, heads, item0: int = 0):
     """Launch the forward that also writes the base-2 log-sum-exp per query;
     returns (o, lse)."""
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    out = _launch_fwd(q, k, v, cos, sin, rate, seed, heads, lse)
+    out = _launch_fwd(q, k, v, cos, sin, rate, seed, heads, lse, item0)
     flash_fwd_lse.launches += 1
     return out, lse
 
 
-def flash_bwd(q, k, v, cos, sin, out, lse, dout, rate, seed, heads):
+def flash_bwd(q, k, v, cos, sin, out, lse, dout, rate, seed, heads, item0: int = 0):
     """Launch the backward (the dq kernel, then the dk/dv kernel); returns
     (dq, dk, dv). delta = rowsum(dout * o) is computed here, in float32."""
     code = check_qkv("flash_attention", q, k, v, cos, sin)
@@ -208,7 +210,7 @@ def flash_bwd(q, k, v, cos, sin, out, lse, dout, rate, seed, heads):
                 code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(cos), ptr(sin),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), bh, n, heads, *drop.kernel_args(rate, seed, drop.SALT_ATTN),
-                ptr(scratch), stream_of(q),
+                *drop.base_args(item0, 0), ptr(scratch), stream_of(q),
             ),
             "bt_flash_bwd",
         )
@@ -227,34 +229,38 @@ class _FlashAttention(torch.autograd.Function):
     dropout mask from `seed`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cos, sin, rate, seed, heads):
-        ctx.rate, ctx.seed, ctx.heads = rate, seed, heads
+    def forward(ctx, q, k, v, cos, sin, rate, seed, heads, item0):
+        ctx.rate, ctx.seed, ctx.heads, ctx.item0 = rate, seed, heads, item0
         if not any(ctx.needs_input_grad[:3]):
-            return flash_fwd(q, k, v, cos, sin, rate, seed, heads)
-        out, lse = flash_fwd_lse(q, k, v, cos, sin, rate, seed, heads)
+            return flash_fwd(q, k, v, cos, sin, rate, seed, heads, item0)
+        out, lse = flash_fwd_lse(q, k, v, cos, sin, rate, seed, heads, item0)
         ctx.save_for_backward(q, k, v, cos, sin, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, cos, sin, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, cos, sin, out, lse, dout, ctx.rate, ctx.seed, ctx.heads)
-        return dq, dk, dv, None, None, None, None, None
+        dq, dk, dv = flash_bwd(q, k, v, cos, sin, out, lse, dout, ctx.rate, ctx.seed, ctx.heads,
+                               ctx.item0)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     rope_cos: Optional[torch.Tensor] = None,
                     rope_sin: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
-                    seed: Optional[int] = None, heads: int = 1) -> torch.Tensor:
+                    seed: Optional[int] = None, heads: int = 1,
+                    item0: int = 0) -> torch.Tensor:
     """Differentiable attention over q, k, v (bh, n, head_dim) with scale
     head_dim^-0.5, optional half-width rotation tables (n, head_dim // 2)
     applied to q and k inside, and dropout on the probabilities at
     `dropout_rate` from the int `seed` (off when None), entry e drawing the
-    mask of (e // heads, e % heads). CUDA tensors run the kernels (head_dim
+    mask of (item0 + e // heads, e % heads). CUDA tensors run the kernels (head_dim
     in SUPPORTED_HEAD_DIMS, float32 or bfloat16, any n) or raise; CPU tensors
     the plain version."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, rope_cos, rope_sin, dropout_rate, seed, heads)
+        return flash_attention_ref(q, k, v, rope_cos, rope_sin, dropout_rate, seed, heads,
+                                   item0)
     n = q.shape[1]
     return _FlashAttention.apply(aligned(q), aligned(k), aligned(v), table(rope_cos, n),
-                                 table(rope_sin, n), float(dropout_rate), seed, int(heads))
+                                 table(rope_sin, n), float(dropout_rate), seed, int(heads),
+                                 int(item0))

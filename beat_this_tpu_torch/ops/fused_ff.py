@@ -7,9 +7,10 @@ cores; the library lays out the scratch and gives its size); on a CPU
 tensor it runs the plain version `fused_ff_ref`, the composable path.
 
 `fused_ff_train` is the training twin (fused_ff.py:fused_ff_train): dropout
-after the GELU and after W2 from a Philox seed (`ops/dropout.py`), and a
-backward that recomputes the block from x (`csrc/fused_ff_train.cu`), so
-only the inputs are saved between the passes.
+after the GELU and after W2 from a Philox seed (`ops/dropout.py`, the rows
+counted from the global batch's `item0`), and a backward that recomputes the
+block from x (`csrc/fused_ff_train.cu`), so only the inputs are saved
+between the passes.
 """
 
 from __future__ import annotations
@@ -158,12 +159,13 @@ def ff_bwd_plan(rows: int, c: int, m: int, dtype: torch.dtype) -> tuple[int, int
 
 
 def ff_train_branch(x32: torch.Tensor, ff: FeedForward, dtype: torch.dtype,
-                    dropout_rate: float, seed: Optional[int], salt: int) -> torch.Tensor:
+                    dropout_rate: float, seed: Optional[int], salt: int,
+                    row0: int = 0) -> torch.Tensor:
     """The dropped feed-forward branch on the float32 (or float64) rows
     `x32`, with the rounding points of the compute dtype `dtype`: g, the
     weights and the dropped hidden layer rounded before their products, the
     cotangents of both products rounded before theirs. Masks from `seed`
-    under `salt` (off when `seed` is None)."""
+    under `salt` (off when `seed` is None), the rows counted from `row0`."""
     norm, lin1, _, _, lin2, _ = ff.net
     acc = x32.dtype
     g = round_value(rms_norm(x32, norm.gamma), dtype)
@@ -173,26 +175,34 @@ def ff_train_branch(x32: torch.Tensor, ff: FeedForward, dtype: torch.dtype,
     on = dropout_rate > 0.0 and seed is not None
     if on:
         with torch.no_grad():
-            keep = rows_mask(seed, salt, drop.SITE_FF_HIDDEN, h, dropout_rate)
+            keep = rows_mask(seed, salt, drop.SITE_FF_HIDDEN, h, dropout_rate, row0)
         h = h * keep
     y = round_grad(F.linear(round_value(h, dtype), w2), dtype) + lin2.bias.to(acc)
     if on:
         with torch.no_grad():
-            keep = rows_mask(seed, salt, drop.SITE_FF_OUT, y, dropout_rate)
+            keep = rows_mask(seed, salt, drop.SITE_FF_OUT, y, dropout_rate, row0)
         y = y * keep
     return y
 
 
+def first_row(x: torch.Tensor, item0: int) -> int:
+    """The global index of the first row of `x` viewed as (rows, C) when
+    its first item (leading axis) is the global batch's item `item0`."""
+    return item0 * (x[0].numel() // x.shape[-1])
+
+
 def fused_ff_train_ref(x: torch.Tensor, ff: FeedForward, dropout_rate: float = 0.0,
-                       seed: Optional[int] = None) -> torch.Tensor:
+                       seed: Optional[int] = None, item0: int = 0) -> torch.Tensor:
     """Plain PyTorch version: `x + feed_forward(ff, x)` with dropout, in
     float32 with the kernel's bfloat16 rounding points (`ff_train_branch`),
     the residual sum rounded once."""
     x32 = wide(x)
-    return (x32 + ff_train_branch(x32, ff, x.dtype, dropout_rate, seed, drop.SALT_FF)).to(x.dtype)
+    branch = ff_train_branch(x32, ff, x.dtype, dropout_rate, seed, drop.SALT_FF,
+                             first_row(x, item0))
+    return (x32 + branch).to(x.dtype)
 
 
-def ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed) -> torch.Tensor:
+def ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed, row0: int = 0) -> torch.Tensor:
     """Launch the training forward on x (rows, C): x + dropout(FF(x)). The
     library lays out its scratch (the operands g, W1^T, W2^T and the dropped
     hidden layer; csrc/ff_train.cuh) and gives its size."""
@@ -211,7 +221,8 @@ def ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed) -> torch.Tensor:
             lib.bt_ff_train_fwd(
                 code, c, x.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(),
                 scratch.data_ptr(), nbytes.value, rows, m,
-                *drop.kernel_args(dropout_rate, seed, drop.SALT_FF), stream_of(x),
+                *drop.kernel_args(dropout_rate, seed, drop.SALT_FF), *drop.base_args(0, row0),
+                stream_of(x),
             ),
             "bt_ff_train_fwd",
         )
@@ -219,12 +230,13 @@ def ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed) -> torch.Tensor:
     return out
 
 
-def ff_train_bwd(x, gamma, w1, b1, w2, dout, dropout_rate, seed, dtype=None):
+def ff_train_bwd(x, gamma, w1, b1, w2, dout, dropout_rate, seed, dtype=None, row0: int = 0):
     """Launch the training backward; returns (dx, dgamma, dw1, db1, dw2, db2),
     dx in the dtype of x, the parameter gradients in float32 and torch's
     layouts. `dtype`: the compute dtype of the weights, dout and the rounding
     points, x's by default; float32 x with bfloat16 compute is what the
-    frequency block's backward runs on its residual."""
+    frequency block's backward runs on its residual. `row0`: the global
+    index of x's first row."""
     rows, c = x.shape
     m = w1.shape[0]
     dtype = x.dtype if dtype is None else dtype
@@ -245,7 +257,7 @@ def ff_train_bwd(x, gamma, w1, b1, w2, dout, dropout_rate, seed, dtype=None):
                 code, xcode, c, x.data_ptr(), *(p.data_ptr() for p in params), dout.data_ptr(),
                 dx.data_ptr(), *(g.data_ptr() for g in grads), scratch.data_ptr(), nbytes,
                 rows, m, group_rows, *drop.kernel_args(dropout_rate, seed, drop.SALT_FF),
-                stream_of(x),
+                *drop.base_args(0, row0), stream_of(x),
             ),
             "bt_ff_train_bwd",
         )
@@ -262,31 +274,32 @@ class _FusedFFTrain(torch.autograd.Function):
     regenerates the masks from `seed`."""
 
     @staticmethod
-    def forward(ctx, x, gamma, w1, b1, w2, b2, dropout_rate, seed):
+    def forward(ctx, x, gamma, w1, b1, w2, b2, dropout_rate, seed, row0):
         ctx.save_for_backward(x, gamma, w1, b1, w2)
-        ctx.dropout_rate, ctx.seed, ctx.b2_dtype = dropout_rate, seed, b2.dtype
-        return ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed)
+        ctx.dropout_rate, ctx.seed, ctx.row0, ctx.b2_dtype = dropout_rate, seed, row0, b2.dtype
+        return ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed, row0)
 
     @staticmethod
     def backward(ctx, dout):
         x, gamma, w1, b1, w2 = ctx.saved_tensors
         dx, dgamma, dw1, db1, dw2, db2 = ff_train_bwd(
-            x, gamma, w1, b1, w2, dout, ctx.dropout_rate, ctx.seed)
+            x, gamma, w1, b1, w2, dout, ctx.dropout_rate, ctx.seed, row0=ctx.row0)
         return (dx, dgamma.to(gamma.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
-                dw2.to(w2.dtype), db2.to(ctx.b2_dtype), None, None)
+                dw2.to(w2.dtype), db2.to(ctx.b2_dtype), None, None, None)
 
 
 def fused_ff_train(x: torch.Tensor, ff: FeedForward, dropout_rate: float = 0.0,
-                   seed: Optional[int] = None) -> torch.Tensor:
+                   seed: Optional[int] = None, item0: int = 0) -> torch.Tensor:
     """Differentiable x: (..., C) -> x + dropout(FF(x)), dropout at
-    `dropout_rate` from the int `seed` (off when None). CUDA tensors run the
-    training kernels (C in SUPPORTED_DIMS, float32 or bfloat16), with the
-    module's parameters as inputs of the autograd graph; CPU tensors the
-    plain version."""
+    `dropout_rate` from the int `seed` (off when None), x's first item being
+    the global batch's item `item0`. CUDA tensors run the training kernels
+    (C in SUPPORTED_DIMS, float32 or bfloat16), with the module's parameters
+    as inputs of the autograd graph; CPU tensors the plain version."""
     if x.device.type == "cpu":
-        return fused_ff_train_ref(x, ff, dropout_rate, seed)
+        return fused_ff_train_ref(x, ff, dropout_rate, seed, item0)
     norm, lin1, _, _, lin2, _ = ff.net
     shape = x.shape
     out = _FusedFFTrain.apply(x.reshape(-1, shape[-1]).contiguous(), norm.gamma, lin1.weight,
-                              lin1.bias, lin2.weight, lin2.bias, float(dropout_rate), seed)
+                              lin1.bias, lin2.weight, lin2.bias, float(dropout_rate), seed,
+                              first_row(x, item0))
     return out.reshape(shape)

@@ -107,8 +107,8 @@ fused_freq_roformer.launches = 0
 
 
 def fused_freq_roformer_train_ref(x, attn: Attention, ff: FeedForward, rope_cos, rope_sin,
-                                  dropout_rate: float = 0.0,
-                                  seed: Optional[int] = None) -> torch.Tensor:
+                                  dropout_rate: float = 0.0, seed: Optional[int] = None,
+                                  item0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the training op: `x + attention branch`,
     then the feed-forward residual, in float32 with the kernels' bfloat16
     rounding points (those of beat_this_tpu/ops/fused_freq.py:
@@ -126,18 +126,20 @@ def fused_freq_roformer_train_ref(x, attn: Attention, ff: FeedForward, rope_cos,
     Dropout (off when `seed` is None) at the attention probabilities, at
     coordinates (item, head, query, key), and after the out projection and
     at the two FF sites, at coordinates (row of the (items * F, C) view,
-    column), all under SALT_FREQ."""
+    column), all under SALT_FREQ; items count from `item0` and rows from
+    item0 * F."""
     dtype = x.dtype
     items, f, c = x.shape
     x32 = wide(x).reshape(items * f, c)
-    x2 = x32 + freq_attention_branch(x32, attn, rope_cos, rope_sin, f, dtype, dropout_rate, seed)
-    out = x2 + ff_train_branch(x2, ff, dtype, dropout_rate, seed, drop.SALT_FREQ)
+    x2 = x32 + freq_attention_branch(x32, attn, rope_cos, rope_sin, f, dtype, dropout_rate, seed,
+                                     item0)
+    out = x2 + ff_train_branch(x2, ff, dtype, dropout_rate, seed, drop.SALT_FREQ, item0 * f)
     return out.to(dtype).reshape(items, f, c)
 
 
 def freq_attention_branch(x32: torch.Tensor, attn: Attention, rope_cos, rope_sin, f: int,
                           dtype: torch.dtype, dropout_rate: float = 0.0,
-                          seed: Optional[int] = None) -> torch.Tensor:
+                          seed: Optional[int] = None, item0: int = 0) -> torch.Tensor:
     """The dropped attention branch of `fused_freq_roformer_train_ref` on the
     float32 (or float64) rows `x32` (items * F, C), with the rounding points
     of the compute dtype `dtype`; the block adds it to x32 unrounded."""
@@ -161,7 +163,7 @@ def freq_attention_branch(x32: torch.Tensor, attn: Attention, rope_cos, rope_sin
     if on:
         with torch.no_grad():
             keep = drop.keep_mask(seed, drop.SALT_FREQ, drop.SITE_ATTN_PROBS, items, heads, f,
-                                  f, dropout_rate, x32.device)
+                                  f, dropout_rate, x32.device, item0=item0)
         p = p * keep.to(acc)
     o = round_value(round_grad(torch.matmul(round_value(p, dtype), v), dtype) / l, dtype)
     go = round_value(o * gates.reshape(items, f, heads).transpose(1, 2)[..., None], dtype)
@@ -169,7 +171,8 @@ def freq_attention_branch(x32: torch.Tensor, attn: Attention, rope_cos, rope_sin
     branch = round_grad(F.linear(go, round_value(attn.to_out[0].weight.to(acc), dtype)), dtype)
     if on:
         with torch.no_grad():
-            keep = rows_mask(seed, drop.SALT_FREQ, drop.SITE_ATTN_OUT, branch, dropout_rate)
+            keep = rows_mask(seed, drop.SALT_FREQ, drop.SITE_ATTN_OUT, branch, dropout_rate,
+                             item0 * f)
         branch = branch * keep
     return branch
 
@@ -183,9 +186,11 @@ def _train_params(params, dtype) -> list[torch.Tensor]:
             f32(gf), kernel_weight(w1, dtype), f32(b1), kernel_weight(w2, dtype), f32(b2)]
 
 
-def freq_train_fwd(x, params, cos, sin, f: int, dropout_rate: float, seed) -> torch.Tensor:
-    """Launch the training forward on x (items * F, C) with the ten block
-    parameters `params` (torch layouts); returns the block's output."""
+def freq_train_fwd(x, params, cos, sin, f: int, dropout_rate: float, seed,
+                   item0: int = 0) -> torch.Tensor:
+    """Launch the training forward on x (items * F, C), its first item the
+    global batch's item `item0`, with the ten block parameters `params`
+    (torch layouts); returns the block's output."""
     rows, c = x.shape
     code = _check_freq("fused_freq_roformer_train", x.reshape(-1, f, c))
     lib = _build.load_library()
@@ -196,7 +201,8 @@ def freq_train_fwd(x, params, cos, sin, f: int, dropout_rate: float, seed) -> to
             lib.bt_freq_train_fwd(
                 code, c, x.data_ptr(), *(p.data_ptr() for p in kp), cos.data_ptr(),
                 sin.data_ptr(), out.data_ptr(), rows, f, params[6].shape[0],
-                *drop.kernel_args(dropout_rate, seed, drop.SALT_FREQ), stream_of(x),
+                *drop.kernel_args(dropout_rate, seed, drop.SALT_FREQ),
+                *drop.base_args(item0, item0 * f), stream_of(x),
             ),
             "bt_freq_train_fwd",
         )
@@ -223,7 +229,8 @@ def freq_bwd_plan(rows: int, c: int, m: int, dtype: torch.dtype) -> tuple[int, i
     return group_rows, ff_group_rows, nbytes.value
 
 
-def freq_train_bwd(x, params, cos, sin, f: int, dout, dropout_rate: float, seed):
+def freq_train_bwd(x, params, cos, sin, f: int, dout, dropout_rate: float, seed,
+                   item0: int = 0):
     """Launch the training backward; returns dx and the ten parameter
     gradients (float32, torch layouts, the order of `params`). The library
     lays out the scratch (`freq_bwd_plan`: the recomputed attention half,
@@ -247,7 +254,7 @@ def freq_train_bwd(x, params, cos, sin, f: int, dout, dropout_rate: float, seed)
                 sin.data_ptr(), dout.data_ptr(), dx.data_ptr(),
                 *(g.data_ptr() for g in grads), scratch.data_ptr(), nbytes, rows, f, m,
                 group_rows, ff_group_rows, *drop.kernel_args(dropout_rate, seed, drop.SALT_FREQ),
-                stream_of(x),
+                *drop.base_args(item0, item0 * f), stream_of(x),
             ),
             "bt_freq_train_bwd",
         )
@@ -266,38 +273,39 @@ class _FusedFreqTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ga, wqkv, wg, gb, wout, gf, w1, b1, w2, b2, cos, sin, f, dropout_rate,
-                seed):
+                seed, item0):
         params = (ga, wqkv, wg, gb, wout, gf, w1, b1, w2, b2)
         ctx.save_for_backward(x, cos, sin, *params)
-        ctx.f, ctx.dropout_rate, ctx.seed = f, dropout_rate, seed
-        return freq_train_fwd(x, params, cos, sin, f, dropout_rate, seed)
+        ctx.f, ctx.dropout_rate, ctx.seed, ctx.item0 = f, dropout_rate, seed, item0
+        return freq_train_fwd(x, params, cos, sin, f, dropout_rate, seed, item0)
 
     @staticmethod
     def backward(ctx, dout):
         x, cos, sin, *params = ctx.saved_tensors
         dx, *grads = freq_train_bwd(x, params, cos, sin, ctx.f, dout, ctx.dropout_rate,
-                                    ctx.seed)
+                                    ctx.seed, ctx.item0)
         return (dx, *(g.to(p.dtype) for g, p in zip(grads, params)), None, None, None, None,
-                None)
+                None, None)
 
 
 def fused_freq_roformer_train(x: torch.Tensor, attn: Attention, ff: FeedForward,
                               rope_cos: torch.Tensor, rope_sin: torch.Tensor,
-                              dropout_rate: float = 0.0,
-                              seed: Optional[int] = None) -> torch.Tensor:
+                              dropout_rate: float = 0.0, seed: Optional[int] = None,
+                              item0: int = 0) -> torch.Tensor:
     """Differentiable training block over (items, F, C), C // 32 heads, with
-    dropout at `dropout_rate` from the int `seed` (off when None). CUDA
+    dropout at `dropout_rate` from the int `seed` (off when None), x's first
+    item being the global batch's item `item0`. CUDA
     tensors run the training kernels (F dividing 32, C in SUPPORTED_DIMS,
     float32 or bfloat16), with the modules' parameters as inputs of the
     autograd graph; CPU tensors the plain version."""
     if x.device.type == "cpu":
         return fused_freq_roformer_train_ref(x, attn, ff, rope_cos, rope_sin, dropout_rate,
-                                             seed)
+                                             seed, item0)
     items, f, c = x.shape
     norm, lin1, _, _, lin2, _ = ff.net
     out = _FusedFreqTrain.apply(
         x.reshape(items * f, c).contiguous(), attn.norm.gamma, attn.to_qkv.weight,
         attn.to_gates.weight, attn.to_gates.bias, attn.to_out[0].weight, norm.gamma,
         lin1.weight, lin1.bias, lin2.weight, lin2.bias, f32(rope_cos[:f]), f32(rope_sin[:f]),
-        f, float(dropout_rate), seed)
+        f, float(dropout_rate), seed, int(item0))
     return out.reshape(items, f, c)

@@ -121,8 +121,8 @@ fused_time_roformer.launches = 0
 
 
 def fused_time_attention_train_ref(x, attn: Attention, rope_cos, rope_sin, heads: int,
-                                   dropout_rate: float = 0.0,
-                                   seed: Optional[int] = None) -> torch.Tensor:
+                                   dropout_rate: float = 0.0, seed: Optional[int] = None,
+                                   item0: int = 0) -> torch.Tensor:
     """Plain PyTorch version: `attention_block` with dropout, in float32 with
     the kernel's bfloat16 rounding points. Forward: the normed rows, the
     weights, q/k/v after RoPE, the dropped probabilities and the gated
@@ -151,7 +151,7 @@ def fused_time_attention_train_ref(x, attn: Attention, rope_cos, rope_sin, heads
     if on:
         with torch.no_grad():
             keep = drop.keep_mask(seed, drop.SALT_ATTN, drop.SITE_ATTN_PROBS, b, heads, n, n,
-                                  dropout_rate, x.device)
+                                  dropout_rate, x.device, item0=item0)
         p = p * keep.to(acc)
     o = round_grad(torch.matmul(round_value(p, dtype), v), dtype) / l  # (b, heads, n, 32)
     go = round_value(o * gates.transpose(1, 2)[..., None], dtype)
@@ -159,7 +159,8 @@ def fused_time_attention_train_ref(x, attn: Attention, rope_cos, rope_sin, heads
     out = round_grad(F.linear(go, round_value(attn.to_out[0].weight.to(acc), dtype)), dtype)
     if on:
         with torch.no_grad():
-            keep = rows_mask(seed, drop.SALT_ATTN, drop.SITE_ATTN_OUT, out, dropout_rate)
+            keep = rows_mask(seed, drop.SALT_ATTN, drop.SITE_ATTN_OUT, out, dropout_rate,
+                             item0 * n)
         out = out * keep
     return out.to(dtype)
 
@@ -191,9 +192,11 @@ def attn_bwd_plan(rows: int, c: int, dtype: torch.dtype) -> tuple[int, int]:
     return group_rows, nbytes.value
 
 
-def attn_train_fwd(x, gamma, wqkv, wg, gb, wout, cos, sin, heads, dropout_rate, seed):
-    """Launch the training forward on x (items, n, C); returns the branch
-    and the tensors the backward reads (q, k, v, gates, o, row max, row sum)."""
+def attn_train_fwd(x, gamma, wqkv, wg, gb, wout, cos, sin, heads, dropout_rate, seed,
+                   item0: int = 0):
+    """Launch the training forward on x (items, n, C), its first item the
+    global batch's item `item0`; returns the branch and the tensors the
+    backward reads (q, k, v, gates, o, row max, row sum)."""
     code = _check_time("fused_time_attention_train", x, heads)
     items, n, c = x.shape
     lib = _build.load_library()
@@ -213,7 +216,8 @@ def attn_train_fwd(x, gamma, wqkv, wg, gb, wout, cos, sin, heads, dropout_rate, 
             lib.bt_attn_train_fwd(
                 code, c, x.data_ptr(), *(p.data_ptr() for p in params),
                 *(t.data_ptr() for t in saved), out.data_ptr(), scratch.data_ptr(), nbytes,
-                items, n, *drop.kernel_args(dropout_rate, seed, drop.SALT_ATTN), stream_of(x),
+                items, n, *drop.kernel_args(dropout_rate, seed, drop.SALT_ATTN),
+                *drop.base_args(item0, item0 * n), stream_of(x),
             ),
             "bt_attn_train_fwd",
         )
@@ -222,7 +226,7 @@ def attn_train_fwd(x, gamma, wqkv, wg, gb, wout, cos, sin, heads, dropout_rate, 
 
 
 def attn_train_bwd(x, gamma, wqkv, wg, wout, cos, sin, saved, dout, heads, dropout_rate,
-                   seed):
+                   seed, item0: int = 0):
     """Launch the training backward; returns (dx, dgamma, dwqkv, dwg, dgb,
     dwout), the parameter gradients in float32 and torch's layouts."""
     code = _check_time("fused_time_attention_train", x, heads)
@@ -244,7 +248,7 @@ def attn_train_bwd(x, gamma, wqkv, wg, wout, cos, sin, saved, dout, heads, dropo
                 *(t.data_ptr() for t in saved), dout.data_ptr(), dx.data_ptr(),
                 *(g.data_ptr() for g in grads), scratch.data_ptr(), nbytes, items, n,
                 group_rows, *drop.kernel_args(dropout_rate, seed, drop.SALT_ATTN),
-                stream_of(x),
+                *drop.base_args(item0, item0 * n), stream_of(x),
             ),
             "bt_attn_train_bwd",
         )
@@ -262,11 +266,12 @@ class _FusedTimeAttnTrain(torch.autograd.Function):
     branch; the backward regenerates the masks from `seed`."""
 
     @staticmethod
-    def forward(ctx, x, gamma, wqkv, wg, gb, wout, cos, sin, heads, dropout_rate, seed):
+    def forward(ctx, x, gamma, wqkv, wg, gb, wout, cos, sin, heads, dropout_rate, seed, item0):
         out, saved = attn_train_fwd(x, gamma, wqkv, wg, gb, wout, cos, sin, heads,
-                                    dropout_rate, seed)
+                                    dropout_rate, seed, item0)
         ctx.save_for_backward(x, gamma, wqkv, wg, wout, cos, sin, *saved)
         ctx.heads, ctx.dropout_rate, ctx.seed, ctx.gb_dtype = heads, dropout_rate, seed, gb.dtype
+        ctx.item0 = item0
         return out
 
     @staticmethod
@@ -274,24 +279,25 @@ class _FusedTimeAttnTrain(torch.autograd.Function):
         x, gamma, wqkv, wg, wout, cos, sin, *saved = ctx.saved_tensors
         dx, dgamma, dwqkv, dwg, dgb, dwout = attn_train_bwd(
             x, gamma, wqkv, wg, wout, cos, sin, saved, dout, ctx.heads, ctx.dropout_rate,
-            ctx.seed)
+            ctx.seed, ctx.item0)
         return (dx, dgamma.to(gamma.dtype), dwqkv.to(wqkv.dtype), dwg.to(wg.dtype),
-                dgb.to(ctx.gb_dtype), dwout.to(wout.dtype), None, None, None, None, None)
+                dgb.to(ctx.gb_dtype), dwout.to(wout.dtype), None, None, None, None, None, None)
 
 
 def fused_time_attention_train(x: torch.Tensor, attn: Attention, rope_cos: torch.Tensor,
                                rope_sin: torch.Tensor, heads: int, dropout_rate: float = 0.0,
-                               seed: Optional[int] = None) -> torch.Tensor:
+                               seed: Optional[int] = None, item0: int = 0) -> torch.Tensor:
     """Differentiable attention residual branch over (items, n, C) (the
     caller adds x), C == heads * 32, with dropout at `dropout_rate` from the
-    int `seed` (off when None). CUDA tensors run the training kernels (C in
+    int `seed` (off when None), x's first item being the global batch's item
+    `item0`. CUDA tensors run the training kernels (C in
     SUPPORTED_DIMS, float32 or bfloat16), with the module's parameters as
     inputs of the autograd graph; CPU tensors the plain version."""
     if x.device.type == "cpu":
         return fused_time_attention_train_ref(x, attn, rope_cos, rope_sin, heads,
-                                              dropout_rate, seed)
+                                              dropout_rate, seed, item0)
     n = x.shape[1]
     return _FusedTimeAttnTrain.apply(
         x.contiguous(), attn.norm.gamma, attn.to_qkv.weight, attn.to_gates.weight,
         attn.to_gates.bias, attn.to_out[0].weight, f32(rope_cos[:n]), f32(rope_sin[:n]),
-        heads, float(dropout_rate), seed)
+        heads, float(dropout_rate), seed, int(item0))

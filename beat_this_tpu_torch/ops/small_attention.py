@@ -38,7 +38,8 @@ FWD_PARTS, BWD_PARTS, DV_PARTS = 3, 2, 3
 def small_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         rope_cos: Optional[torch.Tensor] = None,
                         rope_sin: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
-                        seed: Optional[int] = None, heads: int = 1) -> torch.Tensor:
+                        seed: Optional[int] = None, heads: int = 1,
+                        item0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of `small_attention`, step by step with the
     kernels' rounding points, differentiable by autograd. Items are
     independent, so nothing is packed or masked."""
@@ -51,7 +52,8 @@ def small_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     norm = p.sum(-1, keepdim=True)
     if dropout_rate > 0.0 and seed is not None:
         with torch.no_grad():
-            keep = flash.probs_keep(seed, 0, items, heads, f, f, dropout_rate, q.device)
+            keep = flash.probs_keep(seed, item0 * heads, items, heads, f, f, dropout_rate,
+                                    q.device)
         p = p * keep.to(p.dtype)
     return (torch.matmul(round_value(p, dtype), wide(v)) / norm).to(dtype)
 
@@ -66,7 +68,7 @@ def _check(q, k, v, cos, sin) -> int:
     return code
 
 
-def small_fwd(q, k, v, cos, sin, rate, seed, heads) -> torch.Tensor:
+def small_fwd(q, k, v, cos, sin, rate, seed, heads, item0: int = 0) -> torch.Tensor:
     """Launch the forward on q, k, v (items, F, D); returns o."""
     code = _check(q, k, v, cos, sin)
     items, f, d = q.shape
@@ -77,7 +79,8 @@ def small_fwd(q, k, v, cos, sin, rate, seed, heads) -> torch.Tensor:
             lib.bt_small_attn_fwd(
                 code, f, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), flash.ptr(cos),
                 flash.ptr(sin), out.data_ptr(), items, heads,
-                *drop.kernel_args(rate, seed, drop.SALT_ATTN), stream_of(q),
+                *drop.kernel_args(rate, seed, drop.SALT_ATTN), *drop.base_args(item0, 0),
+                stream_of(q),
             ),
             "bt_small_attn_fwd",
         )
@@ -85,7 +88,7 @@ def small_fwd(q, k, v, cos, sin, rate, seed, heads) -> torch.Tensor:
     return out
 
 
-def small_bwd(q, k, v, cos, sin, dout, rate, seed, heads):
+def small_bwd(q, k, v, cos, sin, dout, rate, seed, heads, item0: int = 0):
     """Launch the backward; returns (dq, dk, dv)."""
     code = _check(q, k, v, cos, sin)
     items, f, d = q.shape
@@ -97,7 +100,8 @@ def small_bwd(q, k, v, cos, sin, dout, rate, seed, heads):
             lib.bt_small_attn_bwd(
                 code, f, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), flash.ptr(cos),
                 flash.ptr(sin), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                items, heads, *drop.kernel_args(rate, seed, drop.SALT_ATTN), stream_of(q),
+                items, heads, *drop.kernel_args(rate, seed, drop.SALT_ATTN),
+                *drop.base_args(item0, 0), stream_of(q),
             ),
             "bt_small_attn_bwd",
         )
@@ -114,32 +118,35 @@ class _SmallAttention(torch.autograd.Function):
     recomputes the softmax and regenerates the dropout mask from `seed`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cos, sin, rate, seed, heads):
-        ctx.rate, ctx.seed, ctx.heads = rate, seed, heads
+    def forward(ctx, q, k, v, cos, sin, rate, seed, heads, item0):
+        ctx.rate, ctx.seed, ctx.heads, ctx.item0 = rate, seed, heads, item0
         ctx.save_for_backward(q, k, v, cos, sin)
-        return small_fwd(q, k, v, cos, sin, rate, seed, heads)
+        return small_fwd(q, k, v, cos, sin, rate, seed, heads, item0)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, cos, sin = ctx.saved_tensors
-        dq, dk, dv = small_bwd(q, k, v, cos, sin, dout, ctx.rate, ctx.seed, ctx.heads)
-        return dq, dk, dv, None, None, None, None, None
+        dq, dk, dv = small_bwd(q, k, v, cos, sin, dout, ctx.rate, ctx.seed, ctx.heads,
+                               ctx.item0)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     rope_cos: Optional[torch.Tensor] = None,
                     rope_sin: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
-                    seed: Optional[int] = None, heads: int = 1) -> torch.Tensor:
+                    seed: Optional[int] = None, heads: int = 1,
+                    item0: int = 0) -> torch.Tensor:
     """Differentiable attention over q, k, v (items, F, head_dim) with scale
     head_dim^-0.5, optional half-width rotation tables (F, head_dim // 2)
     applied to q and k inside, and dropout on the probabilities at
     `dropout_rate` from the int `seed` (off when None), item e drawing the
-    mask of (e // heads, e % heads). CUDA tensors run the kernels (F in
+    mask of (item0 + e // heads, e % heads). CUDA tensors run the kernels (F in
     SUPPORTED_SEQ, head_dim in flash_attention.SUPPORTED_HEAD_DIMS, float32
     or bfloat16) or raise; CPU tensors the plain version."""
     if q.device.type == "cpu":
-        return small_attention_ref(q, k, v, rope_cos, rope_sin, dropout_rate, seed, heads)
+        return small_attention_ref(q, k, v, rope_cos, rope_sin, dropout_rate, seed, heads,
+                                   item0)
     f = q.shape[1]
     return _SmallAttention.apply(flash.aligned(q), flash.aligned(k), flash.aligned(v),
                                  flash.table(rope_cos, f), flash.table(rope_sin, f),
-                                 float(dropout_rate), seed, int(heads))
+                                 float(dropout_rate), seed, int(heads), int(item0))

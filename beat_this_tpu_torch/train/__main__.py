@@ -4,8 +4,11 @@ launch_scripts/train.py (and so with the reference's), plus `--device`:
     python -m beat_this_tpu_torch.train --data-dir data --no-partial-transformers
 
 On CUDA every configuration trains through the hand-written training
-kernels; on the CPU through their plain versions. It trains on one device:
-multi-device training is not ported yet (ROADMAP A9).
+kernels; on the CPU through their plain versions. Set the JAX driver's
+variables (BEAT_THIS_COORDINATOR, BEAT_THIS_NUM_PROCESSES,
+BEAT_THIS_PROCESS_ID) in each of N processes, or run it under torchrun with
+BEAT_THIS_DISTRIBUTED=1, and it trains data-parallel, one process per
+device (`parallel/distributed.py`); `--batch-size` is then the global batch.
 """
 
 from __future__ import annotations
@@ -22,10 +25,21 @@ def main(args) -> object:
 
     from beat_this_tpu_torch.data import BeatDataModule
     from beat_this_tpu_torch.model.beat_this import BeatThisConfig
+    from beat_this_tpu_torch.parallel.distributed import (
+        host_shard,
+        maybe_initialize_distributed,
+        rank_device,
+    )
     from beat_this_tpu_torch.train.task import TrainConfig
     from beat_this_tpu_torch.train.trainer import Trainer
 
     np.random.seed(args.seed)
+    device = args.device
+    if maybe_initialize_distributed():
+        rank, world = host_shard()
+        print(f"Multi-host run: process {rank} of {world}, {world} global devices")
+        if device == "cuda":
+            device = rank_device()
     print("Starting a new run with the following parameters:")
     print(args)
 
@@ -81,7 +95,7 @@ def main(args) -> object:
         checkpoint_dir=Path(args.checkpoint_dir),
         name=f"{args.name} {params_str}".strip(), seed=args.seed, use_dbn=args.dbn,
         eval_trim_beats=args.eval_trim_beats, fps=args.fps, log_file=args.log_file,
-        device=args.device,
+        device=device,
     )
     if args.logger == "wandb":
         trainer.init_wandb(name=f"{args.name} {params_str}".strip(), resume_id=args.resume_id)

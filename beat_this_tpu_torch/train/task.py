@@ -8,16 +8,27 @@ beat_this/model/pl_module.py:21-317):
   * gradient accumulation over `accum_steps` microbatches run one after the
     other: batch-norm statistics advance after each, and the gradients are
     averaged (each microbatch's loss is divided by `accum_steps` before its
-    backward).
+    backward);
+  * data parallelism (`parallel/`): each rank of a `DataGroup` steps on its
+    shard of every microbatch through the `DistributedDataParallel` wrapper
+    of `parallel.data_parallel`, which all-reduces the gradients once per
+    optimizer step, at the last microbatch's backward; the forward takes the
+    shard's global first row (dropout masks) and the process group (batch
+    norm's statistics), and the returned losses are averaged over the ranks,
+    so every rank sees the global batch's losses.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from beat_this_tpu_torch.model.beat_this import BeatThis
+from beat_this_tpu_torch.parallel.mesh import DataGroup
 from beat_this_tpu_torch.train.loss import make_losses
 from beat_this_tpu_torch.train.schedule import cosine_warmup_scheduler
 
@@ -71,30 +82,56 @@ def loss_from_outputs(tc: TrainConfig, out: dict, batch: dict) -> dict:
 
 
 def accumulate_grads(model: BeatThis, tc: TrainConfig, batch: dict, seeds: list,
-                     *, kernels: bool = True) -> dict:
+                     *, kernels: bool = True, group: Optional[DataGroup] = None) -> dict:
     """Forward and backward of each microbatch of `batch` (leaves shaped
     (accum_steps, micro, ...)) in order, in train mode with dropout seed
     `seeds[i]`, adding the averaged gradients to the parameters' `.grad`.
-    Returns the losses averaged over the microbatches (float tensors)."""
+    Returns the losses averaged over the microbatches (float tensors).
+
+    With a distributed `group`, `batch` is the rank's shard of the global
+    batch (rank r holds global rows r * micro onward of every microbatch)
+    and `model` the module's `parallel.data_parallel` wrapper: its
+    gradient all-reduce runs at the last microbatch's backward only."""
+    ddp = group is not None and group.distributed
     parts = []
     for i in range(tc.accum_steps):
         micro = {k: v[i] for k, v in batch.items()}
-        out = model(micro["spect"], compute_dtype=tc.dtype, kernels=kernels, train=True,
-                    seed=seeds[i])
-        p = loss_from_outputs(tc, out, micro)
-        (p["total"] / tc.accum_steps).backward()
+        last = i == tc.accum_steps - 1
+        with model.no_sync() if ddp and not last else contextlib.nullcontext():
+            out = model(micro["spect"], compute_dtype=tc.dtype, kernels=kernels, train=True,
+                        seed=seeds[i],
+                        batch0=group.first_row(len(micro["spect"])) if ddp else 0,
+                        group=group.process_group if ddp else None)
+            p = loss_from_outputs(tc, out, micro)
+            (p["total"] / tc.accum_steps).backward()
         parts.append({k: v.detach() for k, v in p.items()})
     return {k: torch.stack([p[k] for p in parts]).mean() for k in parts[0]}
 
 
+def global_mean(parts: dict, group: Optional[DataGroup]) -> dict:
+    """The ranks' equal-sized shards' mean losses as the global batch's: one
+    all-reduce of the stacked values, divided by the ranks."""
+    if group is None or not group.distributed:
+        return parts
+    keys = list(parts)
+    stacked = torch.stack([parts[k] for k in keys])
+    dist.all_reduce(stacked, group=group.process_group)
+    stacked /= group.world
+    return dict(zip(keys, stacked.unbind()))
+
+
 def train_step(model: BeatThis, opt, sched, batch: dict, generator: torch.Generator,
-               tc: TrainConfig, *, kernels: bool = True) -> dict:
+               tc: TrainConfig, *, kernels: bool = True,
+               group: Optional[DataGroup] = None) -> dict:
     """One optimizer step over `tc.accum_steps` microbatches: one int32
     dropout seed per microbatch from `generator`, gradients averaged, one
-    AdamW update, one schedule step. Returns the mean losses."""
+    AdamW update, one schedule step. Returns the mean losses. Data-parallel
+    (`group`): as `accumulate_grads`, every rank drawing the same seeds, and
+    the losses are the global batch's on every rank."""
     seeds = torch.randint(0, 2**31 - 1, (tc.accum_steps,), generator=generator).tolist()
     opt.zero_grad(set_to_none=True)
-    parts = accumulate_grads(model, tc, batch, seeds, kernels=kernels)
+    parts = global_mean(accumulate_grads(model, tc, batch, seeds, kernels=kernels, group=group),
+                        group)
     opt.step()
     sched.step()
     return parts

@@ -14,6 +14,16 @@ written after every epoch.
 A resumed run continues as the uninterrupted run would: the data iterator
 skips the batches the saved steps consumed, and each step's dropout seeds
 derive from (seed, step).
+
+Under an initialised torch.distributed group (`parallel/`) the run is data
+parallel, one process per device: each rank assembles only its slice of
+every global batch (`train_batches(host_shard=...)`), steps through the
+model's DistributedDataParallel wrapper (which broadcasts rank 0's
+parameters when it wraps them, at init and at resume), and logs the global
+batch's losses. Rank 0 alone prints, appends to the log file and writes the
+checkpoint, then every rank waits at a barrier, so a resume reads a whole
+file. Validation and test run on every rank in eval mode, with no
+collective.
 """
 
 from __future__ import annotations
@@ -27,11 +37,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from beat_this_tpu_torch.metrics import Metrics
 from beat_this_tpu_torch.inference import ChunkedPredictor, resolve_device
 from beat_this_tpu_torch.io.checkpoint import init_beat_this, load_checkpoint, model_state_dict
 from beat_this_tpu_torch.model.beat_this import BeatThis, BeatThisConfig
+from beat_this_tpu_torch.parallel.mesh import data_parallel, make_group
 from beat_this_tpu_torch.postprocessing.postprocessor import Postprocessor
 from beat_this_tpu_torch.train.task import (
     TrainConfig,
@@ -105,6 +117,9 @@ class Trainer:
         self.use_dbn = use_dbn
         self.eval_trim_beats = eval_trim_beats
         self.device = resolve_device(device)
+        self.group = make_group(self.device)
+        if self.group.distributed:
+            print(f"Data-parallel over {self.group.world} processes")
         self.postprocessor = Postprocessor(type="dbn" if use_dbn else "minimal", fps=fps,
                                            device=self.device)
         self.metrics = Metrics(eval_trim_beats=eval_trim_beats)
@@ -130,6 +145,8 @@ class Trainer:
     def log(self, record: dict):
         record = {k: (float(v) if hasattr(v, "item") else v) for k, v in record.items()}
         self.history.append(record)
+        if self.group.rank != 0:
+            return
         print(", ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                         for k, v in record.items()), flush=True)
         if self.log_file:
@@ -175,7 +192,16 @@ class Trainer:
         return TrainState(model, opt, make_scheduler(opt, self.tc))
 
     def save_checkpoint(self, state: TrainState, epoch: int, path=None) -> Path:
+        """Rank 0 writes the checkpoint (every rank holds the same state);
+        in a data-parallel run every rank then waits for the write."""
         path = Path(path) if path else self.checkpoint_dir / f"{self.name}-S{self.seed}.ckpt"
+        if self.group.rank == 0:
+            self._write_checkpoint(state, epoch, path)
+        if self.group.distributed:
+            dist.barrier(group=self.group.process_group)
+        return path
+
+    def _write_checkpoint(self, state: TrainState, epoch: int, path: Path):
         path.parent.mkdir(parents=True, exist_ok=True)
         sd = {"model." + k: v.detach().cpu() for k, v in state.model.state_dict().items()}
         torch.save({
@@ -188,7 +214,6 @@ class Trainer:
                 "optimizer": state.optimizer.state_dict(),
             },
         }, path)
-        return path
 
     def load_checkpoint(self, path) -> tuple[TrainState, int]:
         """The state saved by `save_checkpoint` (a checkpoint without resume
@@ -222,7 +247,9 @@ class Trainer:
         else:
             state, start_epoch = self.init_state(), 0
 
-        batches = _prefetch(self.dm.train_batches(self.tc.accum_steps, seed=self.seed))
+        replica = data_parallel(state.model, self.group)
+        batches = _prefetch(self.dm.train_batches(
+            self.tc.accum_steps, seed=self.seed, host_shard=(self.group.rank, self.group.world)))
         for _ in range(state.step):  # the batches the saved steps consumed
             next(batches)
         for epoch in range(start_epoch, self.max_epochs):
@@ -234,8 +261,9 @@ class Trainer:
                 host_batch = next(batches)
                 data_wait += time.time() - tw
                 self.generator.manual_seed(((self.seed & 0xFFFFFFFF) << 32) | state.step)
-                parts = train_step(state.model, state.optimizer, state.scheduler,
-                                   self._to_device(host_batch), self.generator, self.tc)
+                parts = train_step(replica, state.optimizer, state.scheduler,
+                                   self._to_device(host_batch), self.generator, self.tc,
+                                   group=self.group)
                 state.step += 1
                 epoch_losses.append(parts)
                 if max_steps_override and state.step >= max_steps_override:

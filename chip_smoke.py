@@ -126,7 +126,27 @@ non-zero without the final `"ok": true` line:
    the trained fixture's evaluation protocol at mean beat F >= 0.9, the DBN
    at mean beat F >= 0.9 on its clicks, the small model with exact launch
    counts; every main-path kernel launched in the phase;
-8. the kernel summary JSON (launches: phases 4-7), then the device JSON as
+8. data parallelism (`beat_this_tpu_torch/parallel/`): the full-width model
+   from `init_beat_this(0)` on phase 5's click corpus, an 8 x 1500 global
+   batch, 2 microbatches, 2 steps, dropout on, through `Trainer.fit`, in
+   one process and on two ranks that share the card over gloo (NCCL refuses
+   two ranks on one device), spawned with torch.multiprocessing and a
+   FileStore in one spawn: stock float32, stock bfloat16 and h16 bfloat16.
+   Checks: both ranks log the same losses, within rtol 2e-4 of one
+   process's in float32 (< 2.5e-2 in bfloat16); both hold the same state,
+   every parameter and batch-norm buffer within 1e-3 of one process's in
+   float32 (in bfloat16 within 2.5e-2, or for a parameter no farther from
+   the float32 run than twice the one-process bfloat16 run: `check_state`);
+   exact launch counts on every rank; rank 0 alone writes its checkpoint.
+   Then `predict_many` sharded over the two ranks on the directory-mode
+   pieces (3750 / 601 / 1600 / 250 frames, float32): logits within 5e-5 of
+   one process's, `.beats` byte-identical on every rank and to one
+   process's, exact K2 / K1 / K3 launches per rank; the 2-rank step and one
+   gloo all-reduce of the parameters timed. Last, the stock bfloat16 run at
+   world size 1 on the default group (NCCL for CUDA tensors) through DDP,
+   against the one-process run. A rank that fails or outlasts its timeout
+   fails the phase;
+9. the kernel summary JSON (launches: phases 4-8), then the device JSON as
    the last line.
 
 Needs a CUDA device and the repository beside this script; it never runs
@@ -2326,6 +2346,397 @@ def _gate_and_benches(tmp: Path, smi: str) -> dict:
     return launches
 
 
+# -- phase 8: data parallelism --------------------------------------------------
+
+# phase 8's training legs, (name, precision, head_dim): each 2 steps of 2
+# microbatches at an 8 x 1500 global batch with the stock dropout rates, one
+# process against DP_WORLD ranks sharing the card over gloo (NCCL refuses two
+# ranks on one device)
+DP_WORLD = 2
+DP_LEGS = (("stock", "float32", 32), ("stock", "bfloat16", 32), ("h16", "bfloat16", H16))
+# the one-process runs: every leg's, and each configuration's in float32
+# (`state_deviation`)
+DP_REFS = DP_LEGS + (("h16", "float32", H16),)
+DP_STEPS = 2
+# phase 4's directory-mode pieces, frames: two of them longer than a chunk's
+# stride (3 + 2 chunks in one forward), two short (a forward of one window in
+# each of two time buckets)
+DP_LENGTHS = (3750, 601, 1600, 250)
+DP_EVAL_LAUNCHES = {"fused_time_roformer": FRONTEND_BLOCKS + TRAIN_LAYERS,
+                    "fused_ff": 2 * (FRONTEND_BLOCKS + TRAIN_LAYERS),
+                    "fused_freq_roformer": 3 * FRONTEND_BLOCKS}
+DP_TIMEOUT_S = 600
+# the model (BeatThisConfig's arguments besides head_dim) and the batch
+DP_CONFIG: dict = {}
+DP_BATCH = dict(batch_size=8, train_length=1500)
+
+
+def dp_trainer(root: Path, precision: str, head_dim: int, tag: str, device):
+    """A Trainer of the full-width model (init_beat_this(0), the stock
+    dropout rates) on the phase's click corpus, checkpoints to root / tag."""
+    from beat_this_tpu_torch.data import BeatDataModule
+    from beat_this_tpu_torch.model.beat_this import BeatThisConfig
+    from beat_this_tpu_torch.train.task import TrainConfig
+    from beat_this_tpu_torch.train.trainer import Trainer
+
+    dm = BeatDataModule(root / "data", **DP_BATCH, num_workers=4, augmentations={},
+                        length_based_oversampling_factor=0.65, seed=0)
+    dm.setup("fit")
+    pw = dm.get_train_positive_weights(widen_target_mask=3)
+    tc = TrainConfig(warmup_steps=1, accum_steps=TRAIN_ACCUM, pos_weight_beat=pw["beat"],
+                     pos_weight_downbeat=pw["downbeat"], compute_dtype=precision)
+    return Trainer(BeatThisConfig(head_dim=head_dim, **DP_CONFIG), tc, dm, max_epochs=DP_STEPS,
+                   val_frequency=10**6, checkpoint_dir=root / tag, name="dp", seed=0,
+                   device=device)
+
+
+def dp_init(head_dim: int) -> dict:
+    """The state every phase-8 run starts from."""
+    from beat_this_tpu_torch.io.checkpoint import init_beat_this
+    from beat_this_tpu_torch.model.beat_this import BeatThisConfig
+
+    return init_beat_this(0, BeatThisConfig(head_dim=head_dim, **DP_CONFIG))
+
+
+def dp_leg(root: Path, precision: str, head_dim: int, tag: str, device) -> dict:
+    """`Trainer.fit` for DP_STEPS steps in this process (data parallel when a
+    process group is initialised): the logged losses, the final state on the
+    CPU, the training kernels' launches and the wall time."""
+    import torch
+
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    trainer = dp_trainer(root, precision, head_dim, tag, device)
+    t0 = time.perf_counter()
+    state = trainer.fit(max_steps_override=DP_STEPS)
+    torch.cuda.synchronize()
+    return {"losses": [[r[f"train_loss_{k}"] for k in ("beat", "downbeat", "total")]
+                       for r in trainer.history if "train_loss_total" in r],
+            "state": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            "launches": {k: fn.launches for k, fn in counters.items()},
+            "seconds": time.perf_counter() - t0, "step": state.step,
+            "ckpt": (root / tag / "dp-S0.ckpt").exists()}
+
+
+def dp_step_ms(root: Path, group, reps: int = 3) -> tuple[float, int]:
+    """Median wall of a synchronized stock bfloat16 train_step (2
+    microbatches) of this process's part of an 8 x 1500 batch, and the
+    model's parameter count."""
+    import torch
+
+    from beat_this_tpu_torch.parallel.mesh import data_parallel
+    from beat_this_tpu_torch.train.task import train_step
+
+    trainer = dp_trainer(root, "bfloat16", 32, "dp-timing", group.device)
+    state = trainer.init_state()
+    replica = data_parallel(state.model, group)
+    batches = trainer.dm.train_batches(trainer.tc.accum_steps, seed=0,
+                                       host_shard=(group.rank, group.world))
+    batch = trainer._to_device(next(batches))
+    gen = torch.Generator().manual_seed(0)
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(replica, state.optimizer, state.scheduler, batch, gen, trainer.tc,
+                   group=group)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times[1:]), sum(p.numel() for p in state.model.parameters())
+
+
+def dp_predict(root: Path, tag: str, group=None) -> dict:
+    """`predict_many` of the synthetic checkpoint over the directory-mode
+    pieces (sharded over `group`'s ranks when given), float32: writes the
+    logits and each piece's .beats under root; returns the eval kernels'
+    launches."""
+    import torch
+
+    from beat_this_tpu_torch.inference import Audio2Frames, ChunkedPredictor
+    from beat_this_tpu_torch.io.audio import load_audio
+    from beat_this_tpu_torch.ops.fused_ff import fused_ff
+    from beat_this_tpu_torch.ops.fused_freq import fused_freq_roformer
+    from beat_this_tpu_torch.ops.fused_time import fused_time_roformer
+    from beat_this_tpu_torch.postprocessing.postprocessor import Postprocessor
+    from beat_this_tpu_torch.utils import save_beat_tsv
+
+    device = DEVICE if group is None else group.device
+    a2f = Audio2Frames(str(root / "dp.ckpt"), device)
+    spects = [a2f.signal2spect(*load_audio(root / "dir" / f"p{i}.wav"))
+              for i in range(len(DP_LENGTHS))]
+    predictor = ChunkedPredictor(a2f.model, group=group)
+    counters = {"fused_time_roformer": fused_time_roformer, "fused_ff": fused_ff,
+                "fused_freq_roformer": fused_freq_roformer}
+    for fn in counters.values():
+        fn.launches = 0
+    logits = predictor.predict_many(spects)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    post = Postprocessor("minimal", device=device)
+    for i, (beat, down) in enumerate(logits):
+        save_beat_tsv(*post(beat, down), root / f"beats-{tag}" / f"p{i}.beats")
+    np.savez(root / f"logits-{tag}.npz", *[np.stack(pair) for pair in logits])
+    return launches
+
+
+def state_deviation(state: dict, ref: dict, f32_ref: Optional[dict] = None,
+                    init: Optional[dict] = None) -> dict:
+    """The state after the steps against the one-process run's (`ref`): the
+    worst tensor's relative max deviation. In bfloat16 (with `f32_ref`, the
+    one-process float32 run of the configuration, and `init`, the state
+    before the steps) also the tensors over BF16_LIMIT and, over every
+    parameter at once, the L2 distances of this run and of `ref` from
+    f32_ref, of this run from `ref`, and of `ref` from init (the update):
+    AdamW's first step moves every parameter by about lr times the sign of
+    its gradient, so an element whose gradient is rounding noise in
+    bfloat16 (sums over the rows that nearly cancel, `first_step_check`)
+    moves either way in any two runs, and a tensor of a few such elements
+    (a gate bias of 1-4 heads, a zero-initialized bias) is all noise."""
+    devs = {k: rel_dev(state[k], ref[k]) for k in ref}
+    out = {"worst": max((d, k) for k, d in devs.items())}
+    if f32_ref is not None:
+        params = [k for k in ref if "running_" not in k]
+
+        def l2(a, b):
+            return sum(float((a[k].double() - b[k].double()).square().sum()) for k in params) ** 0.5
+
+        out["over"] = sorted(k for k, d in devs.items() if d >= BF16_LIMIT)
+        out["l2"] = {"run_f32": l2(state, f32_ref), "one_f32": l2(ref, f32_ref),
+                     "run_one": l2(state, ref), "update": l2(ref, init)}
+    return out
+
+
+def check_state(tag: str, dev: dict, bf16: bool) -> str:
+    """Hold a `state_deviation` to the limits; returns a line on it. In
+    float32 every parameter and batch-norm buffer within F32_LIMIT. In
+    bfloat16 every batch-norm buffer within BF16_LIMIT, and the parameters
+    as a whole no farther from the float32 run than twice the one-process
+    bfloat16 run is (the rule of `first_step_check`): two bfloat16 runs'
+    parameters differ by about as much as either differs from float32, a
+    tenth of the update at a small size on the CPU."""
+    worst = f"worst {dev['worst'][1]} {dev['worst'][0]:.2e}"
+    if not bf16:
+        check(dev["worst"][0] <= F32_LIMIT, f"{tag}: state deviates: {dev['worst']}")
+        return f"{worst} (limit {F32_LIMIT:g})"
+    l2 = dev["l2"]
+    buffers = [k for k in dev["over"] if "running_" in k]
+    check(not buffers, f"{tag}: batch-norm statistics deviate: {buffers}")
+    check(l2["run_f32"] <= 2 * l2["one_f32"], f"{tag}: farther from float32 than twice one "
+                                              f"process: {l2}")
+    return (f"{worst}, {len(dev['over'])} tensors over {BF16_LIMIT:g}, none a batch-norm "
+            f"statistic; over every parameter (L2) from the float32 run "
+            f"{l2['run_f32'] / l2['one_f32']:.3f}x the one-process bfloat16 run's distance "
+            f"(limit 2x); from the one-process run {l2['run_one'] / l2['update']:.2e} of the "
+            f"update, the one-process run from float32 {l2['one_f32'] / l2['update']:.2e}")
+
+
+def state_digest(state: dict) -> str:
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k in sorted(state):
+        h.update(k.encode())
+        h.update(state[k].contiguous().view(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def dp_rank(rank: int, root: str) -> None:
+    """One of phase 8's ranks: the training legs against the one-process
+    references under root, the sharded predict_many, the step and
+    all-reduce timing; results to root / rank<r>.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from beat_this_tpu_torch.parallel.mesh import make_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(root)
+    dist.init_process_group("gloo", store=dist.FileStore(str(root / "store"), DP_WORLD),
+                            rank=rank, world_size=DP_WORLD,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S // 2))
+    try:
+        group = make_group()
+        check(group.world == DP_WORLD and group.distributed
+              and group.device.type == torch.device(DEVICE).type, f"rank {rank}: group {group}")
+        out = {"device": str(group.device), "legs": {}}
+        for name, precision, head_dim in DP_LEGS:
+            tag = f"{name}-{precision}"
+            leg = dp_leg(root, precision, head_dim, f"dp-{tag}-rank{rank}", group.device)
+            ref = torch.load(root / f"ref-{tag}.pt", weights_only=False)["state"]
+            f32_ref = init = None
+            if precision == "bfloat16":
+                f32_ref = torch.load(root / f"ref-{name}-float32.pt", weights_only=False)["state"]
+                init = dp_init(head_dim)
+            out["legs"][tag] = {k: leg[k] for k in ("losses", "launches", "seconds", "step",
+                                                     "ckpt")}
+            out["legs"][tag].update(digest=state_digest(leg["state"]),
+                                    dev=state_deviation(leg["state"], ref, f32_ref, init))
+        out["predict"] = dp_predict(root, f"rank{rank}", group)
+        out["step_ms"], n_params = dp_step_ms(root, group)
+        flat = torch.zeros(n_params, device=group.device)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(flat)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["allreduce_ms"] = 1e3 * statistics.median(times[1:])
+        out["allreduce_numel"] = flat.numel()
+        (root / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_data_parallel(smi: str) -> dict:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        return _data_parallel(Path(tmp), smi)
+
+
+def _data_parallel(root: Path, smi: str) -> dict:
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from beat_this_tpu_torch.data.synth import write_click_corpus
+    from beat_this_tpu_torch.io.checkpoint import init_beat_this
+    from beat_this_tpu_torch.model import BeatThisConfig
+    from beat_this_tpu_torch.ops.mel import log_mel_spectrogram
+    from beat_this_tpu_torch.parallel.distributed import default_backend
+    from beat_this_tpu_torch.parallel.mesh import make_group
+
+    write_click_corpus(root / "data", n_pieces=16, n_val_pieces=2, frames=3000, seed=0)
+    (root / "dir").mkdir()
+    for i, frames in enumerate(DP_LENGTHS):
+        write_wav(root / "dir" / f"p{i}.wav", frames, 10 + i)
+    config = BeatThisConfig(**DP_CONFIG)
+    state = init_beat_this(0, config)
+    mel = log_mel_spectrogram(torch.from_numpy(read_pcm(root / "dir" / "p0.wav").copy()).to(DEVICE))
+    state["frontend.stem.bn1d.running_mean"] = mel.mean(0).cpu()
+    state["frontend.stem.bn1d.running_var"] = mel.var(0).cpu()
+    fit_head(state, config, mel, DP_LENGTHS[0])
+    torch.save({"state_dict": {"model." + k: v for k, v in state.items()},
+                "hyper_parameters": dict(DP_CONFIG)}, root / "dp.ckpt")
+    print(f"[dp] {DP_WORLD} ranks on one card over gloo, spawned with torch.multiprocessing (a "
+          f"FileStore); full width {config}, init_beat_this(0); the phase-5 click corpus, 8 x "
+          f"1500 global batch, {TRAIN_ACCUM} microbatches, {DP_STEPS} steps, dropout "
+          f"{config.dropout_frontend} / {config.dropout_transformer}")
+
+    launches: dict = {}
+    refs = {}
+    for name, precision, head_dim in DP_REFS:
+        tag = f"{name}-{precision}"
+        refs[tag] = dp_leg(root, precision, head_dim, f"ref-{tag}", DEVICE)
+        torch.save(refs[tag], root / f"ref-{tag}.pt")
+        for k, v in refs[tag]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    one_predict = dp_predict(root, "one")
+    for k, v in one_predict.items():
+        launches[k] = launches.get(k, 0) + v
+    one_step_ms = dp_step_ms(root, make_group(DEVICE))[0]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = mp.start_processes(dp_rank, args=(str(root),), nprocs=DP_WORLD, join=False,
+                               start_method="spawn")
+    try:
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        while not ranks.join(timeout=5):
+            check(time.monotonic() < deadline, f"the ranks did not end within {DP_TIMEOUT_S} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
+        raise SmokeFailure(f"a rank failed: {exc}") from exc
+    finally:
+        for p in ranks.processes:
+            if p.is_alive():
+                p.kill()
+    spawn_s = time.perf_counter() - t0
+    out = [json.loads((root / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+
+    for name, precision, head_dim in DP_LEGS:
+        tag = f"{name}-{precision}"
+        ref, legs = refs[tag], [o["legs"][tag] for o in out]
+        bf16 = precision == "bfloat16"
+        expect = expected_train_launches(True, head_dim, steps=DP_STEPS)
+        want = np.array(ref["losses"])
+        got = np.array(legs[0]["losses"])
+        loss_dev = float(np.abs(got - want).max() / np.abs(want).max())
+        print(f"[dp] {tag}: {DP_WORLD} ranks {legs[0]['seconds']:.1f} / {legs[1]['seconds']:.1f} s "
+              f"(one process {ref['seconds']:.1f} s); logged losses (beat, downbeat, total) "
+              f"{got.tolist()} against one process {want.tolist()}: rel {loss_dev:.2e} (limit "
+              f"{2.5e-2 if bf16 else 2e-4:g}); launches per rank {legs[0]['launches']} [{smi}]")
+        check(legs[0]["losses"] == legs[1]["losses"], f"{tag}: the ranks logged other losses")
+        check(legs[0]["digest"] == legs[1]["digest"], f"{tag}: the ranks' states differ")
+        check(got.shape == want.shape and (loss_dev < BF16_LIMIT if bf16 else bool(
+            np.allclose(got, want, rtol=2e-4, atol=0))), f"{tag}: losses deviate")
+        print(f"[dp] {tag}: the state after {DP_STEPS} steps against one process: "
+              + check_state(tag, legs[0]["dev"], bf16))
+        for who, run in (("one process", ref), *((f"rank {r}", legs[r]) for r in range(DP_WORLD))):
+            check(run["launches"] == expect and run["step"] == DP_STEPS,
+                  f"{tag} {who}: launches {run['launches']}, expected {expect}")
+        check(legs[0]["ckpt"] and not legs[1]["ckpt"], f"{tag}: rank 0 alone must write")
+
+    # sharded predict_many: one unmasked forward (the long pieces' 5 chunks),
+    # one masked forward in each of two time buckets, on every rank
+    want_logits = np.load(root / "logits-one.npz")
+    worst = 0.0
+    for r, o in enumerate(out):
+        check(o["predict"] == one_predict == DP_EVAL_LAUNCHES,
+              f"rank {r}: eval launches {o['predict']}, one process {one_predict}, expected "
+              f"{DP_EVAL_LAUNCHES}")
+        got_logits = np.load(root / f"logits-rank{r}.npz")
+        for key in want_logits.files:
+            worst = max(worst, float(np.abs(got_logits[key] - want_logits[key]).max()))
+        for i in range(len(DP_LENGTHS)):
+            beats = (root / f"beats-rank{r}" / f"p{i}.beats").read_bytes()
+            check(len(beats) > 0 and beats == (root / "beats-one" / f"p{i}.beats").read_bytes(),
+                  f"rank {r}: p{i}.beats differs from the one-process run")
+    print(f"[dp] sharded predict_many over {DP_WORLD} ranks, {len(DP_LENGTHS)} pieces of "
+          f"{DP_LENGTHS} frames, f32: logits max |diff| {worst:.2e} from one process (limit "
+          f"5e-05); .beats byte-identical on every rank and to one process; launches per rank "
+          f"{out[0]['predict']} [{smi}]")
+    check(worst <= 5e-5, f"sharded predict_many: logits {worst:.2e} from one process")
+
+    share = out[0]["allreduce_ms"] / out[0]["step_ms"]
+    print(f"[dp] stock bf16 step, 2 microbatches of 8 x 1500 frames: {out[0]['step_ms']:.1f} / "
+          f"{out[1]['step_ms']:.1f} ms on {DP_WORLD} ranks sharing the card, {one_step_ms:.1f} ms "
+          f"in one process; one gloo all-reduce of the {out[0]['allreduce_numel']} float32 "
+          f"parameters {out[0]['allreduce_ms']:.1f} ms ({share:.1%} of the 2-rank step); spawn "
+          f"to join {spawn_s:.1f} s [{smi}]")
+
+    # world size 1 on the default group (NCCL for CUDA tensors), through DDP
+    dist.init_process_group(default_backend(), store=dist.FileStore(str(root / "store1"), 1),
+                            rank=0, world_size=1)
+    try:
+        group = make_group(DEVICE)
+        check(group.distributed and group.world == 1, f"world 1: group {group}")
+        tag = "stock-bfloat16"
+        leg = dp_leg(root, "bfloat16", 32, "dp1", group.device)
+        ref = refs[tag]
+        loss_dev = float(np.abs(np.array(leg["losses"]) - np.array(ref["losses"])).max()
+                         / np.abs(np.array(ref["losses"])).max())
+        dev = state_deviation(leg["state"], ref["state"], refs["stock-float32"]["state"],
+                              dp_init(32))
+        print(f"[dp] world size 1 on the default group ({dist.get_backend(group.process_group)}"
+              "), DDP, stock bf16, against the "
+              f"one-process run: losses rel {loss_dev:.2e} (limit {BF16_LIMIT:g}), the state "
+              + check_state("world 1", dev, True) + f" [{smi}]")
+        check(loss_dev < BF16_LIMIT, "world 1: losses deviate")
+        check(leg["launches"] == expected_train_launches(True, 32, steps=DP_STEPS),
+              f"world 1: launches {leg['launches']}")
+        for k, v in leg["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2366,6 +2777,8 @@ def main() -> int:
         for k, v in timed("drivers", phase_drivers, smi).items():
             launches[k] = launches.get(k, 0) + v
         for k, v in timed("gate-and-benches", phase_gate_and_benches, smi).items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in timed("data-parallel", phase_data_parallel, smi).items():
             launches[k] = launches.get(k, 0) + v
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "beat_this_tpu") or m.startswith(("jax.", "beat_this_tpu.")))

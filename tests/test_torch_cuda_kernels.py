@@ -373,7 +373,7 @@ def test_ff_bwd_scratch_holds_the_stash(device, dtype, parts, limit):
             ff_ops.dtype_code(dtype), ff_ops.dtype_code(dtype), c, x.data_ptr(),
             gamma.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dout.data_ptr(),
             dx.data_ptr(), *(g.data_ptr() for g in grads), scratch.data_ptr(), size, rows,
-            4 * c, group_rows, 0, 0, 0, 1.0, 0, ff_ops.stream_of(x))
+            4 * c, group_rows, 0, 0, 0, 1.0, 0, 0, 0, ff_ops.stream_of(x))
 
     assert launch(nbytes - 1) != 0
     assert launch(nbytes) == 0
@@ -484,7 +484,7 @@ def test_attn_bwd_scratch_holds_the_operands(device, dtype, parts):
             ff_ops.dtype_code(dtype), c, x.data_ptr(), *(p.data_ptr() for p in bwd_params),
             *(t.data_ptr() for t in saved), dout.data_ptr(), dx.data_ptr(),
             *(g.data_ptr() for g in grads), scratch.data_ptr(), size, items, n, group_rows,
-            0, 0, 0, 1.0, 0, ff_ops.stream_of(x))
+            0, 0, 0, 1.0, 0, 0, 0, ff_ops.stream_of(x))
 
     assert launch(nbytes - 1) != 0
     assert launch(nbytes) == 0
@@ -891,6 +891,83 @@ def test_small_attention(device, dtype, tol, rate, f, d, items, heads):
         (items, f, d), dtype, tol, device, f + d + items)
     assert (small_ops.small_fwd.launches, small_ops.small_bwd.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+
+# a shard's first item in the global batch (ops/dropout.py: item0, and row0 =
+# item0 times the rows per item)
+BASE_ITEM0 = 3
+
+
+def _train_case(name, device, b=BASE_ITEM0):
+    """(kernel, plain, inputs, parameters) of the training op that launches
+    kernel `name`, both sides drawing their masks at item `b` of the global
+    batch, rate 0.5, float32: B4 / B5 the time-axis branch, B6 / B7 the
+    frequency block, B8 / B9 the feed-forward residual, B10 / B11 flash
+    attention, B12 small attention."""
+    rate, seed, dtype = 0.5, 41, torch.float32
+    if name in ("B4", "B5"):
+        heads, n, c = 2, 130, 64
+        attn, _ = _block(c, heads, 71, device)
+        cos, sin = rope_tables(n, 32, device)
+        return (lambda t: time_ops.fused_time_attention_train(t, attn, cos, sin, heads, rate,
+                                                               seed, b),
+                lambda t: time_ops.fused_time_attention_train_ref(t, attn, cos, sin, heads, rate,
+                                                                   seed, b),
+                (_x((3, n, c), dtype, device, 72),), list(attn.parameters()))
+    if name in ("B6", "B7"):
+        f, c = 16, 64
+        attn, ff = _block(c, c // 32, 73, device)
+        cos, sin = rope_tables(f, 32, device)
+        return (lambda t: freq_ops.fused_freq_roformer_train(t, attn, ff, cos, sin, rate, seed, b),
+                lambda t: freq_ops.fused_freq_roformer_train_ref(t, attn, ff, cos, sin, rate,
+                                                                 seed, b),
+                (_x((150, f, c), dtype, device, 74),),
+                list(attn.parameters()) + list(ff.parameters()))
+    if name in ("B8", "B9"):
+        _, ff = _block(64, 2, 75, device)
+        return (lambda t: ff_ops.fused_ff_train(t, ff, rate, seed, b),
+                lambda t: ff_ops.fused_ff_train_ref(t, ff, rate, seed, b),
+                (_x((5, 21, 64), dtype, device, 76),), list(ff.parameters()))
+    n, d, heads, ops = (200, 16, 3, flash_ops) if name in ("B10", "B11") else (8, 16, 4, small_ops)
+    cos, sin = rope_tables(n, d, device)
+    kernel = flash_ops.flash_attention if ops is flash_ops else small_ops.small_attention
+    plain = flash_ops.flash_attention_ref if ops is flash_ops else small_ops.small_attention_ref
+    return (lambda q, k, v: kernel(q, k, v, cos, sin, rate, seed, heads, b),
+            lambda q, k, v: plain(q, k, v, cos, sin, rate, seed, heads, b),
+            tuple(_x((2 * heads, n, d), dtype, device, 77 + i) for i in range(3)), [])
+
+
+@pytest.mark.parametrize("name", ["B4", "B5", "B6", "B7", "B8", "B9", "B10", "B11", "B12"])
+def test_training_kernels_draw_at_a_global_batch_base(device, name):
+    """Each training kernel at a batch base (a data-parallel shard's first
+    item) equals its plain version at that base: the forward kernels'
+    outputs, the backward kernels' gradients of the inputs and parameters,
+    float32 (1e-4, as `_compare_train`). Rate 0.5, so a mask drawn at the
+    wrong base puts about half the elements off. And the base moves the
+    masks: the kernel's result at base 0 is far from it."""
+    kernel, plain, inputs, params = _train_case(name, device)
+    forward = name in ("B4", "B6", "B8", "B10")
+    for p in params:
+        p.requires_grad_(not forward)
+    inputs = [t.clone().requires_grad_(not forward) for t in inputs]
+    if forward:
+        with torch.no_grad():
+            got, want = [kernel(*inputs)], [plain(*inputs)]
+    else:
+        cot = _x(inputs[0].shape, torch.float32, device, 99)
+        leaves = inputs + params
+
+        def grads(fn):
+            out = fn(*inputs)
+            return [out.detach(), *torch.autograd.grad((out.float() * cot).sum(), leaves)]
+
+        got, want = grads(kernel), grads(plain)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(g.float()).all()), i
+        assert _rel(g, w) < 1e-4, (name, i, _rel(g, w))
+    with torch.no_grad():
+        assert _rel(_train_case(name, device, 0)[0](*inputs), got[0]) > 0.1, name
 
 
 def test_small_attention_without_tables(device):

@@ -20,7 +20,8 @@ PACKAGE = Path(__file__).resolve().parent.parent / "beat_this_tpu_torch"
 
 def test_import_pulls_in_no_jax():
     """Every module of the port (the bench entry points, the DBN decoder,
-    the hub module, the launch-script drivers and the kernel gate among them), imported in a
+    the hub module, the launch-script drivers, the kernel gate and the
+    data-parallel package among them), imported in a
     fresh interpreter, loads no module named jax*, beat_this_tpu,
     beat_this_tpu.*, tools or tools.*."""
     code = (
@@ -32,7 +33,8 @@ def test_import_pulls_in_no_jax():
         "            'bench.flash_ablate', 'bench.softmax_variants', 'postprocessing.dbn', 'hub',\n"
         "            'ops.stretch', 'profiler', 'clean_checkpoints', 'preprocess_audio',\n"
         "            'overfit_smoke', 'compute_paper_metrics', 'check_all', 'bench.mel_stage',\n"
-        "            'bench.cli_dir', 'bench.dbn', 'bench.eval_protocol', 'bench.small'):\n"
+        "            'bench.cli_dir', 'bench.dbn', 'bench.eval_protocol', 'bench.small',\n"
+        "            'parallel', 'parallel.mesh', 'parallel.distributed'):\n"
         "    assert 'beat_this_tpu_torch.' + mod in names, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -60,7 +62,8 @@ def test_sources_import_nothing_of_the_jax_package():
                  "hub.py", "ops/stretch.py", "profiler.py", "clean_checkpoints.py",
                  "preprocess_audio.py", "overfit_smoke.py", "compute_paper_metrics.py",
                  "check_all.py", "bench/mel_stage.py", "bench/cli_dir.py", "bench/dbn.py",
-                 "bench/eval_protocol.py", "bench/small.py"):
+                 "bench/eval_protocol.py", "bench/small.py", "parallel/__init__.py",
+                 "parallel/mesh.py", "parallel/distributed.py"):
         assert PACKAGE / name in paths
     for path in paths:
         assert not pattern.search(path.read_text()), path
