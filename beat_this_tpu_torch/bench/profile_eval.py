@@ -12,13 +12,14 @@ the masked short-piece path) and a batch of 16 chunks of 1500 frames in one
 forward (`inference.CHUNK_BATCH`: a long piece or a directory batch). For
 each window it prints, beside the card's `nvidia-smi` name and power limit,
 the wall time (host clock around a synchronized forward), the device's
-summed kernel time and busy share (kernel time over wall), the kernels'
-device time by family and by group (K2 `fused_time.cu`, K1 `fused_ff.cu`,
-K3 `fused_freq.cu`, at `--head-dim 16` B10 `flash_attention.cu` and B12
-`small_attention.cu`, and the rest: cuBLAS, cuDNN, mel, elementwise,
-copies), and the largest kernels. K1 runs B8's feed-forward launches, as
-K2's tail does; the wrappers' launch counts in the window tell whose they
-are (`group`). Needs a CUDA device: the kernels run only there.
+summed kernel time and busy share (kernel time over wall), the device time
+of each kernel entry's `bt.<entry>` range (`profiler.range_device_ms`: K2
+`fused_time.cu`, K1 `fused_ff.cu`, K3 `fused_freq.cu`, at `--head-dim 16`
+B10 `flash_attention.cu` and B12 `small_attention.cu`) and of the rest
+(cuBLAS, cuDNN, mel, elementwise, copies), the kernels by family, and the
+largest kernels. K1 and K2's tail run the same feed-forward kernels: the
+range a kernel was launched in says whose it is. Needs a CUDA device: the
+kernels run only there.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from __future__ import annotations
 import argparse
 import time
 from collections import defaultdict
+
+from beat_this_tpu_torch import profiler
 
 TOP = 10  # kernels listed by name per window
 
@@ -53,9 +56,6 @@ FAMILIES = (
     ("small_fwd", "B12 small_fwd"),
 )
 OTHER = "other (cuBLAS, cuDNN, mel, elementwise, copies)"
-# families whose kernels K1 and K2's tail share
-SHARED = ("FF weight operands", "FF row pass", "FF hidden product", "FF output product",
-          "FF output product, depth slices", "FF output slices' sum")
 
 
 def family(name: str) -> str:
@@ -63,21 +63,6 @@ def family(name: str) -> str:
         if frag in name:
             return fam
     return OTHER
-
-
-def group(fam: str, k1_launches: int, k2_launches: int) -> str:
-    """The kernel whose launches a family's time belongs to: K1, K2, K3,
-    B10, B12 or the rest. The feed-forward families are K2's tail in a
-    window where only K2 ran, K1's where only K1 ran, and both otherwise."""
-    if fam in SHARED:
-        if k1_launches and not k2_launches:
-            return "K1"
-        if k2_launches and not k1_launches:
-            return "K2"
-        return "K1 + K2 (shared feed-forward launches)"
-    if fam == OTHER:
-        return "rest"
-    return fam.split()[0]
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -96,7 +81,6 @@ def main(argv=None) -> dict:
     from beat_this_tpu_torch.inference import CHUNK_BATCH, ChunkedPredictor
     from beat_this_tpu_torch.bench.timing import nvidia_smi_line, seed_model
     from beat_this_tpu_torch.model.beat_this import BeatThisConfig
-    from beat_this_tpu_torch.ops import fused_ff, fused_time
 
     args = get_parser().parse_args(argv)
     if not torch.cuda.is_available():
@@ -127,36 +111,31 @@ def main(argv=None) -> dict:
     for name, fn in windows:
         fn()  # warm: kernel build and caches
         torch.cuda.synchronize()
-        before = (fused_ff.fused_ff.launches, fused_time.fused_time_roformer.launches)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        k1 = fused_ff.fused_ff.launches - before[0]
-        k2 = fused_time.fused_time_roformer.launches - before[1]
         by_name: dict[str, float] = defaultdict(float)
         for evt in prof.events():
-            if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
                 by_name[evt.name] += evt.device_time_total / 1e3  # us -> ms
         by_family: dict[str, float] = defaultdict(float)
         for kname, ms in by_name.items():
             by_family[family(kname)] += ms
-        by_group: dict[str, float] = defaultdict(float)
-        for fam, ms in by_family.items():
-            by_group[group(fam, k1, k2)] += ms
         device_ms = sum(by_name.values())
+        ranges = profiler.range_device_ms(prof.events(), device_ms)
         print(f"[profile_eval] one forward, {name}, {config}, {args.precision}: wall "
               f"{1e3 * wall:.2f} ms, device kernel time {device_ms:.2f} ms, busy share "
-              f"{device_ms / (1e3 * wall):.3f}; launches K2 {k2}, K1 {k1}")
-        for grp, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-            print(f"[profile_eval]   {grp}: {ms:.2f} ms ({ms / device_ms:.1%})")
+              f"{device_ms / (1e3 * wall):.3f}")
+        for entry, ms in sorted(ranges.items(), key=lambda kv: -kv[1]):
+            print(f"[profile_eval]   {entry}: {ms:.2f} ms ({ms / device_ms:.1%})")
         for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
             print(f"[profile_eval]     {fam}: {ms:.2f} ms")
         for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
             print(f"[profile_eval]     kernel {kname[:90]}: {ms:.3f} ms")
         results[name] = {"wall_ms": 1e3 * wall, "device_ms": device_ms,
-                         "groups": dict(by_group), "families": dict(by_family)}
+                         "ranges": ranges, "families": dict(by_family)}
     return results
 
 

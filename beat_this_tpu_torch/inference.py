@@ -39,6 +39,7 @@ from beat_this_tpu_torch.model.beat_this import BeatThis, BeatThisConfig
 from beat_this_tpu_torch.ops.mel import LogMelConfig, log_mel_spectrogram, num_frames
 from beat_this_tpu_torch.parallel.mesh import pad_to_multiple, shard_rows
 from beat_this_tpu_torch.postprocessing.postprocessor import Postprocessor
+from beat_this_tpu_torch.profiler import count, span
 
 HOP = 441  # samples per log-mel frame
 CHUNK_SIZE = 1500
@@ -138,11 +139,16 @@ class ChunkedPredictor:
     @torch.inference_mode()
     def _forward(self, batch, valid_lengths=None):
         """Host logits of a (rows, T, bins) batch on the device; with a
-        group, of the rank's slice, gathered from every rank."""
+        group, of the rank's slice, gathered from every rank. Counts the
+        forward's rows x T frames and, for host `valid_lengths`, the frames
+        masked past them (`profiler.counters`; with a group every rank
+        counts the whole forward)."""
         x = torch.as_tensor(batch, device=self.device)
+        rows, frames = x.shape[:2]
+        masked = 0 if valid_lengths is None else int(rows * frames - np.sum(valid_lengths))
+        count(forward_frames=rows * frames, masked_frames=masked)
         if valid_lengths is not None:
             valid_lengths = torch.as_tensor(valid_lengths, device=self.device)
-        rows = len(x)
         if self.group is not None:
             pad = pad_to_multiple(rows, self.group.world) - rows
             x = shard_rows(torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]), self.group)
@@ -150,8 +156,11 @@ class ChunkedPredictor:
                 valid_lengths = shard_rows(
                     torch.cat([valid_lengths, valid_lengths.new_full((pad,), x.shape[1])]),
                     self.group)
-        out = self.model(x, valid_lengths=valid_lengths, compute_dtype=self.compute_dtype)
-        logits = torch.stack([out["beat"], out["downbeat"]]).cpu()
+        with span("model"):
+            out = self.model(x, valid_lengths=valid_lengths, compute_dtype=self.compute_dtype)
+        logits = torch.stack([out["beat"], out["downbeat"]])
+        with span("wait"):  # the host waits for the card here
+            logits = logits.cpu()
         if self.group is not None:
             parts = [torch.empty_like(logits) for _ in range(self.group.world)]
             dist.all_gather(parts, logits, group=self.group.process_group)
@@ -216,46 +225,47 @@ class ChunkedPredictor:
         gathered on the device, zero outside the piece, and packed into
         forwards of at most CHUNK_BATCH rows; the spectrogram never goes to
         the host."""
-        cs, bs, stride = self.chunk_size, self.border_size, self.stride
-        n = len(offsets)
-        short = [i for i in range(n) if nframes[i] <= stride]
-        long = [i for i in range(n) if nframes[i] > stride]
-        out: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        with span("forward"):
+            cs, bs, stride = self.chunk_size, self.border_size, self.stride
+            n = len(offsets)
+            short = [i for i in range(n) if nframes[i] <= stride]
+            long = [i for i in range(n) if nframes[i] > stride]
+            out: dict[int, tuple[np.ndarray, np.ndarray]] = {}
 
-        # short pieces, by time bucket: window row j holds piece frame
-        # j - bs, rows [bs, bs + t) are valid
-        by_bucket: dict[int, list[int]] = {}
-        for idx in short:
-            padded_t = next(p for p in _time_buckets(cs) if p >= nframes[idx] + 2 * bs)
-            by_bucket.setdefault(padded_t, []).append(idx)
-        for padded_t, indices in by_bucket.items():
-            for i in range(0, len(indices), CHUNK_BATCH):
-                rows = indices[i : i + CHUNK_BATCH]
-                batch = self._gather(mel, [offsets[r] - bs for r in rows], [bs] * len(rows),
-                                     [bs + nframes[r] for r in rows], padded_t)
-                valid = np.array([nframes[r] + 2 * bs for r in rows], np.int64)
-                beat, down = self._forward(batch, valid)
-                for row, idx in enumerate(rows):
-                    t = nframes[idx]
-                    out[idx] = (beat[row, bs : bs + t], down[row, bs : bs + t])
+            # short pieces, by time bucket: window row j holds piece frame
+            # j - bs, rows [bs, bs + t) are valid
+            by_bucket: dict[int, list[int]] = {}
+            for idx in short:
+                padded_t = next(p for p in _time_buckets(cs) if p >= nframes[idx] + 2 * bs)
+                by_bucket.setdefault(padded_t, []).append(idx)
+            for padded_t, indices in by_bucket.items():
+                for i in range(0, len(indices), CHUNK_BATCH):
+                    rows = indices[i : i + CHUNK_BATCH]
+                    batch = self._gather(mel, [offsets[r] - bs for r in rows], [bs] * len(rows),
+                                         [bs + nframes[r] for r in rows], padded_t)
+                    valid = np.array([nframes[r] + 2 * bs for r in rows], np.int64)
+                    beat, down = self._forward(batch, valid)
+                    for row, idx in enumerate(rows):
+                        t = nframes[idx]
+                        out[idx] = (beat[row, bs : bs + t], down[row, bs : bs + t])
 
-        # long pieces: every chunk of every piece in order, packed; the
-        # chunk at start s holds piece frames s + j for 0 <= s + j < t
-        if long:
-            plans = [plan_chunks(nframes[i], cs, bs) for i in long]
-            windows = [(offsets[i] + s, max(s, 0) - s, min(s + cs, nframes[i]) - s)
-                       for i, starts in zip(long, plans) for s in starts.tolist()]
-            outs = [self._forward(self._gather(mel, *zip(*windows[i : i + CHUNK_BATCH]), cs))
-                    for i in range(0, len(windows), CHUNK_BATCH)]
-            beat = np.concatenate([o[0] for o in outs])
-            down = np.concatenate([o[1] for o in outs])
-            first = 0
-            for idx, starts in zip(long, plans):
-                k = len(starts)
-                out[idx] = self._stitch(nframes[idx], starts + bs, beat[first : first + k],
-                                        down[first : first + k])
-                first += k
-        return [out[i] for i in range(n)]
+            # long pieces: every chunk of every piece in order, packed; the
+            # chunk at start s holds piece frames s + j for 0 <= s + j < t
+            if long:
+                plans = [plan_chunks(nframes[i], cs, bs) for i in long]
+                windows = [(offsets[i] + s, max(s, 0) - s, min(s + cs, nframes[i]) - s)
+                           for i, starts in zip(long, plans) for s in starts.tolist()]
+                outs = [self._forward(self._gather(mel, *zip(*windows[i : i + CHUNK_BATCH]), cs))
+                        for i in range(0, len(windows), CHUNK_BATCH)]
+                beat = np.concatenate([o[0] for o in outs])
+                down = np.concatenate([o[1] for o in outs])
+                first = 0
+                for idx, starts in zip(long, plans):
+                    k = len(starts)
+                    out[idx] = self._stitch(nframes[idx], starts + bs, beat[first : first + k],
+                                            down[first : first + k])
+                    first += k
+            return [out[i] for i in range(n)]
 
 
 def zeropad(spect, left: int = 0, right: int = 0) -> np.ndarray:
@@ -551,9 +561,12 @@ class BatchedFile2File(File2File):
         """The group's log-mel as one (frames, bins) tensor on the model's
         device, from `pack_flat`'s signal, and each signal's (frame offset,
         frame count) in it."""
-        flat, starts = pack_flat(signals)
-        mel = log_mel_spectrogram(torch.from_numpy(flat).to(self.device), LogMelConfig())
-        return mel, [st // HOP for st in starts], [num_frames(len(s)) for s in signals]
+        with span("mel"):
+            flat, starts = pack_flat(signals)
+            with span("upload"):  # a pageable copy: the host waits for it
+                flat = torch.from_numpy(flat).to(self.device)
+            mel = log_mel_spectrogram(flat, LogMelConfig())
+            return mel, [st // HOP for st in starts], [num_frames(len(s)) for s in signals]
 
     def _batched_spects(self, signals) -> list[np.ndarray]:
         """The group's log-mel of `_batched_spects_device`, downloaded and
@@ -603,30 +616,34 @@ class BatchedFile2File(File2File):
         seconds = 0.0
         for i in range(0, len(tasks), self.group_size):
             group = tasks[i : i + self.group_size]
-            # decoding and resampling overlap across files
-            with ThreadPoolExecutor() as pool:
-                loaded = list(pool.map(lambda t: _try_call(self._load_one, t[0]), group))
-            signals, valid = [], []
-            for (path, out), (audio, err) in zip(group, loaded):
-                if err is not None:
-                    if on_error:
-                        on_error(path, err)
-                    continue
-                seconds += audio[1]
-                signals.append(audio[0])
-                valid.append((path, out))
-            if not signals:
-                continue
-            for (path, out), (decoded, err) in zip(valid, self._decode_group(signals)):
-                try:
+            before = seconds
+            with span("group") as unit:
+                # decoding and resampling overlap across files
+                with span("load"), ThreadPoolExecutor() as pool:
+                    loaded = list(pool.map(lambda t: _try_call(self._load_one, t[0]), group))
+                signals, valid = [], []
+                for (path, out), (audio, err) in zip(group, loaded):
                     if err is not None:
-                        raise err
-                    (beat_logits, downbeat_logits), (beats, downbeats) = decoded
-                    save_beat_tsv(beats, downbeats, out)
-                    if after_each:
-                        after_each(path, out, beat_logits, downbeat_logits)
-                except Exception as exc:  # noqa: BLE001 - one bad file must not stop the run
-                    if on_error:
-                        on_error(path, exc)
+                        if on_error:
+                            on_error(path, err)
+                        continue
+                    seconds += audio[1]
+                    signals.append(audio[0])
+                    valid.append((path, out))
+                unit.set(seconds - before)
+                if not signals:
+                    continue
+                for (path, out), (decoded, err) in zip(valid, self._decode_group(signals)):
+                    try:
+                        if err is not None:
+                            raise err
+                        (beat_logits, downbeat_logits), (beats, downbeats) = decoded
+                        with span("write"):
+                            save_beat_tsv(beats, downbeats, out)
+                        if after_each:
+                            after_each(path, out, beat_logits, downbeat_logits)
+                    except Exception as exc:  # noqa: BLE001 - one bad file must not stop the run
+                        if on_error:
+                            on_error(path, exc)
         return seconds
 

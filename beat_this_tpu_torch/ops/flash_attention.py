@@ -39,6 +39,7 @@ from beat_this_tpu_torch.ops import _build
 from beat_this_tpu_torch.ops import dropout as drop
 from beat_this_tpu_torch.ops.fused_ff import dtype_code, stream_of
 from beat_this_tpu_torch.ops.rotary import apply_rope
+from beat_this_tpu_torch.profiler import op_entry
 
 SUPPORTED_HEAD_DIMS = (16, 32)
 LOG2E = 1.4426950408889634
@@ -177,6 +178,7 @@ def _launch_fwd(q, k, v, cos, sin, rate, seed, heads, lse, item0):
     return out
 
 
+@op_entry
 def flash_fwd(q, k, v, cos, sin, rate, seed, heads, item0: int = 0) -> torch.Tensor:
     """Launch the forward without the log-sum-exp output (no backward will
     follow); returns o."""
@@ -185,6 +187,7 @@ def flash_fwd(q, k, v, cos, sin, rate, seed, heads, item0: int = 0) -> torch.Ten
     return out
 
 
+@op_entry
 def flash_fwd_lse(q, k, v, cos, sin, rate, seed, heads, item0: int = 0):
     """Launch the forward that also writes the base-2 log-sum-exp per query;
     returns (o, lse)."""
@@ -194,6 +197,7 @@ def flash_fwd_lse(q, k, v, cos, sin, rate, seed, heads, item0: int = 0):
     return out, lse
 
 
+@op_entry
 def flash_bwd(q, k, v, cos, sin, out, lse, dout, rate, seed, heads, item0: int = 0):
     """Launch the backward (the dq kernel, then the dk/dv kernel); returns
     (dq, dk, dv). delta = rowsum(dout * o) is computed here, in float32."""

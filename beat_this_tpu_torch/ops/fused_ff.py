@@ -33,6 +33,7 @@ from beat_this_tpu_torch.model.layers import (
 )
 from beat_this_tpu_torch.ops import _build
 from beat_this_tpu_torch.ops import dropout as drop
+from beat_this_tpu_torch.profiler import op_entry
 
 SUPPORTED_DIMS = (32, 64, 128, 256, 384, 512)
 
@@ -95,6 +96,7 @@ def _check_cuda(name: str, x: torch.Tensor, c: int) -> int:
     return dtype_code(x.dtype)
 
 
+@op_entry
 def fused_ff(x: torch.Tensor, ff: FeedForward) -> torch.Tensor:
     """x: (..., C) -> x + FF(x). CUDA tensors run the fused kernel (C in
     SUPPORTED_DIMS, float32 or bfloat16); CPU tensors the plain version."""
@@ -202,6 +204,7 @@ def fused_ff_train_ref(x: torch.Tensor, ff: FeedForward, dropout_rate: float = 0
     return (x32 + branch).to(x.dtype)
 
 
+@op_entry
 def ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed, row0: int = 0) -> torch.Tensor:
     """Launch the training forward on x (rows, C): x + dropout(FF(x)). The
     library lays out its scratch (the operands g, W1^T, W2^T and the dropped
@@ -230,6 +233,7 @@ def ff_train_fwd(x, gamma, w1, b1, w2, b2, dropout_rate, seed, row0: int = 0) ->
     return out
 
 
+@op_entry
 def ff_train_bwd(x, gamma, w1, b1, w2, dout, dropout_rate, seed, dtype=None, row0: int = 0):
     """Launch the training backward; returns (dx, dgamma, dw1, db1, dw2, db2),
     dx in the dtype of x, the parameter gradients in float32 and torch's

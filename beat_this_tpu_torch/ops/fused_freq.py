@@ -50,6 +50,7 @@ from beat_this_tpu_torch.ops.fused_ff import (
 )
 from beat_this_tpu_torch.ops.fused_time import block_params
 from beat_this_tpu_torch.ops.rotary import apply_rope
+from beat_this_tpu_torch.profiler import op_entry
 
 SUPPORTED_DIMS = (32, 64, 128)
 
@@ -75,6 +76,7 @@ def _check_freq(name: str, x: torch.Tensor) -> int:
     return dtype_code(x.dtype)
 
 
+@op_entry
 def fused_freq_roformer(x: torch.Tensor, attn: Attention, ff: FeedForward,
                         rope_cos: torch.Tensor, rope_sin: torch.Tensor) -> torch.Tensor:
     """One frequency-axis roformer block over (items, F, C) with C // 32
@@ -186,6 +188,7 @@ def _train_params(params, dtype) -> list[torch.Tensor]:
             f32(gf), kernel_weight(w1, dtype), f32(b1), kernel_weight(w2, dtype), f32(b2)]
 
 
+@op_entry
 def freq_train_fwd(x, params, cos, sin, f: int, dropout_rate: float, seed,
                    item0: int = 0) -> torch.Tensor:
     """Launch the training forward on x (items * F, C), its first item the
@@ -229,6 +232,7 @@ def freq_bwd_plan(rows: int, c: int, m: int, dtype: torch.dtype) -> tuple[int, i
     return group_rows, ff_group_rows, nbytes.value
 
 
+@op_entry
 def freq_train_bwd(x, params, cos, sin, f: int, dout, dropout_rate: float, seed,
                    item0: int = 0):
     """Launch the training backward; returns dx and the ten parameter

@@ -52,6 +52,7 @@ from beat_this_tpu_torch.ops.fused_ff import (
     kernel_weight,
     stream_of,
 )
+from beat_this_tpu_torch.profiler import op_entry
 
 
 def block_params(attn: Attention, ff: FeedForward, dtype: torch.dtype) -> list[torch.Tensor]:
@@ -86,6 +87,7 @@ def fused_time_roformer_ref(x, attn: Attention, ff: FeedForward, rope_cos, rope_
     return y + feed_forward(ff, y)
 
 
+@op_entry
 def fused_time_roformer(x: torch.Tensor, attn: Attention, ff: FeedForward,
                         rope_cos: torch.Tensor, rope_sin: torch.Tensor,
                         heads: int) -> torch.Tensor:
@@ -192,6 +194,7 @@ def attn_bwd_plan(rows: int, c: int, dtype: torch.dtype) -> tuple[int, int]:
     return group_rows, nbytes.value
 
 
+@op_entry
 def attn_train_fwd(x, gamma, wqkv, wg, gb, wout, cos, sin, heads, dropout_rate, seed,
                    item0: int = 0):
     """Launch the training forward on x (items, n, C), its first item the
@@ -225,6 +228,7 @@ def attn_train_fwd(x, gamma, wqkv, wg, gb, wout, cos, sin, heads, dropout_rate, 
     return out, saved
 
 
+@op_entry
 def attn_train_bwd(x, gamma, wqkv, wg, wout, cos, sin, saved, dout, heads, dropout_rate,
                    seed, item0: int = 0):
     """Launch the training backward; returns (dx, dgamma, dwqkv, dwg, dgb,

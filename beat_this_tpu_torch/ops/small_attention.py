@@ -28,6 +28,7 @@ from beat_this_tpu_torch.ops import _build
 from beat_this_tpu_torch.ops import dropout as drop
 from beat_this_tpu_torch.ops import flash_attention as flash
 from beat_this_tpu_torch.ops.fused_ff import stream_of
+from beat_this_tpu_torch.profiler import op_entry
 
 SUPPORTED_SEQ = (1, 2, 4, 8, 16, 32)
 # bfloat16 parts of a float32 operand in the kernels' forward and backward,
@@ -68,6 +69,7 @@ def _check(q, k, v, cos, sin) -> int:
     return code
 
 
+@op_entry
 def small_fwd(q, k, v, cos, sin, rate, seed, heads, item0: int = 0) -> torch.Tensor:
     """Launch the forward on q, k, v (items, F, D); returns o."""
     code = _check(q, k, v, cos, sin)
@@ -88,6 +90,7 @@ def small_fwd(q, k, v, cos, sin, rate, seed, heads, item0: int = 0) -> torch.Ten
     return out
 
 
+@op_entry
 def small_bwd(q, k, v, cos, sin, dout, rate, seed, heads, item0: int = 0):
     """Launch the backward; returns (dq, dk, dv)."""
     code = _check(q, k, v, cos, sin)

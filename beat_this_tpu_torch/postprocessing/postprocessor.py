@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from beat_this_tpu_torch.ops.pool import peak_pick
+from beat_this_tpu_torch.profiler import span
 
 
 def _merge_close_peaks(group: np.ndarray, width: float) -> list:
@@ -81,27 +82,30 @@ class Postprocessor:
             )
 
     def __call__(self, beat, downbeat, padding_mask=None):
-        beat = np.asarray(beat, dtype=np.float32)
-        downbeat = np.asarray(downbeat, dtype=np.float32)
-        batched = beat.ndim != 1
-        if padding_mask is None:
-            padding_mask = np.ones_like(beat, dtype=bool)
-        else:
-            padding_mask = np.asarray(padding_mask).astype(bool)
-        if not batched:
-            beat, downbeat, padding_mask = beat[None], downbeat[None], padding_mask[None]
-        if self.type == "minimal":
-            out_beat, out_downbeat = self.postp_minimal(beat, downbeat, padding_mask)
-        else:
-            out_beat, out_downbeat = self.postp_dbn(beat, downbeat, padding_mask)
-        if not batched:
-            return out_beat[0], out_downbeat[0]
-        return out_beat, out_downbeat
+        with span("post"):
+            beat = np.asarray(beat, dtype=np.float32)
+            downbeat = np.asarray(downbeat, dtype=np.float32)
+            batched = beat.ndim != 1
+            if padding_mask is None:
+                padding_mask = np.ones_like(beat, dtype=bool)
+            else:
+                padding_mask = np.asarray(padding_mask).astype(bool)
+            if not batched:
+                beat, downbeat, padding_mask = beat[None], downbeat[None], padding_mask[None]
+            if self.type == "minimal":
+                out_beat, out_downbeat = self.postp_minimal(beat, downbeat, padding_mask)
+            else:
+                out_beat, out_downbeat = self.postp_dbn(beat, downbeat, padding_mask)
+            if not batched:
+                return out_beat[0], out_downbeat[0]
+            return out_beat, out_downbeat
 
     def postp_minimal(self, beat, downbeat, padding_mask):
         stacked = torch.from_numpy(np.stack([beat, downbeat])).to(self.device)
         mask = torch.from_numpy(np.broadcast_to(padding_mask[None], stacked.shape).copy())
-        peaks = peak_pick(stacked, mask.to(self.device)).cpu().numpy()  # (2, B, T)
+        peaks = peak_pick(stacked, mask.to(self.device))
+        with span("wait"):  # the host waits for the card here
+            peaks = peaks.cpu().numpy()  # (2, B, T)
         results = [
             self._postp_minimal_item(b, d, m)
             for b, d, m in zip(peaks[0], peaks[1], padding_mask)

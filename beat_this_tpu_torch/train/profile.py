@@ -10,8 +10,11 @@ x 1500 frames, 2 microbatches, the default dropout of
 `torch.profiler` and prints, beside the card's `nvidia-smi` name and power
 limit: the step's wall time (host clock around a synchronized step), the
 device's summed kernel time and busy share (kernel time over wall), the
-step's peak device memory (`torch.cuda.max_memory_allocated`), and the
-kernels by device time, grouped by the port's kernel families (B4/B5
+step's peak device memory (`torch.cuda.max_memory_allocated`), the device
+time of each kernel entry's `bt.<entry>` range (`profiler.range_device_ms`:
+a kernel counts for the entry that launched it, so B7's feed-forward half
+counts for B7, not B9) and of the rest, and the kernels by device time,
+grouped by the port's kernel families (B4/B5
 `fused_time_train.cu`, B6 `fused_freq.cu`, B7 `fused_freq_train.cu`, B8/B9
 `ff_train.cuh`, whose B9 families also hold B7's feed-forward half, run by
 the same kernels; the shared operand conversions; at `--head-dim 16`, where
@@ -28,6 +31,8 @@ import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
+
+from beat_this_tpu_torch import profiler
 
 BATCH, LENGTH, ACCUM = 8, 1500, 2  # crops per microbatch, frames per crop, microbatches
 WARMUP, TOP = 2, 12  # unprofiled steps first; kernels listed by name
@@ -144,12 +149,13 @@ def main(argv=None) -> dict:
 
     by_name: dict[str, float] = defaultdict(float)
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
             by_name[evt.name] += evt.device_time_total / 1e3  # us -> ms
     by_family: dict[str, float] = defaultdict(float)
     for name, ms in by_name.items():
         by_family[family(name)] += ms
     device_ms = sum(by_name.values())
+    ranges = profiler.range_device_ms(prof.events(), device_ms)
     config = "stock" if args.partial_transformers else "no-partial"
     if args.head_dim != 32:
         config += f", head_dim {args.head_dim}"
@@ -158,12 +164,14 @@ def main(argv=None) -> dict:
           f"{BATCH} x {LENGTH}, {ACCUM} microbatches: wall {1e3 * wall:.1f} ms, device kernel "
           f"time {device_ms:.1f} ms, busy share {device_ms / (1e3 * wall):.3f}, peak device "
           f"memory {peak_gib:.2f} GiB")
+    for entry, ms in sorted(ranges.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {entry}: {ms:.1f} ms ({ms / device_ms:.1%})")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {fam}: {ms:.1f} ms ({ms / device_ms:.1%})")
+        print(f"[profile]     {fam}: {ms:.1f} ms ({ms / device_ms:.1%})")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]:
         print(f"[profile]   kernel {name[:90]}: {ms:.2f} ms")
     return {"wall_ms": 1e3 * wall, "device_ms": device_ms, "peak_gib": peak_gib,
-            "families": dict(by_family)}
+            "ranges": ranges, "families": dict(by_family)}
 
 
 if __name__ == "__main__":

@@ -29,6 +29,7 @@ import torch.distributed as dist
 
 from beat_this_tpu_torch.model.beat_this import BeatThis
 from beat_this_tpu_torch.parallel.mesh import DataGroup
+from beat_this_tpu_torch.profiler import span
 from beat_this_tpu_torch.train.loss import make_losses
 from beat_this_tpu_torch.train.schedule import cosine_warmup_scheduler
 
@@ -97,13 +98,15 @@ def accumulate_grads(model: BeatThis, tc: TrainConfig, batch: dict, seeds: list,
     for i in range(tc.accum_steps):
         micro = {k: v[i] for k, v in batch.items()}
         last = i == tc.accum_steps - 1
-        with model.no_sync() if ddp and not last else contextlib.nullcontext():
+        with span("micro"), \
+                model.no_sync() if ddp and not last else contextlib.nullcontext():
             out = model(micro["spect"], compute_dtype=tc.dtype, kernels=kernels, train=True,
                         seed=seeds[i],
                         batch0=group.first_row(len(micro["spect"])) if ddp else 0,
                         group=group.process_group if ddp else None)
             p = loss_from_outputs(tc, out, micro)
-            (p["total"] / tc.accum_steps).backward()
+            with span("backward"):
+                (p["total"] / tc.accum_steps).backward()
         parts.append({k: v.detach() for k, v in p.items()})
     return {k: torch.stack([p[k] for p in parts]).mean() for k in parts[0]}
 
@@ -128,13 +131,15 @@ def train_step(model: BeatThis, opt, sched, batch: dict, generator: torch.Genera
     AdamW update, one schedule step. Returns the mean losses. Data-parallel
     (`group`): as `accumulate_grads`, every rank drawing the same seeds, and
     the losses are the global batch's on every rank."""
-    seeds = torch.randint(0, 2**31 - 1, (tc.accum_steps,), generator=generator).tolist()
-    opt.zero_grad(set_to_none=True)
-    parts = global_mean(accumulate_grads(model, tc, batch, seeds, kernels=kernels, group=group),
-                        group)
-    opt.step()
-    sched.step()
-    return parts
+    with span("step"):
+        seeds = torch.randint(0, 2**31 - 1, (tc.accum_steps,), generator=generator).tolist()
+        opt.zero_grad(set_to_none=True)
+        parts = global_mean(accumulate_grads(model, tc, batch, seeds, kernels=kernels, group=group),
+                            group)
+        with span("optimizer"):
+            opt.step()
+            sched.step()
+        return parts
 
 
 @torch.no_grad()

@@ -1061,7 +1061,8 @@ def call_device_ms(fn, reps: int = 20, windows: int = 3) -> float:
 
 def kernel_device_ms(fn, name: str, reps: int = 10, windows: int = 3) -> float:
     """Device time in ms of the one kernel whose name holds `name` that each
-    call of `fn` launches (the call's other launches not counted): the mean
+    call of `fn` launches (the call's other launches, and the device-side
+    spans of the program's `bt.*` ranges, not counted): the mean
     of the launches of it that torch.profiler recorded in a window of 2 reps
     calls, the median over `windows` windows with at least `reps` of them.
     In a long process the profiler drops launches from its windows, so a sum
@@ -1080,7 +1081,8 @@ def kernel_device_ms(fn, name: str, reps: int = 10, windows: int = 3) -> float:
                 fn()
             torch.cuda.synchronize()
         us = [e.device_time_total for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+              if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+              and name in e.name]
         if len(us) >= reps:
             per_call.append(sum(us) / len(us) / 1e3)
         if len(per_call) == windows:
@@ -1093,7 +1095,8 @@ def kernel_device_ms(fn, name: str, reps: int = 10, windows: int = 3) -> float:
 def library_kernels_ms(fn, reps: int = 10, windows: int = 3) -> dict:
     """Device time in ms per call of each kernel of the port's library that
     a call of `fn` launches, by kernel name (torch's own kernels, `at::`,
-    and copies left out): the mean of its launches torch.profiler recorded
+    copies, and the device-side spans of the program's `bt.*` ranges left
+    out): the mean of its launches torch.profiler recorded
     in a window of `reps` calls times its launches per call (the most of
     them one window recorded, over `reps`), the median over `windows`
     windows. Each launch the profiler records is whole, so the sum over
@@ -1114,8 +1117,8 @@ def library_kernels_ms(fn, reps: int = 10, windows: int = 3) -> dict:
             torch.cuda.synchronize()
         seen = {}
         for e in prof.events():
-            if (e.device_type == torch.autograd.DeviceType.CUDA and "at::" not in e.name
-                    and not e.name.startswith(("Memcpy", "Memset"))):
+            if (e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+                    and "at::" not in e.name and not e.name.startswith(("Memcpy", "Memset"))):
                 seen.setdefault(e.name, []).append(e.device_time_total)
         for name, us in seen.items():
             per_launch.setdefault(name, []).append(sum(us) / len(us) / 1e3)
