@@ -38,12 +38,28 @@
 //   c. d_go = d_branch W_out, whose epilogue writes round_T(dO / l) (dO =
 //      d_go gate) per (item, head) as an operand, the gate pullback d_z and
 //      delta = rowsum(dO / l * o).
-//   d. dq:    per (item * head, 64 queries) over key tiles: ds =
-//      round_T(p (dp f - delta)), dp = (dO / l) V^T, dq = ds K, then the
-//      inverse RoPE times 32^-0.5; round_T(d_q) as an operand.
-//   e. dkv:   per (item * head, 64 keys) over query tiles (dk and dv reduce
-//      over queries, so they get their own key-major pass, not atomics):
-//      dv = round_T(p f)^T dO / l, dk = ds^T Q (the unscaled q).
+//   d. the core, one key-major pass: per (item * head, 64 keys) over the
+//      query tiles, each score element's S, p, mask bits, dP and ds =
+//      round_T(p (dp f - delta)) (dp = (dO / l) V^T) once; dv = round_T(p
+//      f)^T dO / l and dk = ds^T Q (the unscaled q) in registers, and per
+//      tile the block's share of dq, ds K over its 64 keys (ds^T staged in
+//      shared memory, read transposed by ldmatrix), on the tensor cores.
+//      The shares of a query tile are summed in float32 in a fixed order:
+//      key block kb takes tiles kb, kb + 1, ... (cyclic), so the s-th
+//      contribution to tile i is key block i - s's, one per tile a step.
+//      A ticket per (item * head, query tile, warp) in global memory counts
+//      the contributions made; a warp waits (acquire) until it reads its
+//      own place, adds the running sum, stores it and raises the ticket
+//      (release). The first stores without reading, the last adds, then
+//      applies the inverse RoPE times 32^-0.5 and writes round_T(d_q) as an
+//      operand. The running sums live in d_gn (step f writes it first), the
+//      tickets and a start-order counter in d_gamma's partials (step g
+//      writes them first), zeroed by step b: no new memory, and no float
+//      atomics (blocks take their (item * head, key block) by an integer
+//      counter, in start order, so a block waits only on blocks of its own
+//      (item, head), all resident at once: a launch takes at most half the
+//      blocks the card holds per (item, head), more key blocks take more
+//      launches).
 //   f. d_gn = [d_q | d_k | d_v] W_qkv (float32, scratch).
 //   g. post:  per 32 rows, + d_z W_g and the RMSNorm backward for dx, the
 //      per-tile partials of dgamma, dW_g and db_g, and g = round_T(rmsnorm(x)
@@ -84,110 +100,94 @@ __device__ __forceinline__ void store_rope_inv(bf16* dst, int64_t lo, float a, f
   mm::store2<P>(dst, lo, (a * cs + b * sn) * kScale, (b * cs - a * sn) * kScale);
 }
 
-// dol: round_T(dO / l) as (items * H, n, 32) operands (parts `lo` apart, as
-// q, k, v); dqkv: (items, n, 3C) operand (parts dlo apart).
-template <int P>
-__global__ void __launch_bounds__(kThreads)
-    attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dol, int64_t lo,
-                   const float* __restrict__ mrow, const float* __restrict__ delta,
-                   const float* __restrict__ cosv, const float* __restrict__ sinv,
-                   bf16* __restrict__ dqkv, int64_t dlo, int n, int H, bt::Dropout drop) {
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  Tile<kHD>* ks = reinterpret_cast<Tile<kHD>*>(smem_b);
-  Tile<kHD>* vs = ks + kStages * P;
-  const int bh = blockIdx.x, item = bh / H, h = bh % H;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.y * kRows + 16 * (threadIdx.x >> 5);
-  const size_t base = (size_t)bh * n * kHD;
-  const int tiles = (n + kTile - 1) / kTile;
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < tiles) {
-      stage_parts<kHD, P>(ks + st * P, k + base, lo, st * kTile, n);
-      stage_parts<kHD, P>(vs + st * P, v + base, lo, st * kTile, n);
-    }
-    bt::cp_async_commit();
-  }
-  uint32_t qa[P][kHD / 16][4], da[P][kHD / 16][4];
-  load_parts<kHD, P>(qa, q + base, lo, row0, n);
-  load_parts<kHD, P>(da, dol + base, lo, row0, n);
-  float m[2], dl[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = row0 + g + 8 * hh;
-    m[hh] = r < n ? mrow[(size_t)bh * n + r] : 0.f;
-    dl[hh] = r < n ? delta[(size_t)bh * n + r] : 0.f;
-  }
-  float acc[kHD / 8][4] = {};
-  for (int it = 0; it < tiles; ++it) {
-    const int k0 = it * kTile, buf = it % kStages;
-    bt::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (it + kStages - 1 < tiles) {
-      const int nb = (it + kStages - 1) % kStages;
-      stage_parts<kHD, P>(ks + nb * P, k + base, lo, k0 + (kStages - 1) * kTile, n);
-      stage_parts<kHD, P>(vs + nb * P, v + base, lo, k0 + (kStages - 1) * kTile, n);
-    }
-    bt::cp_async_commit();
-    float s[8][4], dp[8][4];
-    scores<kHD, P>(s, qa, ks + buf * P);
-    scores<kHD, P>(dp, da, vs + buf * P);
-    uint32_t bits[2] = {0u, 0u};
-    if (drop.on) keep_bits(drop, item, h, row0 + g, k0, bits);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int x = 2 * hh + e;
-          const float p =
-              k0 + 8 * j + 2 * t + e < n ? fast_exp2(s[j][x] * kQScale - m[hh]) : 0.f;
-          const float f = drop.on ? keep_factor(drop, bits[hh], 2 * j + e) : 1.f;
-          s[j][x] = p * (dp[j][x] * f - dl[hh]);  // dS, rounded by to_parts
-        }
-    uint32_t pa[P][4][4];
-    to_parts<P>(pa, s);
-    accumulate<kHD, P>(acc, pa, ks + buf * P);
-  }
-  const int C = H * kHD;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = row0 + g + 8 * hh;
-    if (r >= n) continue;
-    bf16* dst = dqkv + ((int64_t)item * n + r) * 3 * C + h * kHD;
-#pragma unroll
-    for (int c = 0; c < kHD / 8; ++c)
-      store_rope_inv<P>(dst + 8 * c + 2 * t, dlo, acc[c][2 * hh], acc[c][2 * hh + 1], cosv, sinv,
-                        (size_t)r * (kHD / 2) + 4 * c + t);
-  }
+// The fused pass's smem: dkv_smem's Q and dO rings, m, delta and mask
+// tables, then the block's K (P parts) and dS^T (P parts), and the block's
+// place in start order.
+template <int P> constexpr size_t fused_smem() {
+  return dkv_smem<kHD, P>() + P * (sizeof(Tile<kHD>) + sizeof(Tile<kTile>)) + 16;
 }
 
+// The warp's dS^T (16 keys x 64 queries, A fragments of P parts) into the
+// block's dS^T tiles (keys x queries), one 32-bit pair a store.
+template <int P>
+__device__ __forceinline__ void put_ds(Tile<kTile>* ds, const uint32_t (&pa)[P][4][4]) {
+  const int lane = threadIdx.x & 31, r0 = 16 * (threadIdx.x >> 5) + (lane >> 2), t = lane & 3;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        *reinterpret_cast<uint32_t*>(&ds[p][r0 + 8 * (r & 1)][16 * kk + 8 * (r >> 1) + 2 * t]) =
+            pa[p][kk][r];
+}
+
+// A fragments of dS (the warp's 16 queries x the block's 64 keys) from the
+// dS^T tiles, transposed by ldmatrix.
+template <int P>
+__device__ __forceinline__ void load_ds(uint32_t (&pa)[P][4][4], const Tile<kTile>* ds) {
+  const int lane = threadIdx.x & 31, q0 = 16 * (threadIdx.x >> 5);
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      bt::ldsm_x4_t(pa[p][kk],
+                    &ds[p][16 * kk + (lane & 7) + 8 * (lane >> 4)][q0 + 8 * ((lane >> 3) & 1)]);
+}
+
+__device__ __forceinline__ uint32_t load_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// One key-major pass over the score tiles of (item * head, 64 keys): dK, dV
+// and the block's share of dQ. dol: round_T(dO / l) as (items * H, n, 32)
+// operands (parts `lo` apart, as q, k, v); dqkv: (items, n, 3C) operand
+// (parts dlo apart); dqacc: (items * H, n, 32) float32, dQ's running sums;
+// sync: the start-order counter, then a ticket per (item * head, query
+// tile, warp). The launch covers key blocks [kb_lo, kb_hi) of every (item,
+// head), (item, head) outermost in start order.
 template <int P>
 __global__ void __launch_bounds__(kThreads)
     attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dol, int64_t lo,
                     const float* __restrict__ mrow, const float* __restrict__ delta,
                     const float* __restrict__ cosv, const float* __restrict__ sinv,
-                    bf16* __restrict__ dqkv, int64_t dlo, int n, int H, bt::Dropout drop) {
+                    bf16* __restrict__ dqkv, int64_t dlo, float* dqacc,
+                    uint32_t* sync, int n, int H, int kb_lo, int kb_hi,
+                    bt::Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem_b[];
   Tile<kHD>* qs = reinterpret_cast<Tile<kHD>*>(smem_b);  // q, unscaled
   Tile<kHD>* dos = qs + kStages * P;                     // round_T(dO / l)
-  float* lss = reinterpret_cast<float*>(dos + kStages * P);  // [kStages][kTile] m
+  Tile<kHD>* kst = dos + kStages * P;                    // the block's keys
+  Tile<kTile>* dss = reinterpret_cast<Tile<kTile>*>(kst + P);  // dS^T, rounded parts
+  float* lss = reinterpret_cast<float*>(dss + P);             // [kStages][kTile] m
   float* dls = lss + kStages * kTile;                         // [kStages][kTile] delta
-  // mask bits of 4 keys per byte, by tile parity
+  // mask bits of 4 keys per byte, by step parity
   auto* keepb = reinterpret_cast<uint8_t(*)[kTile][kRows / 4]>(dls + kStages * kTile);
-  const int bh = blockIdx.x, item = bh / H, h = bh % H;
+  int* slot = reinterpret_cast<int*>(keepb + 2);
+  const int T = (n + kTile - 1) / kTile, G = kb_hi - kb_lo;
+  // blocks take their (item * head, key block) in the order they start, so
+  // every block a block waits on of an earlier (item, head) has started
+  if (threadIdx.x == 0) *slot = (int)(atomicAdd(sync, 1u) - gridDim.x / G * kb_lo);
+  __syncthreads();
+  const int id = *slot, bh = id / G, kb = kb_lo + id % G, item = bh / H, h = bh % H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int kb0 = blockIdx.y * kRows, row0 = kb0 + 16 * warp;
+  const int kb0 = kb * kRows, row0 = kb0 + 16 * warp;
   const size_t base = (size_t)bh * n * kHD;
   const float* mr = mrow + (size_t)bh * n;
   const float* dr = delta + (size_t)bh * n;
-  const int tiles = (n + kTile - 1) / kTile;
-  // stages tile `st` (queries st * kTile ...) into buffer st % kStages
+  // step s takes query tile kb + s (cyclic): each step, every tile gets one
+  // block's contribution
+  auto tile_of = [&](int s) { return kb + s < T ? kb + s : kb + s - T; };
+  // stages step `st`'s query tile into buffer st % kStages
   auto stage_tile = [&](int st) {
-    const int b = st % kStages, q0 = st * kTile;
+    const int b = st % kStages, q0 = tile_of(st) * kTile;
     stage_parts<kHD, P>(qs + b * P, q + base, lo, q0, n);
     stage_parts<kHD, P>(dos + b * P, dol + base, lo, q0, n);
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
@@ -195,26 +195,29 @@ __global__ void __launch_bounds__(kThreads)
       dls[b * kTile + i] = q0 + i < n ? dr[q0 + i] : 0.f;
     }
   };
+  stage_parts<kHD, P>(kst, k + base, lo, kb0, n);
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < tiles) stage_tile(st);
+    if (st < T) stage_tile(st);
     bt::cp_async_commit();
   }
-  if (drop.on) keep_table(keepb[0], drop, item, h, kb0, 0);
+  if (drop.on) keep_table(keepb[0], drop, item, h, kb0, tile_of(0) * kTile);
   uint32_t ka[P][kHD / 16][4], va[P][kHD / 16][4];
   load_parts<kHD, P>(ka, k + base, lo, row0, n);
   load_parts<kHD, P>(va, v + base, lo, row0, n);
+  const bool kin[2] = {row0 + g < n, row0 + g + 8 < n};
+  const int C = H * kHD;
   float dk[kHD / 8][4] = {}, dv[kHD / 8][4] = {};
-  for (int it = 0; it < tiles; ++it) {
-    const int q0 = it * kTile, buf = it % kStages;
+  for (int s = 0; s < T; ++s) {
+    const int qt = tile_of(s), q0 = qt * kTile, buf = s % kStages;
     bt::cp_async_wait<kStages - 2>();
     __syncthreads();
-    if (it + kStages - 1 < tiles) stage_tile(it + kStages - 1);
+    if (s + kStages - 1 < T) stage_tile(s + kStages - 1);
     bt::cp_async_commit();
-    // the next tile's bits into the table the previous tile used
-    if (drop.on && it + 1 < tiles) keep_table(keepb[(it + 1) & 1], drop, item, h, kb0, q0 + kTile);
-    float s[8][4], dp[8][4];
-    scores<kHD, P>(s, ka, qs + buf * P);    // S^T: the warp's 16 keys x 64 queries
+    // the next step's bits into the table the previous step used
+    if (drop.on && s + 1 < T) keep_table(keepb[(s + 1) & 1], drop, item, h, kb0, tile_of(s + 1) * kTile);
+    float sc[8][4], dp[8][4];
+    scores<kHD, P>(sc, ka, qs + buf * P);    // S^T: the warp's 16 keys x 64 queries
     scores<kHD, P>(dp, va, dos + buf * P);  // dP^T
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -226,21 +229,75 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int x = 2 * hh + e, kl = 16 * warp + g + 8 * hh;
-          const float p = in ? fast_exp2(s[j][x] * kQScale - lq) : 0.f;
-          const float f = !drop.on                                          ? 1.f
-                          : ((keepb[it & 1][qi][kl >> 2] >> (kl & 3)) & 1) ? drop.scale
-                                                                            : 0.f;
-          s[j][x] = p * f;                     // P^T f, rounded by to_parts
+          const float p = in && kin[hh] ? fast_exp2(sc[j][x] * kQScale - lq) : 0.f;
+          const float f = !drop.on                                         ? 1.f
+                          : ((keepb[s & 1][qi][kl >> 2] >> (kl & 3)) & 1) ? drop.scale
+                                                                           : 0.f;
+          sc[j][x] = p * f;                    // P^T f, rounded by to_parts
           dp[j][x] = p * (dp[j][x] * f - dq);  // dS^T, rounded by to_parts
         }
       }
     uint32_t pa[P][4][4];
-    to_parts<P>(pa, s);
+    to_parts<P>(pa, sc);
     accumulate<kHD, P>(dv, pa, dos + buf * P);
     to_parts<P>(pa, dp);
+    put_ds<P>(dss, pa);
     accumulate<kHD, P>(dk, pa, qs + buf * P);
+    __syncthreads();
+    // dQ of the warp's 16 queries over the block's 64 keys, dS K, added in
+    // a fixed order to the sums of the blocks before
+    const int qw = q0 + 16 * warp;
+    if (qw >= n) continue;
+    load_ds<P>(pa, dss);
+    float dqp[kHD / 8][4] = {};
+    accumulate<kHD, P>(dqp, pa, kst);
+    // the blocks before this one at tile qt: kb + 1 .. kb + s (cyclic) where
+    // they lie in the launch's key blocks, after every earlier launch's
+    const int above = kb_hi - 1 - kb;
+    const uint32_t rank = kb_lo + min(s, above) + max(0, s - above - (T - G));
+    uint32_t* ticket = sync + 1 + ((size_t)bh * T + qt) * (kRows / 16) + warp;
+    float* acc = dqacc + base + (size_t)qw * kHD;
+    if (rank > 0) {
+      if (lane == 0)
+        while (load_acquire(ticket) != rank) {
+        }
+      __syncwarp();
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (qw + g + 8 * hh >= n) continue;
+#pragma unroll
+        for (int c = 0; c < kHD / 8; ++c) {
+          const float2 a = __ldcg(reinterpret_cast<const float2*>(acc + (g + 8 * hh) * kHD + 8 * c + 2 * t));
+          dqp[c][2 * hh] += a.x;
+          dqp[c][2 * hh + 1] += a.y;
+        }
+      }
+    }
+    if (rank + 1 < (uint32_t)T) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (qw + g + 8 * hh >= n) continue;
+#pragma unroll
+        for (int c = 0; c < kHD / 8; ++c)
+          __stcg(reinterpret_cast<float2*>(acc + (g + 8 * hh) * kHD + 8 * c + 2 * t),
+                 make_float2(dqp[c][2 * hh], dqp[c][2 * hh + 1]));
+      }
+      __syncwarp();  // the warp's stores before lane 0's release
+      if (lane == 0) store_release(ticket, rank + 1);
+      continue;
+    }
+    // the last contribution: the inverse RoPE times 32^-0.5, round_T(d_q)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = qw + g + 8 * hh;
+      if (r >= n) continue;
+      bf16* dst = dqkv + ((int64_t)item * n + r) * 3 * C + h * kHD;
+#pragma unroll
+      for (int c = 0; c < kHD / 8; ++c)
+        store_rope_inv<P>(dst + 8 * c + 2 * t, dlo, dqp[c][2 * hh], dqp[c][2 * hh + 1], cosv,
+                          sinv, (size_t)r * (kHD / 2) + 4 * c + t);
+    }
   }
-  const int C = H * kHD;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = row0 + g + 8 * hh;
@@ -255,6 +312,28 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Blocks of the fused pass the card holds at once (cached per device, the
+// first kDevices).
+constexpr int kDevices = 16;
+
+template <int P> cudaError_t resident_blocks(int* blocks) {
+  static int kept[kDevices];
+  int dev = 0, per_sm = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && kept[dev]) {
+    *blocks = kept[dev];
+    return cudaSuccess;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_dkv_kernel<P>, kThreads,
+                                                      fused_smem<P>());
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *blocks = per_sm * sms;
+  if (dev < kDevices) kept[dev] = *blocks;
+  return cudaSuccess;
+}
+
 }  // namespace tc
 
 // -- the row passes and the products ---------------------------------------------
@@ -263,15 +342,19 @@ using mm::kTM;
 
 // round_T(o * gate) (items, n, C) and, in the backward, d_branch =
 // round_T(dout * output mask) as operands (parts `lo` apart), four columns a
-// thread and step.
+// thread and step; and the fused pass's nsync counters zeroed.
 template <typename T>
 __global__ void __launch_bounds__(bt::kThreads)
     attn_bwd_pre_kernel(const T* __restrict__ dout, const float* __restrict__ o,
                         const float* __restrict__ gates, bf16* __restrict__ dbr,
-                        bf16* __restrict__ go, int64_t lo, int64_t rows, int C, bt::Dropout drop) {
+                        bf16* __restrict__ go, int64_t lo, int64_t rows, int C,
+                        uint32_t* __restrict__ sync, int64_t nsync, bt::Dropout drop) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
   const int H = C / kHD;
   const int64_t quads = rows * C / 4;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < nsync;
+       e += (int64_t)gridDim.x * blockDim.x)
+    sync[e] = 0;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < quads;
        e += (int64_t)gridDim.x * blockDim.x) {
     const int64_t r = e / (C / 4);
@@ -659,13 +742,20 @@ cudaError_t launch_bwd(const void* x, const void* agamma, const void* wqkv, cons
   const bf16* ko = SPLIT ? s.k : (const bf16*)k;
   const bf16* vo = SPLIT ? s.v : (const bf16*)v;
 
-  // b. d_branch and the gated rows as operands
+  // b. d_branch and the gated rows as operands; the fused pass's counters
+  // (the start order, then a ticket per (item * head, query tile, warp)) in
+  // d_gamma's partials, which step g writes first
+  const int qtiles = (n + tc::kTile - 1) / tc::kTile;
+  const int64_t nsync = 1 + (qtiles > 1 ? (int64_t)items * H * qtiles * (tc::kRows / 16) : 0);
+  if (nsync > tiles * C) return cudaErrorInvalidValue;
+  uint32_t* sync = reinterpret_cast<uint32_t*>(s.dgp);
   const int64_t quads = rlo / 4;
   const unsigned pre_blocks =
       (unsigned)std::min<int64_t>((quads + bt::kThreads - 1) / bt::kThreads,
                                   mm::kCardSMs * 16);
   attn_bwd_pre_kernel<T><<<pre_blocks, bt::kThreads, 0, stream>>>(
-      (const T*)dout, (const float*)o, (const float*)gates, s.dbr, s.go, rlo, rows, C, drop);
+      (const T*)dout, (const float*)o, (const float*)gates, s.dbr, s.go, rlo, rows, C, sync,
+      nsync, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // c. d_go = d_branch W_out and its epilogue
@@ -677,20 +767,23 @@ cudaError_t launch_bwd(const void* x, const void* agamma, const void* wqkv, cons
       s.dol, rlo, s.dz, s.delta, rows, n, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // d, e. the attention core
-  const dim3 agrid(items * H, (n + tc::kRows - 1) / tc::kRows);
-  auto kd = tc::attn_dq_kernel<P>;
-  if ((err = bt::allow_smem(kd, tc::fwd_smem<kHD, P>())) != cudaSuccess) return err;
-  kd<<<agrid, tc::kThreads, tc::fwd_smem<kHD, P>(), stream>>>(
-      qo, ko, vo, s.dol, rlo, (const float*)mrow, s.delta, (const float*)cosv,
-      (const float*)sinv, s.dqkv, 3 * rlo, n, H, drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // d. the attention core, one key-major pass (dQ summed in d_gn, which
+  // step f writes first). Every key block of an (item, head) must be
+  // resident at once, so a launch takes at most half the blocks the card
+  // holds per (item, head); longer sequences take several launches in turn.
   auto ke = tc::attn_dkv_kernel<P>;
-  if ((err = bt::allow_smem(ke, tc::dkv_smem<kHD, P>())) != cudaSuccess) return err;
-  ke<<<agrid, tc::kThreads, tc::dkv_smem<kHD, P>(), stream>>>(
-      qo, ko, vo, s.dol, rlo, (const float*)mrow, s.delta, (const float*)cosv,
-      (const float*)sinv, s.dqkv, 3 * rlo, n, H, drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  constexpr size_t smem_core = tc::fused_smem<P>();
+  if ((err = bt::allow_smem(ke, smem_core)) != cudaSuccess) return err;
+  int resident = 0;
+  if ((err = tc::resident_blocks<P>(&resident)) != cudaSuccess) return err;
+  const int per_launch = std::max(1, std::min(qtiles, resident / 2));
+  for (int kb_lo = 0; kb_lo < qtiles; kb_lo += per_launch) {
+    const int kb_hi = std::min(qtiles, kb_lo + per_launch);
+    ke<<<(unsigned)((int64_t)items * H * (kb_hi - kb_lo)), tc::kThreads, smem_core, stream>>>(
+        qo, ko, vo, s.dol, rlo, (const float*)mrow, s.delta, (const float*)cosv,
+        (const float*)sinv, s.dqkv, 3 * rlo, s.dgn, sync, n, H, kb_lo, kb_hi, drop);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
 
   // f. d_gn = d_qkv W_qkv
   const mm::ProductJob dgn{Operand{s.dqkv, 3 * C, 3 * rlo}, wqkv_op, s.dgn, C, 0, rows, C,

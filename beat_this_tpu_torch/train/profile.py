@@ -59,8 +59,7 @@ FAMILIES = (
     ("attn_out_kernel", "B4 attn_out"),
     ("attn_bwd_pre", "B5 pre (d_branch, gated rows)"),
     ("attn_dgo", "B5 d_go"),
-    ("attn_dq_kernel", "B5 dq"),
-    ("attn_dkv_kernel", "B5 dkv"),
+    ("attn_dkv_kernel", "B5 dq, dk, dv (one pass)"),
     ("attn_product_kernel<false", "B5 d_gn"),
     ("attn_product_kernel<true", "B5 dW_qkv, dW_out"),
     ("attn_bwd_post", "B5 post"),

@@ -16,7 +16,7 @@ non-zero without the final `"ok": true` line:
    eval K1 and K2's tail), of the time-axis attention branch's kernels
    (the q/k/v product shared by the eval block K2 and the training forward,
    the attention core's forward at eval and in training, the out
-   projections; backward d_go, dq, dk/dv and products), of the
+   projections; backward d_go, the fused dq/dk/dv pass and products), of the
    frequency block's kernel (K3, B6, and B13's qkv / ff / attn cuts; its
    copy and rms cuts hold none) and training backward, and of the 11
    softmax variants (B15a), bfloat16 and the float32 split products alike,
@@ -264,14 +264,14 @@ FREQ_CORE_TC_KERNELS = {"freq_core_fwd_kernel": 6, "freq_core_bwd_kernel": 6}
 # backward instantiates B9's hidden and product kernels once more), the q/k/v
 # product (B4's and K2's, in their sources), the
 # attention core's forward (B4, and K2 at eval) and the out projections (B4's
-# attn_out, K2's time_out), the attention branch's backward (B5: d_go, dq,
-# dk/dv, d_gn and the weight gradients), the frequency block's backward (B7:
+# attn_out, K2's time_out), the attention branch's backward (B5: d_go, the
+# fused dq/dk/dv pass, d_gn and the weight gradients), the frequency block's backward (B7:
 # q/k/v, out projection, d_og, d_g and the weight gradients) and its forward
 # (K3 at eval, B6 in training: one kernel, 3 widths x 2 dtypes x eval / train)
 TRAIN_TC_KERNELS = {"ff_hidden_kernel": 10, "ff_product_kernel": 26, "ff_out_kernel": 12,
                     "time_qkv_kernel": 8, "attn_fwd_kernel": 4, "attn_out_kernel": 4,
-                    "time_out_kernel": 4, "attn_dgo_kernel": 4, "attn_dq_kernel": 2,
-                    "attn_dkv_kernel": 2, "attn_product_kernel": 8, "freq_qkv_kernel": 4,
+                    "time_out_kernel": 4, "attn_dgo_kernel": 4, "attn_dkv_kernel": 2,
+                    "attn_product_kernel": 8, "freq_qkv_kernel": 4,
                     "freq_out_kernel": 4, "freq_dog_kernel": 4, "freq_product_kernel": 8}
 # the frequency block's kernel by its STAGE argument (csrc/freq_block.cuh):
 # instantiations, and whether they hold products. 5, the whole block: K3 at

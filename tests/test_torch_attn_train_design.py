@@ -12,6 +12,11 @@ the card:
 - the forward's two walks over the keys (the row maximum first) round p as
   the plain version does, where an online softmax rounds it against a
   running maximum;
+- the backward's one key-major pass sums dQ from per-64-key-block float32
+  shares in a fixed order (key block i - s gives tile i's s-th share), so
+  the bits do not depend on the order blocks run in, and the sum stays
+  within the float32 limit; its places (tickets) follow the steps at which
+  the blocks reach a tile, over one launch or several;
 - the wrapper's row groups of the weight-gradient launch and the scratch
   the backward's layout needs at the main and frontend shapes.
 
@@ -86,6 +91,73 @@ def test_split_products_meet_the_float32_limit(n, rate, seed):
         assert _rel(split[name], want[name]) < 1e-3, (name, _rel(split[name], want[name]))
     # why float32 needs the split: one bf16 product per step misses the limit
     assert max(_rel(one[name], want[name]) for name in want) > 1e-3
+
+
+def _rank(kb: int, s: int, tiles: int, kb_lo: int, kb_hi: int) -> int:
+    """The fused pass's place of key block kb's share in query tile kb + s
+    (cyclic) when a launch covers key blocks [kb_lo, kb_hi)
+    (csrc/fused_time_train.cu: attn_dkv_kernel)."""
+    above = kb_hi - 1 - kb
+    return kb_lo + min(s, above) + max(0, s - above - (tiles - (kb_hi - kb_lo)))
+
+
+def _fused_dq(ds: torch.Tensor, k: torch.Tensor, start: np.ndarray) -> torch.Tensor:
+    """dQ as the fused pass sums it: the blocks, started in the order
+    `start` (key blocks), each make a float32 split-product share of dS K
+    over their 64 keys per query tile; a tile takes its shares in the order
+    of their places, the first stored, the rest added; then the scale."""
+    n, tile = ds.shape[0], 64
+    tiles = -(-n // tile)
+    shares = {}
+    for kb in start:
+        keys = slice(kb * tile, (kb + 1) * tile)
+        for s in range(tiles):
+            qt = (kb + s) % tiles
+            rows = slice(qt * tile, (qt + 1) * tile)
+            shares[qt, _rank(kb, s, tiles, 0, tiles)] = _mm(ds[rows, keys], k[keys], 2)
+    out = torch.empty(n, k.shape[1], dtype=torch.float32)
+    for qt in range(tiles):
+        acc = shares[qt, 0]
+        for r in range(1, tiles):
+            acc = acc + shares[qt, r]
+        out[qt * tile:(qt + 1) * tile] = acc
+    return out * SCALE
+
+
+@pytest.mark.parametrize("n,rate,seed", [(1500, 0.2, 5), (333, 0.1, 6), (64, 0.2, 7)])
+def test_fused_pass_sums_dq_in_a_fixed_order(n, rate, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, dol = (torch.from_numpy(rng.standard_normal((n, 32))) for _ in range(4))
+    dol = dol / n
+    keep = rng.random((n, n)) >= rate
+    f = torch.from_numpy(np.where(keep, 1.0 / (1.0 - rate), 0.0))
+    want = _chain(q, k, v, dol, f, lambda a, b: a @ b)
+    f32 = [t.float() for t in (q, k, v, dol, f)]
+    split = _chain(*f32, lambda a, b: _mm(a, b, 2))
+    tiles = -(-n // 64)
+    first = _fused_dq(split["dS"], f32[1], np.arange(tiles))
+    second = _fused_dq(split["dS"], f32[1], rng.permutation(tiles))
+    assert torch.equal(first, second)
+    assert _rel(first, want["dQ"]) < 1e-3, _rel(first, want["dQ"])
+
+
+@pytest.mark.parametrize("tiles,per_launch", [(24, 24), (1, 1), (10, 4), (313, 132), (7, 3)])
+def test_fused_pass_places_follow_the_steps(tiles, per_launch):
+    """Per query tile, the places of the shares are 0 .. tiles - 1, each
+    launch's after every earlier launch's, and within a launch a share's
+    place follows the step at which its block reaches the tile: the share
+    before it was made at an earlier step, so no block waits on a later
+    one."""
+    for qt in range(tiles):
+        seen = []
+        for kb_lo in range(0, tiles, per_launch):
+            kb_hi = min(tiles, kb_lo + per_launch)
+            steps = {(qt - kb) % tiles: _rank(kb, (qt - kb) % tiles, tiles, kb_lo, kb_hi)
+                     for kb in range(kb_lo, kb_hi)}
+            ranks = [steps[s] for s in sorted(steps)]
+            assert ranks == list(range(kb_lo, kb_hi))
+            seen += ranks
+        assert seen == list(range(tiles))
 
 
 def test_scale_on_the_accumulator_reproduces_the_plain_scores():

@@ -400,11 +400,15 @@ def test_fused_time_attention_train(device, dtype, tol, rate, heads, n, items):
 
 
 @pytest.mark.parametrize("dtype,tol", TRAIN_DTYPES)
-@pytest.mark.parametrize("heads,n,items", [(1, 77, 3), (1, 1500, 2), (16, 1500, 1)])
+@pytest.mark.parametrize("heads,n,items", [(1, 77, 3), (1, 1500, 2), (16, 1500, 1), (2, 64, 3),
+                                           (1, 17000, 1)])
 def test_fused_time_attention_train_tensor_core_tiles(device, dtype, tol, heads, n, items):
     """B4/B5 on the tensor cores at lengths that are not multiples of the
-    64-row tiles (n 77, 1500), one head at C 32, 16 at C 512, dropout 0.2:
-    output, dx and the five parameter gradients."""
+    64-row tiles (n 77, 1500), one 64-key block (n 64), and more key blocks
+    than one launch of B5's fused pass takes (n 17000: 266 blocks of an
+    (item, head), over half of what the card holds at 4 blocks an SM), one
+    head at C 32, 2 at C 64, 16 at C 512, dropout 0.2: output, dx and the
+    five parameter gradients."""
     c = heads * 32
     attn, _ = _block(c, heads, n + heads, device)
     attn.requires_grad_(True)
@@ -417,11 +421,15 @@ def test_fused_time_attention_train_tensor_core_tiles(device, dtype, tol, heads,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_train_backward_is_deterministic(device, dtype):
+@pytest.mark.parametrize("c,heads,n,items,rate", [(128, 4, 333, 8, 0.2), (512, 16, 1500, 8, 0.2),
+                                                  (32, 1, 1500, 256, 0.1)])
+def test_attention_train_backward_is_deterministic(device, dtype, c, heads, n, items, rate):
     """Two B5 backwards on the same inputs give the same bits in both
-    dtypes (row-group partials summed in a fixed order, no float atomics),
-    over enough rows for several weight-gradient groups."""
-    c, heads, n, items = 128, 4, 333, 8
+    dtypes (row-group partials and the fused pass's dQ shares summed in a
+    fixed order, no float atomics), over enough rows for several
+    weight-gradient groups; at the main shape (16 heads, 8 items) and the
+    frontend's (1 head at C 32, 256 items) the fused pass's blocks span
+    several waves."""
     assert -(-items * n // time_ops.attn_bwd_plan(items * n, c, dtype)[0]) > 2
     attn, _ = _block(c, heads, 7, device)
     attn.requires_grad_(True)
@@ -429,7 +437,7 @@ def test_attention_train_backward_is_deterministic(device, dtype):
     x = _x((items, n, c), dtype, device, 8)
 
     def fn(t):
-        return time_ops.fused_time_attention_train(t, attn, cos, sin, heads, 0.2, 9)
+        return time_ops.fused_time_attention_train(t, attn, cos, sin, heads, rate, 9)
 
     cot = _x(x.shape, torch.float32, device, 10)
     first = _run_grads(fn, x, list(attn.parameters()), cot)
