@@ -28,7 +28,7 @@ import time
 from pathlib import Path
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "beat_this_tpu")
-PROFILED_UNITS = {"library": 3, "train": 2}
+PROFILED_UNITS = {"library": 3, "train": 2, "directory": 1}
 
 
 def parse(argv):
@@ -70,13 +70,14 @@ def window(cell, seconds: float):
 
 
 def build(reg, cell_name: str, seed: int, device, workdir: Path, trace: bool):
+    from harness.directory import Directory
     from harness.library import Library
     from harness.trace import Spans
     from harness.training import Training
 
     cell = reg.cell(cell_name)
     cfg, traffic = reg.config(cell["config"]), reg.traffic(cell["traffic"])
-    kind = {"library": Library, "train": Training}[traffic["kind"]]
+    kind = {"library": Library, "train": Training, "directory": Directory}[traffic["kind"]]
     return kind(cfg, traffic, seed, device, workdir, Spans(sync=True) if trace else None)
 
 

@@ -81,8 +81,8 @@ def test_each_new_metric_has_a_reader_and_its_cells():
     for name in NEW:
         assert callable(reg.reader(name).read)
         cells = per_layer[name]["workloads"]
-        kind = "train" if name.startswith("train.") else "library"
-        assert cells and all(reg.traffic(reg.cell(c)["traffic"])["kind"] == kind for c in cells)
+        kinds = {"train"} if name.startswith("train.") else {"library", "directory"}
+        assert cells and all(reg.traffic(reg.cell(c)["traffic"])["kind"] in kinds for c in cells)
 
 
 @pytest.mark.parametrize("name,span_us", [
